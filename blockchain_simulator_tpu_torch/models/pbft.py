@@ -15,7 +15,10 @@ raises ``NotImplementedError`` naming the slice of the port that brings it.
 
 PyTorch idiom: state and rings are mutable tensors.  The rings are updated in
 place (ops/ring.py), and ``t`` is a one-element int32 tensor on the device.
-Gates read their predicate back to the host (models/base.gated).
+Gates read their predicate back to the host (models/base.gated).  Each ring
+is popped once at the top of a tick and pushed once; nothing reads a ring
+between its push and the end of the tick, so the four pushes are collected
+and applied together at the end, in one kernel launch on the card.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from blockchain_simulator_tpu_torch.models.base import fault_masks, gated
 from blockchain_simulator_tpu_torch.ops import delivery as dv
-from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_add, ring_push_max
+from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
 from blockchain_simulator_tpu_torch.utils import threefry
 from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
 
@@ -311,7 +314,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
         consts.zeros_rt,
     )
     # replies are per broadcast, i.e. per active (node, window)
-    prep_rt = ring_push_add(prep_rt, t, rt_lo, rt_counts[:, :, None] * got_pp_i[None, :, :])
+    pushes = [(prep_rt, rt_lo, rt_counts[:, :, None] * got_pp_i[None, :, :], "add")]
 
     # ---- PREPARE_RES arrivals → prepare_vote → COMMIT broadcast -------------
     pv = prepare_vote + prep_t
@@ -339,7 +342,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
                                      commit_mat, lo, hi, drop, impl=eimpl),
         zeros_w,
     )
-    commit = ring_push_add(commit, t, lo, cm_contrib)
+    pushes.append((commit, lo, cm_contrib, "add"))
 
     # ---- COMMIT arrivals → commit_vote → finality ---------------------------
     cv = commit_vote + com_t
@@ -384,7 +387,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
             impl=eimpl),
         zeros_w,
     )
-    pp = ring_push_max(pp, t, lo + ser, pp_contrib)
+    pushes.append((pp, lo + ser, pp_contrib, "max"))
     rounds_sent = state.rounds_sent + send_block
     (slot_propose_tick,) = _scatter_window_events(
         None, None, state.slot_propose_tick,
@@ -414,7 +417,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
                                          trigger, enc, lo, hi, drop, impl=eimpl),
         consts.zeros_vc,
     )
-    vc = ring_push_max(vc, t, lo, vc_contrib)
+    pushes.append((vc, lo, vc_contrib, "max"))
+    ring_push_group(pushes, t)  # in place on all four rings
 
     state = dataclasses.replace(
         state,

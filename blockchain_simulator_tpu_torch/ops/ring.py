@@ -9,7 +9,8 @@ Unlike the JAX package (immutable arrays), the rings are updated IN PLACE:
 every function returns the buffer it was given, mutated.  ``t`` is a
 one-element int32 tensor on the ring's device and is never read back to the
 host: pop indexes with it, and the pushes hand it to the kernel as a device
-pointer (ops/ring_kernel.py).
+pointer (ops/ring_kernel.py).  :func:`ring_push_group` applies several
+pushes, each on its own ring, in one kernel launch.
 """
 
 from __future__ import annotations
@@ -35,3 +36,10 @@ def ring_push_add(buf, t, lo: int, contrib):
 def ring_push_max(buf, t, lo: int, contrib):
     """Max-combine (for value channels where 0 == empty)."""
     return ring_kernel.push(buf, t, lo, contrib, "max")
+
+
+def ring_push_group(items, t):
+    """Apply every ``(buf, lo, contrib, op)`` of ``items`` (op "add" or
+    "max", each on its own ring) at tick ``t``: one kernel launch on the
+    card.  The rings are updated in place."""
+    ring_kernel.push_group(items, t)

@@ -11,13 +11,14 @@ costs minutes) for the device time by kernel.
 Prints one JSON object: wall seconds and ticks/s of the run, and for the
 window its wall, the device time of kernels and of memory copies apart, the
 device's busy share, the kernels with the most device time, the ring-push
-kernel's mean device time per launch, and the CUDA runtime calls the host
-makes most often.  The busy share is the profiled window's device time over
-the wall of the same window run without the profiler (the run is
+kernel's mean device time per launch (one launch a tick applies the tick's
+four pushes), and the CUDA runtime calls the host makes most often.  The
+busy share is the profiled window's device time over the wall of the same
+window run without the profiler (the run is
 deterministic, so both issue the same kernels; kernels run on one stream,
 so they do not overlap).  ``profile_complete`` says whether the profile
-holds every ring-push launch the wrapper counted; a profile that lost
-events is reported, not hidden.  Exits non-zero without a card.
+holds every ring-push launch the wrapper counted, one per tick; a profile
+that lost events is reported, not hidden.  Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -66,18 +67,18 @@ def main() -> int:
     wall = timed(cfg)
     win = cfg.with_(sim_ms=WINDOW_MS)
     wall_window = timed(win)
-    ring_kernel.launches = 0
+    ring_kernel.launches = ring_kernel.pushes = 0
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
                                 acc_events=True) as prof:
         wall_profiled = timed(win)
-    push_counted = ring_kernel.launches
+    push_counted, pushes_counted = ring_kernel.launches, ring_kernel.pushes
     events = prof.key_averages()
     on_device = [e for e in events if _device_us(e) > 0]
     kernels = sorted((e for e in on_device if not _is_copy(e)), key=_device_us, reverse=True)
     copies = [e for e in on_device if _is_copy(e)]
     kernel_s = sum(_device_us(e) for e in kernels) / 1e6
     copy_s = sum(_device_us(e) for e in copies) / 1e6
-    push = [e for e in kernels if "ring_push_kernel" in e.key]
+    push = [e for e in kernels if "ring_push_group_kernel" in e.key]
     push_count = sum(e.count for e in push)
     runtime = sorted((e for e in events if e.key.startswith("cuda") and _device_us(e) == 0),
                      key=lambda e: e.count, reverse=True)
@@ -94,10 +95,12 @@ def main() -> int:
         "window_device_copy_s": copy_s,
         "window_device_busy_share": (kernel_s + copy_s) / wall_window,
         "window_kernel_launches": sum(e.count for e in kernels),
+        "window_kernel_launches_per_tick": sum(e.count for e in kernels) / win.ticks,
         "window_copies": sum(e.count for e in copies),
-        "profile_complete": push_count == push_counted == 4 * win.ticks,
+        "profile_complete": push_count == push_counted == win.ticks,
         "ring_push": {"launches_profiled": push_count,
                       "launches_counted": push_counted,
+                      "pushes_counted": pushes_counted,
                       "device_us_per_launch": (sum(_device_us(e) for e in push) / push_count
                                                if push_count else None)},
         "top_kernels": [{"name": e.key[:90], "count": e.count,

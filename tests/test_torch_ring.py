@@ -157,9 +157,9 @@ def test_cuda_engine_run_equals_cpu_run(cuda_device):
     """The tick engine with every push through the kernel equals the plain
     path, field for field (drops on, so every gate and channel fires)."""
     cfg = SimConfig(protocol="pbft", n=64, sim_ms=800, faults=FaultConfig(drop_prob=0.05))
-    before = tkernel.launches
+    tkernel.launches = tkernel.pushes = 0
     on_card = convert.state_to_numpy(runner.final_state(cfg, device=cuda_device))
-    assert tkernel.launches - before == 4 * cfg.ticks
+    assert (tkernel.launches, tkernel.pushes) == (cfg.ticks, 4 * cfg.ticks)
     on_cpu = convert.state_to_numpy(runner.final_state(cfg, device="cpu"))
     for k in on_cpu:
         np.testing.assert_array_equal(on_card[k], on_cpu[k], err_msg=k)
