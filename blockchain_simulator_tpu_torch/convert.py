@@ -1,8 +1,9 @@
 """State carried across between the JAX package and the port.
 
 The counterpart of carrying weights across: ``state_from_numpy`` turns the
-JAX package's ``PbftState`` / ``PbftBufs`` leaves, given as numpy arrays
-keyed by field name, into the port's dataclasses on a device, and
+JAX package's ``PbftState`` / ``PbftBufs`` leaves (the tick engine) or
+``PbftRoundState`` leaves (the round-blocked fast path), given as numpy
+arrays keyed by field name, into the port's dataclasses on a device, and
 ``state_to_numpy`` goes the other way.  Both packages can then start from one
 mid-run state.  :func:`state_digests` fingerprints every field, so two runs
 can be compared without shipping the arrays.
@@ -10,12 +11,14 @@ can be compared without shipping the arrays.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 
 import numpy as np
 import torch
 
-from blockchain_simulator_tpu_torch.models import pbft
+from blockchain_simulator_tpu_torch.models import pbft, pbft_round
+from blockchain_simulator_tpu_torch.runner import use_round_schedule
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
 
@@ -30,13 +33,23 @@ def _to_tensor(name, arr, device):
 
 
 def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
-    """``(PbftState, PbftBufs)`` on ``device`` from numpy leaves.  Shapes are
-    checked against ``pbft.init(cfg)``; ``bufs=None`` gives empty rings."""
-    ref_state, ref_bufs = pbft.init(cfg, device="meta")
+    """The state the config's engine carries, on ``device``, from numpy
+    leaves: ``(PbftState, PbftBufs)`` for the tick engine (``bufs=None``
+    gives empty rings), ``(PbftRoundState, ())`` when the config resolves to
+    the round-blocked fast path (which has no rings: ``bufs`` must be
+    ``None``).  Shapes are checked against the engine's ``init``."""
+    if use_round_schedule(cfg):
+        if bufs:
+            raise ValueError("the round-blocked fast path carries no rings")
+        ref_state, _ = pbft_round.init(cfg, device="meta")
+        groups = ((pbft_round.PbftRoundState, pbft_round.STATE_FIELDS,
+                   ref_state, state),)
+    else:
+        ref_state, ref_bufs = pbft.init(cfg, device="meta")
+        groups = ((pbft.PbftState, pbft.STATE_FIELDS, ref_state, state),
+                  (pbft.PbftBufs, pbft.BUF_FIELDS, ref_bufs, bufs))
     out = []
-    for cls, names, ref, leaves in (
-            (pbft.PbftState, pbft.STATE_FIELDS, ref_state, state),
-            (pbft.PbftBufs, pbft.BUF_FIELDS, ref_bufs, bufs)):
+    for cls, names, ref, leaves in groups:
         if leaves is None:
             out.append(pbft.init(cfg, device=device)[1])
             continue
@@ -49,17 +62,18 @@ def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
                                  f"config needs {tuple(want.shape)} {want.dtype}")
             fields[name] = t
         out.append(cls(**fields))
-    return tuple(out)
+    return tuple(out) if len(out) == 2 else (out[0], ())
 
 
 def state_to_numpy(state, bufs=None):
-    """Numpy leaves keyed by field name: ``state`` alone, or ``(state,
-    bufs)`` when ``bufs`` is given."""
-    def leaves(obj, names):
-        return {k: getattr(obj, k).detach().cpu().numpy() for k in names}
+    """Numpy leaves keyed by field name (either engine's state): ``state``
+    alone, or ``(state, bufs)`` when ``bufs`` is given."""
+    def leaves(obj):
+        return {f.name: getattr(obj, f.name).detach().cpu().numpy()
+                for f in dataclasses.fields(obj)}
 
-    s = leaves(state, pbft.STATE_FIELDS)
-    return s if bufs is None else (s, leaves(bufs, pbft.BUF_FIELDS))
+    s = leaves(state)
+    return s if bufs is None else (s, leaves(bufs))
 
 
 def digest(arr) -> str:

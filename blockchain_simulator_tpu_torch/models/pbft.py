@@ -8,9 +8,10 @@ finalizes; one tick = 1 ms for all N nodes at once; live vote state is a
 ``[N, W]`` slot window).  Same state fields, same arithmetic in int32, same
 threefry keys per (tick, channel): a run is bit-equal to the JAX package's.
 
-Ported arms: full mesh with edge (exact per-edge) delivery, drops, crash and
-Byzantine masks, ``byz_forge``, both fidelities, both quorum rules, and the
-windowed vote table (``pbft_window < pbft_max_slots``).  Everything else
+Ported arms: full mesh with edge (exact per-edge, ``"threefry"`` or
+``"rbg"`` delays) or stat (multinomial bucket counts) delivery, drops, crash
+and Byzantine masks, ``byz_forge``, both fidelities, both quorum rules, and
+the windowed vote table (``pbft_window < pbft_max_slots``).  Everything else
 raises ``NotImplementedError`` naming the slice of the port that brings it.
 
 PyTorch idiom: state and rings are mutable tensors.  The rings are updated in
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from blockchain_simulator_tpu_torch.models.base import fault_masks, gated
+from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.ops import delivery as dv
 from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
 from blockchain_simulator_tpu_torch.utils import threefry
@@ -98,20 +100,10 @@ def queue_len(cfg) -> int:
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.delivery == "stat":
-        raise NotImplementedError(
-            "delivery='stat' (binomial/categorical bucket-count channels) "
-            "comes with slice 2 of the port; use delivery='edge'"
-        )
-    if cfg.eff_edge_sampler != "threefry":
-        raise NotImplementedError(
-            "edge_sampler='rbg' (XLA's Philox stream) comes with slice 2 of "
-            "the port; use edge_sampler='threefry'"
-        )
     if cfg.queued_links:
         raise NotImplementedError(
-            "queued_links (serial-pipe block FIFOs) comes with slice 2 of the "
-            "port, beside the stat arm"
+            "queued_links (serial-pipe block FIFOs) comes with the next part "
+            "of slice 2 of the port (the PBFT tick engine's queued links)"
         )
     if cfg.topology == "gossip":
         raise NotImplementedError(
@@ -229,7 +221,7 @@ def _scatter_window_events(acc_add, acc_max, acc_min, events, eff_sid, t, s):
 class _TickConsts:
     ids: torch.Tensor       # [N] node ids
     windows: torch.Tensor   # [W] window indices
-    zeros_rt: torch.Tensor  # [B2, N] skipped round-trip gate
+    zeros_rt: torch.Tensor  # [B2, N, W] skipped round-trip gate
     zeros_w: torch.Tensor   # [B, N, W] skipped commit / pre-prepare gates
     zeros_vc: torch.Tensor  # [B, N] skipped view-change gate
 
@@ -245,7 +237,7 @@ def _tick_consts(cfg, device) -> _TickConsts:
     return _TickConsts(
         ids=dv._global_ids(n, None, device),
         windows=torch.arange(w, dtype=_I32, device=device),
-        zeros_rt=torch.zeros((rt_hi - rt_lo, n), dtype=_I32, device=device),
+        zeros_rt=torch.zeros((rt_hi - rt_lo, n, w), dtype=_I32, device=device),
         zeros_w=torch.zeros((hi - lo, n, w), dtype=_I32, device=device),
         zeros_vc=torch.zeros((hi - lo, n), dtype=_I32, device=device),
     )
@@ -262,7 +254,11 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
     rt_lo, _ = cfg.roundtrip_range()
     drop = cfg.faults.drop_prob
     clean = cfg.fidelity == "clean"
+    stat = cfg.delivery == "stat"
+    smode = cfg.eff_stat_sampler
     eimpl = cfg.eff_edge_sampler
+    ow_probs = delay_ops.uniform_probs(lo, hi)
+    rt_probs = delay_ops.roundtrip_probs(lo, hi)
     dev = state.v.device
     consts = _tick_consts(cfg, dev)
     ids, windows, zeros_w = consts.ids, consts.windows, consts.zeros_w
@@ -305,16 +301,24 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
     voters = state.alive & state.honest
     prep_active = got_pp.any(1)
     got_pp_i = got_pp.to(_I32)
-    rt_counts = gated(
+    k_rt = chan_key(tkey, Channel.DELAY_ROUNDTRIP)
+    rt_contrib = gated(
         prep_active.any(),
-        lambda: dv.roundtrip_reply_counts_dense(
-            chan_key(tkey, Channel.DELAY_ROUNDTRIP), prep_active, lo, hi, drop,
-            peer_mask=voters, impl=eimpl,
+        lambda: (
+            dv.push_roundtrip_reply_counts_stat(
+                k_rt, prep_active, voters.sum(dtype=_I32) - voters.to(_I32),
+                rt_probs, drop,
+                mode=smode,
+                # replies are per broadcast, i.e. per active (node, window)
+                expand=lambda c: c[:, None] * got_pp_i,
+            ) if stat else
+            dv.roundtrip_reply_counts_dense(
+                k_rt, prep_active, lo, hi, drop, peer_mask=voters, impl=eimpl,
+            )[:, :, None] * got_pp_i[None, :, :]
         ),
         consts.zeros_rt,
     )
-    # replies are per broadcast, i.e. per active (node, window)
-    pushes = [(prep_rt, rt_lo, rt_counts[:, :, None] * got_pp_i[None, :, :], "add")]
+    pushes = [(prep_rt, rt_lo, rt_contrib, "add")]
 
     # ---- PREPARE_RES arrivals → prepare_vote → COMMIT broadcast -------------
     pv = prepare_vote + prep_t
@@ -336,10 +340,14 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
             fire, copies = is_block_tick, cfg.faults.byz_copies
         forgers = (state.alive & ~state.honest).to(_I32) * fire.to(_I32)
         commit_mat[:, w - 1] += forgers * copies
+    k_cm = chan_key(tkey, Channel.DELAY_BCAST)
     cm_contrib = gated(
         (commit_mat > 0).any(),
-        lambda: dv.bcast_slots_dense(chan_key(tkey, Channel.DELAY_BCAST),
-                                     commit_mat, lo, hi, drop, impl=eimpl),
+        lambda: (
+            dv.push_bcast_slots_stat(k_cm, commit_mat, ow_probs, drop, mode=smode)
+            if stat else
+            dv.bcast_slots_dense(k_cm, commit_mat, lo, hi, drop, impl=eimpl)
+        ),
         zeros_w,
     )
     pushes.append((commit, lo, cm_contrib, "add"))
@@ -380,11 +388,14 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
         prep_sent = prep_sent & ~own_onehot
         committed_w = committed_w & ~own_onehot
     pp_val = own_onehot.to(_I32) * (next_n[:, None] + 1)
+    k_pp = chan_key(tkey, Channel.DELAY_BCAST2)
     pp_contrib = gated(
         any_block,
-        lambda: dv.bcast_window_value_max_dense(
-            chan_key(tkey, Channel.DELAY_BCAST2), pp_val, lo, hi, drop,
-            impl=eimpl),
+        lambda: (
+            dv.bcast_window_value_max_stat(k_pp, pp_val, ow_probs, drop)
+            if stat else
+            dv.bcast_window_value_max_dense(k_pp, pp_val, lo, hi, drop, impl=eimpl)
+        ),
         zeros_w,
     )
     pushes.append((pp, lo + ser, pp_contrib, "max"))
@@ -411,10 +422,14 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
     v = torch.where(trigger, new_v, v)
     view_changes = state.view_changes + trigger
     enc = torch.where(trigger, new_v * n + new_leader + 1, 0)
+    k_vc = chan_key(tkey, Channel.DELAY_REPLY)
     vc_contrib = gated(
         any_block and trigger.any(),
-        lambda: dv.bcast_value_max_dense(chan_key(tkey, Channel.DELAY_REPLY),
-                                         trigger, enc, lo, hi, drop, impl=eimpl),
+        lambda: (
+            dv.bcast_value_max_stat(k_vc, enc, ow_probs, drop)
+            if stat else
+            dv.bcast_value_max_dense(k_vc, trigger, enc, lo, hi, drop, impl=eimpl)
+        ),
         consts.zeros_vc,
     )
     pushes.append((vc, lo, vc_contrib, "max"))

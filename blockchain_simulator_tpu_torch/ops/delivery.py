@@ -1,25 +1,35 @@
-"""Message delivery: senders → per-bucket ring contributions (edge subset).
+"""Message delivery: senders → per-bucket ring contributions.
 
-Port of the dense, exact per-edge half of ``blockchain_simulator_tpu/ops/
-delivery.py``: each function turns "who is sending what this tick" into a
-contribution tensor ``[B, ...receiver dims]`` to be ring-pushed, where ``B``
-spans the delay distribution's support (offset ``lo``).  Delays come from the
-threefry stream (utils/threefry.py), so every output is bit-equal to the JAX
-function on the same key.
+Port of ``blockchain_simulator_tpu/ops/delivery.py``: each function turns
+"who is sending what this tick" into a contribution tensor ``[B, ...receiver
+dims]`` to be ring-pushed, where ``B`` spans the delay distribution's support
+(offset ``lo``).  The *dense* functions draw one delay per edge; the *stat*
+functions draw per-receiver bucket counts (ops/delay.py) without
+materialising edges.  Every output is bit-equal to the JAX function on the
+same key.
 
 Senders never deliver to themselves; ``send`` masks are already fault-masked
 by the caller; ``drop_prob`` models lossy edges.  The JAX functions take a
 mesh ``axis`` for sharded runs; the port is single-device in this slice and
-raises on a non-None axis (sharding comes with the many-GPU slice).  The stat
-channels come with the stat-arm slice.
+raises on a non-None axis (sharding comes with the many-GPU slice).
+
+The JAX package's ``push_*`` functions sample and combine each bucket straight
+into its ring slice; here they return the stacked contribution instead, which
+the caller hands to the tick's one grouped ring push (ops/ring.py).  That is
+what the JAX functions themselves do when its ring kernel is armed.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from blockchain_simulator_tpu_torch.ops.delay import sample_edge_delays
-from blockchain_simulator_tpu_torch.utils import threefry
+from blockchain_simulator_tpu_torch.ops.delay import (
+    binom,
+    sample_bucket_counts,
+    sample_edge_delays,
+)
+from blockchain_simulator_tpu_torch.utils import threefry, xla_math
 
 _I32 = torch.int32
 
@@ -30,6 +40,12 @@ def _unsharded(axis):
             f"sharded delivery (axis={axis!r}) comes with the many-GPU slice "
             "of the port; run unsharded (mesh_axis=None)"
         )
+
+
+def _shard_key(key, axis):
+    """The key a shard samples with (unsharded: the key itself)."""
+    _unsharded(axis)
+    return key
 
 
 def _global_ids(n_loc: int, axis, device):
@@ -138,3 +154,137 @@ def roundtrip_reply_counts_dense(key, send, lo, hi, drop_prob=0.0, peer_mask=Non
     nb = 2 * (hi - lo) - 1
     hit = (total[None] == _bucket_iota(lo2, lo2 + nb, total.ndim, dev)).to(_I32)
     return (hit * mask[None]).sum(2, dtype=_I32)
+
+
+# --------------------------------------------------------------------------- #
+# stat (aggregated, statistically exact) delivery                             #
+# --------------------------------------------------------------------------- #
+
+
+def _thinned(key, m, p_keep: float, mode: str):
+    """Drop thinning of per-receiver message counts: ``round(Binomial(m,
+    p_keep))`` as int32."""
+    return torch.round(binom(key, m, p_keep, mode)).to(_I32)
+
+
+def bcast_counts_stat(key, n_senders, is_sender, probs: np.ndarray, drop_prob=0.0,
+                      axis=None, mode="exact"):
+    """Full-mesh broadcast arrival counts: receiver j hears ``n_senders -
+    is_sender[j]`` peers, spread multinomially over the delay buckets.
+    Returns [B, N]."""
+    k = _shard_key(key, axis)
+    m = torch.as_tensor(n_senders, dtype=_I32, device=is_sender.device) - is_sender.to(_I32)
+    if drop_prob > 0.0:
+        m = _thinned(threefry.fold_in(k, 0x0D10), m, 1.0 - drop_prob, mode)
+    return sample_bucket_counts(k, m, probs, mode)
+
+
+def _slots_stat_m(key, slot_mat, drop_prob, axis, mode):
+    """(shard key, per-(receiver, slot) sender counts) of the stat slot
+    broadcast: totals over senders minus the receiver's own."""
+    k = _shard_key(key, axis)
+    sm = slot_mat.to(_I32)
+    m = sm.sum(0, dtype=_I32)[None, :] - sm  # [N, S]
+    if drop_prob > 0.0:
+        m = _thinned(threefry.fold_in(k, 0x0D12), m, 1.0 - drop_prob, mode)
+    return k, m
+
+
+def bcast_slots_stat(key, slot_mat, probs: np.ndarray, drop_prob=0.0, axis=None,
+                     mode="exact"):
+    """Stat version of bcast_slots_dense: multinomial arrival counts per
+    (receiver, slot).  Returns [B, N, S]."""
+    k, m = _slots_stat_m(key, slot_mat, drop_prob, axis, mode)
+    return sample_bucket_counts(k, m, probs, mode)
+
+
+def _delay_logits(probs: np.ndarray, device):
+    """``jnp.log(jnp.asarray(probs) + 1e-30)`` in float32."""
+    p = torch.as_tensor(np.asarray(probs, np.float32), device=device) + 1e-30
+    return xla_math.log(p)
+
+
+def bcast_value_max_stat(key, value, probs: np.ndarray, drop_prob=0.0, axis=None):
+    """Stat version of bcast_value_max_dense for a few senders (the PBFT
+    VIEW_CHANGE): the max announced value reaches every receiver with one
+    per-receiver categorical delay.  Returns [B, N]."""
+    k = _shard_key(key, axis)
+    dev = value.device
+    n = value.shape[0]
+    vmax = value.to(_I32).amax()
+    nb = len(probs)
+    d = threefry.categorical(k, _delay_logits(probs, dev), (n,), dev)
+    sent = (vmax > 0).to(_I32)
+    if drop_prob > 0.0:
+        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D13), 1.0 - drop_prob,
+                                  (n,), dev)
+        sent = sent * keep.to(_I32)
+    return (d[None] == _bucket_iota(0, nb, d.ndim, dev)).to(_I32) * (sent * vmax)[None]
+
+
+def bcast_window_value_max_stat(key, value_mat, probs: np.ndarray, drop_prob=0.0,
+                                axis=None):
+    """Stat version of bcast_window_value_max_dense for few senders per
+    window (the PBFT leader): each window's max value reaches every
+    receiver but its sender with one per-(receiver, window) categorical
+    delay.  Returns [B, N, W]."""
+    k = _shard_key(key, axis)
+    vm = value_mat.to(_I32)
+    dev = vm.device
+    n, w = vm.shape
+    vmax = vm.amax(0)  # [W]
+    nb = len(probs)
+    d = threefry.categorical(k, _delay_logits(probs, dev), (n, w), dev)
+    recv = (vmax[None, :] > 0) & (vm < vmax[None, :])
+    if drop_prob > 0.0:
+        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D14), 1.0 - drop_prob,
+                                  (n, w), dev)
+        recv = recv & keep
+    val = recv.to(_I32) * vmax[None, :]
+    return (d[None] == _bucket_iota(0, nb, d.ndim, dev)).to(_I32) * val[None]
+
+
+def _roundtrip_stat_m(key, send, n_peers, drop_prob, axis, mode):
+    """(shard key, per-sender reply counts) of the stat round trip; under
+    drops both legs thin, ``(1 - p)**2``."""
+    k = _shard_key(key, axis)
+    m = send.to(_I32) * torch.as_tensor(n_peers, dtype=_I32, device=send.device)
+    if drop_prob > 0.0:
+        m = _thinned(threefry.fold_in(k, 0x0D11), m, (1.0 - drop_prob) ** 2, mode)
+    return k, m
+
+
+def roundtrip_reply_counts_stat(key, send, n_peers, rt_probs: np.ndarray,
+                                drop_prob=0.0, axis=None, mode="exact"):
+    """Stat version of roundtrip_reply_counts_dense: each active sender gets
+    ``n_peers`` replies spread over the round-trip distribution.  Returns
+    [B2, N]."""
+    k, m = _roundtrip_stat_m(key, send, n_peers, drop_prob, axis, mode)
+    return sample_bucket_counts(k, m, rt_probs, mode)
+
+
+def push_bucket_counts(key, m, probs: np.ndarray, mode: str = "exact",
+                       expand=None):
+    """The ring contribution of ``Multinomial(m, probs)`` bucket counts:
+    ``[B, ...]``, each bucket mapped through ``expand`` when given."""
+    cnt = sample_bucket_counts(key, m, probs, mode)
+    if expand is None:
+        return cnt
+    return torch.stack([expand(cnt[b]) for b in range(cnt.shape[0])])
+
+
+def push_bcast_slots_stat(key, slot_mat, probs: np.ndarray, drop_prob=0.0,
+                          axis=None, mode="exact"):
+    """The contribution the JAX ``push_bcast_slots_stat`` adds to its ring
+    (equal to :func:`bcast_slots_stat`)."""
+    k, m = _slots_stat_m(key, slot_mat, drop_prob, axis, mode)
+    return push_bucket_counts(k, m, probs, mode)
+
+
+def push_roundtrip_reply_counts_stat(key, send, n_peers, rt_probs: np.ndarray,
+                                     drop_prob=0.0, axis=None, mode="exact",
+                                     expand=None):
+    """The contribution the JAX ``push_roundtrip_reply_counts_stat`` adds to
+    its ring: the stat round-trip counts, each bucket through ``expand``."""
+    k, m = _roundtrip_stat_m(key, send, n_peers, drop_prob, axis, mode)
+    return push_bucket_counts(k, m, rt_probs, mode, expand)

@@ -1,10 +1,12 @@
-"""Simulation runner (port of ``blockchain_simulator_tpu/runner.py``, tick arm).
+"""Simulation runner (port of ``blockchain_simulator_tpu/runner.py``).
 
-The JAX package runs the whole simulation as one ``jax.lax.scan`` over ticks;
-here the scan is a Python loop over ticks that calls ``proto.step`` with the
+The JAX package runs the whole simulation as one ``jax.lax.scan``; here the
+scan is a Python loop.  The tick engine's loop calls ``proto.step`` with the
 tick as a one-element int32 tensor on the device (rings index with it without
 a host read) and the tick's threefry key, precomputed on the host for all
-ticks at once (utils/prng.tick_key takes an array of ticks).
+ticks at once (utils/prng.tick_key takes an array of ticks).  PBFT configs
+that ``use_round_schedule`` resolves to the round-blocked fast path loop over
+block intervals instead (models/pbft_round.scan_rounds).
 
 Entry points run on the CUDA card unless the caller asks for another device
 (``device="cpu"``, as the tests do); without CUDA they raise instead of
@@ -33,31 +35,10 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _pbft_round_eligible(cfg: SimConfig) -> bool:
-    """``models/pbft_round.eligible`` of the JAX package (needs stat delivery)."""
-    from blockchain_simulator_tpu_torch.models.pbft import eff_window
-
-    lo, hi = cfg.one_way_range()
-    _, rt_hi = cfg.roundtrip_range()
-    horizon = (hi - 1) + (rt_hi - 1) + (hi - 1)
-    ser = cfg.serialization_ticks(cfg.pbft_block_bytes)
-    return (
-        cfg.protocol == "pbft"
-        and cfg.topology == "full"
-        and cfg.delivery == "stat"
-        and (cfg.faults.drop_prob == 0.0
-             or (cfg.pbft_view_change_num == 0
-                 and eff_window(cfg) >= cfg.pbft_max_slots))
-        and not cfg.faults.byz_forge
-        and not cfg.queued_links
-        and ser + horizon < cfg.pbft_block_interval_ms
-    )
-
-
 def use_round_schedule(cfg: SimConfig) -> bool:
-    """Resolve cfg.schedule as the JAX package does.  Every config that
-    resolves to a phase-blocked fast path raises here: the fast paths come
-    with later slices of the port."""
+    """Resolve cfg.schedule as the JAX package does: does this PBFT config
+    run the round-blocked fast path (models/pbft_round.py)?  Raft and the
+    mixed shard sim raise (slice 3 of the port)."""
     if cfg.schedule == "tick":
         return False
     if cfg.topology in ("kregular", "committee"):
@@ -72,24 +53,22 @@ def use_round_schedule(cfg: SimConfig) -> bool:
         get_protocol(cfg.protocol)  # raises NotImplementedError (slice 3)
     if cfg.protocol != "pbft":
         return False
-    ok = _pbft_round_eligible(cfg)
-    if cfg.schedule == "round" and not ok:
-        raise ValueError(
-            "schedule='round' requires pbft + full mesh + stat delivery "
-            "with no byz_forge, no queued links, drops only when view "
-            "changes are disabled AND the vote table is exact "
-            "(pbft_window = 0 or >= pbft_max_slots), and a message "
-            "horizon — including the constant block-serialization "
-            "latency when modeled — inside one block interval "
-            "(models/pbft_round.eligible)"
-        )
-    if cfg.schedule == "round" or (ok and cfg.n >= 4096):
-        raise NotImplementedError(
-            "this config resolves to the round-blocked PBFT fast path, which "
-            "comes with slice 2 of the port; pass schedule='tick' for the "
-            "tick engine"
-        )
-    return False
+    from blockchain_simulator_tpu_torch.models import pbft_round
+
+    ok = pbft_round.eligible(cfg)
+    if cfg.schedule == "round":
+        if not ok:
+            raise ValueError(
+                "schedule='round' requires pbft + full mesh + stat delivery "
+                "with no byz_forge, no queued links, drops only when view "
+                "changes are disabled AND the vote table is exact "
+                "(pbft_window = 0 or >= pbft_max_slots), and a message "
+                "horizon — including the constant block-serialization "
+                "latency when modeled — inside one block interval "
+                "(models/pbft_round.eligible)"
+            )
+        return True
+    return ok and cfg.n >= 4096  # "auto"
 
 
 def _reject_cpp_only(cfg: SimConfig) -> None:
@@ -133,7 +112,8 @@ def _reject_cpp_only(cfg: SimConfig) -> None:
 
 
 def make_sim_fn(cfg: SimConfig):
-    """``sim(seed, device) -> final state``: the tick engine, ``cfg.ticks``
+    """``sim(seed, device) -> final state``: the round-blocked fast path
+    when ``use_round_schedule`` picks it, else the tick engine, ``cfg.ticks``
     ticks from ``proto.init``."""
     _reject_cpp_only(cfg)
     if cfg.topology == "committee":
@@ -141,7 +121,16 @@ def make_sim_fn(cfg: SimConfig):
             "committee topology comes with slice 5 of the port (sparse "
             "topologies)"
         )
-    use_round_schedule(cfg)
+    if use_round_schedule(cfg):
+        from blockchain_simulator_tpu_torch.models import pbft_round
+
+        def sim_round(seed: int, device):
+            key = threefry.key(seed)
+            state, _ = pbft_round.init(cfg, threefry.fold_in(key, _INIT_FOLD),
+                                       device=device)
+            return pbft_round.scan_rounds(cfg, state, key)
+
+        return sim_round
     proto = get_protocol(cfg.protocol)
 
     def sim(seed: int, device):

@@ -22,6 +22,22 @@ Phases (any failure raises, and the script exits non-zero):
               metrics and a sha256 of every final-state field must equal the
               JAX package's golden file, and the kernel's counters must show
               exactly one launch of four pushes per tick.
+4. samplers — the PRNG and sampler functions on the card against the same
+              functions on the CPU, at 10^6 elements: Philox bits, the
+              popcount normal, the exact binomial, the Gumbel categorical;
+              mismatch counts must be 0.  Time one "normal" and one "exact"
+              multinomial chain at [5, 100000].
+5. round    — the bench headline (bench._cfg(2000): PBFT, n = 100,000, 2000
+              rounds, stat delivery, schedule "auto"), which resolves to the
+              round-blocked fast path with the "normal" sampler; the round
+              loop runs under torch.cuda.set_sync_debug_mode("error"), so a
+              host sync inside it fails the phase.  Metrics and every state
+              digest must equal the JAX golden; prints wall, rounds/s and
+              kernel launches per round (counted by torch.profiler over the
+              first rounds).
+6. tick-stat — the PBFT tick engine on the stat arm (n = 1000, 2500 ms,
+              "exact" sampler); metrics and digests equal the JAX golden,
+              and one ring-push launch of four pushes per tick.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
@@ -40,6 +56,10 @@ import warnings
 
 HERE = pathlib.Path(__file__).resolve().parent
 GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_edge_s0.json"
+ROUND_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_round_n100k_s0.json"
+STAT_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_stat_n1000_s0.json"
+SAMPLER_N = 1_000_000
+PROFILED_ROUNDS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12    # H100 SXM non-tensor 32-bit rate (data sheet fp32 figure)
 
@@ -281,16 +301,30 @@ def phase_kernel(cfg, dev):
     return group, rows, max_err
 
 
-def phase_main(dev, card: str):
-    """The port's main path at full size, held to the JAX golden file."""
+def _check_golden(entry, metrics, digests, what: str):
+    if metrics != entry["metrics"]:
+        raise AssertionError(f"{what}: metrics differ from the JAX golden:\n{metrics}\n"
+                             f"{entry['metrics']}")
+    bad = sorted(k for k in entry["state_sha256"] if digests.get(k) != entry["state_sha256"][k])
+    if bad or sorted(digests) != sorted(entry["state_sha256"]):
+        raise AssertionError(f"{what}: final-state fields differ from the JAX golden: {bad}")
+
+
+def phase_tick(dev, card: str, golden: pathlib.Path, what: str):
+    """A tick-engine run at full size (the golden's n1000 entry: the slice-1
+    main path on edge delivery, or the stat arm), held to the JAX golden,
+    with the ring-push counters set to 0 just before it and read just
+    after."""
     import torch
 
     from blockchain_simulator_tpu_torch import convert, runner
     from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
     from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
-    entry = json.loads(GOLDEN.read_text())["entries"]["n1000"]
+    entry = json.loads(golden.read_text())["entries"]["n1000"]
     cfg = SimConfig(**entry["config"])
+    if runner.use_round_schedule(cfg):
+        raise AssertionError(f"{what}: the config should run the tick engine")
     rk.launches = rk.pushes = 0
     t0 = time.perf_counter()
     final = runner.final_state(cfg, seed=entry["seed"], device=dev)
@@ -298,22 +332,156 @@ def phase_main(dev, card: str):
     wall = time.perf_counter() - t0
     launches, pushes = rk.launches, rk.pushes
     metrics = runner.sim_metrics(cfg, final)
-    digests = convert.state_digests(convert.state_to_numpy(final))
-    if metrics != entry["metrics"]:
-        raise AssertionError(f"metrics differ from the JAX golden:\n{metrics}\n"
-                             f"{entry['metrics']}")
-    bad = sorted(k for k in entry["state_sha256"] if digests.get(k) != entry["state_sha256"][k])
-    if bad or sorted(digests) != sorted(entry["state_sha256"]):
-        raise AssertionError(f"final-state fields differ from the JAX golden: {bad}")
+    _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)), what)
     if (launches, pushes) != (cfg.ticks, 4 * cfg.ticks):
-        raise AssertionError(f"ring_push made {launches} launches and {pushes} pushes, "
-                             f"expected {cfg.ticks} and {4 * cfg.ticks} (one launch of "
-                             f"4 pushes x {cfg.ticks} ticks)")
-    print(f"main path: pbft n={cfg.n} sim_ms={cfg.sim_ms} edge/threefry: {metrics}", flush=True)
-    print(f"main path on {card}: wall {wall:.3f} s, {cfg.ticks / wall:.1f} ticks/s, "
+        raise AssertionError(f"{what}: ring_push made {launches} launches and {pushes} "
+                             f"pushes, expected {cfg.ticks} and {4 * cfg.ticks} (one "
+                             f"launch of 4 pushes x {cfg.ticks} ticks)")
+    print(f"{what}: pbft n={cfg.n} sim_ms={cfg.sim_ms} {cfg.delivery}: {metrics}", flush=True)
+    print(f"{what} on {card}: wall {wall:.3f} s, {cfg.ticks / wall:.1f} ticks/s, "
           f"{metrics['rounds_sent'] / wall:.2f} rounds/s, ring_push launches {launches}, "
           f"pushes {pushes}, metrics + all state digests equal the JAX golden", flush=True)
-    return launches, pushes
+    return launches, pushes, wall
+
+
+def _mismatches(got, want) -> int:
+    """Elements that differ (NaN equals NaN)."""
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    same = got == want
+    if got.is_floating_point():
+        same |= got.isnan() & want.isnan()
+    return int((~same).sum())
+
+
+def _timed_ms(fn, dev) -> float:
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_samplers(dev, card: str):
+    """The PRNG and sampler functions on the card against the same functions
+    on the CPU (their plain versions), at 10^6 elements, and the time of one
+    multinomial chain of each mode at [5, 100000]."""
+    import numpy as np
+    import torch
+
+    from blockchain_simulator_tpu_torch.ops import delay
+    from blockchain_simulator_tpu_torch.utils import philox, threefry
+
+    key = threefry.fold_in(threefry.key(0), 0x5A)
+    rng = np.random.default_rng(0)
+    count = torch.as_tensor(rng.integers(0, 3000, SAMPLER_N).astype(np.float32))
+    logits = delay.uniform_probs(3, 6)
+    cases = {
+        "philox_bits": lambda d: philox.bits(philox.rbg_key(key), (SAMPLER_N,), d),
+        "fast_normal": lambda d: delay._fast_normal(key, (SAMPLER_N,), d),
+        "binomial_exact": lambda d: threefry.binomial(key, count.to(d), 1 / 3, d),
+        "categorical": lambda d: threefry.categorical(
+            key, torch.log(torch.as_tensor(logits, dtype=torch.float32)), (SAMPLER_N,), d),
+    }
+    out = {}
+    for name, fn in cases.items():
+        fn(dev)  # warm-up
+        ms = _timed_ms(lambda: fn(dev), dev)
+        bad = _mismatches(fn(dev), fn("cpu"))
+        out[name] = {"mismatches": bad, "elements": SAMPLER_N, "card_ms": ms}
+        print(f"samplers {name}: {bad} mismatches of {SAMPLER_N} (card vs CPU), "
+              f"{ms:.2f} ms on the card", flush=True)
+    m = torch.as_tensor(rng.integers(0, 100_000, (5, 100_000)).astype(np.int32))
+    probs = delay.roundtrip_probs(3, 6)
+    for mode in ("normal", "exact"):
+        def chain(d, mode=mode):
+            return delay.sample_bucket_counts(key, m.to(d), probs, mode)
+
+        chain(dev)
+        ms = _timed_ms(lambda: chain(dev), dev)
+        bad = _mismatches(chain(dev), chain("cpu"))
+        out[f"chain_{mode}"] = {"mismatches": bad, "shape": [5, 100_000],
+                                "buckets": len(probs), "card_ms": ms}
+        print(f"samplers chain {mode} [5, 100000] x {len(probs)} buckets: {ms:.2f} ms on "
+              f"{card}, {bad} mismatches (card vs CPU)", flush=True)
+    bad = {k: v["mismatches"] for k, v in out.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"samplers: the card disagrees with the CPU: {bad}")
+    return out
+
+
+def phase_round(dev, card: str):
+    """The bench headline on the round-blocked fast path, held to the JAX
+    golden, with no host sync inside the round loop."""
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.models import pbft_round
+    from blockchain_simulator_tpu_torch.profile_tick import _device_us
+    from blockchain_simulator_tpu_torch.utils import prng, threefry
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(ROUND_GOLDEN.read_text())["entries"]["n100k"]
+    cfg = SimConfig(**entry["config"])
+    if not runner.use_round_schedule(cfg) or cfg.eff_stat_sampler != "normal":
+        raise AssertionError("the headline config should resolve to the round path "
+                             "with the 'normal' sampler")
+    key = threefry.key(entry["seed"])
+    init_key = threefry.fold_in(key, runner._INIT_FOLD)
+
+    # kernel launches per round: the first rounds under the profiler
+    state, _ = pbft_round.init(cfg, init_key, device=dev)
+    rounds = pbft_round.round_range(cfg)[:PROFILED_ROUNDS]
+    tkeys = prng.tick_key(key, [r * cfg.pbft_block_interval_ms for r in rounds])
+    pbft_round.step_round(cfg, state, rounds[0], tkeys[0])  # warm-up
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                acc_events=True) as prof:
+        for i, r in enumerate(rounds):
+            state = pbft_round.step_round(cfg, state, r, tkeys[i])
+        torch.cuda.synchronize(dev)
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0]
+    per_round = sum(e.count for e in kernels
+                    if not e.key.startswith(("Memcpy", "Memset"))) / len(rounds)
+    copies_d2h = sum(e.count for e in kernels if "DtoH" in e.key) / len(rounds)
+
+    # the entry point a user calls, timed
+    t0 = time.perf_counter()
+    final = runner.final_state(cfg, seed=entry["seed"], device=dev)
+    wall = time.perf_counter() - t0
+    metrics = runner.sim_metrics(cfg, final)
+    digests = convert.state_digests(convert.state_to_numpy(final))
+    _check_golden(entry, metrics, digests, "round path")
+
+    # the same loop once more with any host sync inside it an error
+    state, _ = pbft_round.init(cfg, init_key, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = pbft_round.scan_rounds(cfg, state, key)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    wall_loop = time.perf_counter() - t0
+    if convert.state_digests(convert.state_to_numpy(state)) != digests:
+        raise AssertionError("round path: the sync-checked loop and run_simulation differ")
+    n_rounds = len(pbft_round.round_range(cfg))
+    print(f"round path: pbft n={cfg.n} rounds={n_rounds} stat/{cfg.eff_stat_sampler}: "
+          f"{metrics}", flush=True)
+    print(f"round path on {card}: wall {wall:.3f} s (run_simulation's path; the round "
+          f"loop alone {wall_loop:.3f} s) for {n_rounds} rounds, "
+          f"{metrics['rounds_sent'] / wall:.2f} rounds/s, {per_round:.1f} kernel launches "
+          f"and {copies_d2h:.2f} device-to-host copies per round (first {len(rounds)} "
+          f"rounds, torch.profiler), 0 host syncs in the round loop (sync debug mode "
+          f"'error'), metrics + all state digests equal the JAX golden", flush=True)
+    return {"wall_s": wall, "loop_wall_s": wall_loop, "rounds": n_rounds,
+            "rounds_per_s": metrics["rounds_sent"] / wall,
+            "launches_per_round": per_round, "d2h_copies_per_round": copies_d2h}
 
 
 def main() -> int:
@@ -328,6 +496,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     warnings.filterwarnings("ignore", message="index_reduce")  # "beta API" notice
+    warnings.filterwarnings("ignore", message="Synchronization debug mode")  # "prototype"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     card = _card_line()
@@ -343,15 +512,21 @@ def main() -> int:
     entry = json.loads(GOLDEN.read_text())["entries"]["n1000"]
     cfg = SimConfig(**entry["config"])
     group, rows, max_err = phase_kernel(cfg, dev)
-    launches, pushes = phase_main(dev, card)
+    launches, pushes, _ = phase_tick(dev, card, GOLDEN, "main path")
+    samplers = phase_samplers(dev, card)
+    round_path = phase_round(dev, card)
+    stat_launches, stat_pushes, stat_wall = phase_tick(dev, card, STAT_GOLDEN,
+                                                       "tick-stat path")
 
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
         "source": "blockchain_simulator_tpu_torch/csrc/ring_push.cu",
         "replaces": "blockchain_simulator_tpu/ops/ring_kernel.py:136",
-        "launches": launches,
+        "launches": launches,  # the edge main path's run
         "pushes": pushes,
+        "launches_tick_stat": stat_launches,  # the tick-stat path's run
+        "pushes_tick_stat": stat_pushes,
         "max_abs_err": max_err,
         # one tick's four pushes (prep_rt, commit, pp, vc) in one launch
         "ms": group["ms"],
@@ -364,6 +539,8 @@ def main() -> int:
         "eager_ms": group["eager_ms"],
         "per_push": rows,
     }]
+    print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
+                                "samplers": samplers}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

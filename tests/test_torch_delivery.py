@@ -54,8 +54,12 @@ def test_sample_edge_delays(shape):
 
 
 def test_rbg_sampler_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tdelay.sample_edge_delays(threefry.key(0), (4,), LO, HI, "cpu", impl="rbg")
+    """The rbg stream came with slice 2 (utils/philox.py): it now equals
+    JAX's instead of raising (tests/test_torch_philox.py holds more spans)."""
+    jk, tk = _keys(0)
+    for shape in ((4,), (33, 33)):
+        _eq(tdelay.sample_edge_delays(tk, shape, LO, HI, "cpu", impl="rbg"),
+            jax.jit(lambda k: jdelay.sample_edge_delays(k, shape, LO, HI, "rbg"))(jk))
 
 
 def test_ids_and_bucket_iota():

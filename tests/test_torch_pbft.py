@@ -6,11 +6,14 @@ the CPU here (``device="cpu"``: its plain versions); its run on the card is
 held to the CPU run in tests/test_torch_ring.py (marked ``cuda``) and to the
 golden file by ``chip_smoke.py``.
 
-The golden file ``blockchain_simulator_tpu_torch/golden/pbft_edge_s0.json``
-holds the JAX package's metrics and per-field state digests for the n = 8
-and n = 1000 runs; ``chip_smoke.py`` holds the port's n = 1000 run on the
-card to it.  Regenerate it with ``python tests/test_torch_pbft.py
---write-golden`` (about a minute of JAX on the CPU).
+The golden files under ``blockchain_simulator_tpu_torch/golden/`` hold the
+JAX package's metrics and per-field state digests: ``pbft_edge_s0.json`` for
+the edge tick engine at n = 8 and n = 1000, ``pbft_round_n100k_s0.json`` for
+the round-blocked fast path at the bench headline (``bench._cfg(2000)``,
+n = 100,000) and ``pbft_stat_n1000_s0.json`` for the tick engine's stat arm
+at n = 1000.  ``chip_smoke.py`` holds the port's runs on the card to them.
+Regenerate them with ``python tests/test_torch_pbft.py --write-golden``
+(a few minutes of JAX on the CPU).
 """
 
 from __future__ import annotations
@@ -40,10 +43,24 @@ from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-GOLDEN = REPO / "blockchain_simulator_tpu_torch" / "golden" / "pbft_edge_s0.json"
+GOLDEN_DIR = REPO / "blockchain_simulator_tpu_torch" / "golden"
+GOLDEN = GOLDEN_DIR / "pbft_edge_s0.json"
 GOLDEN_CONFIGS = {
     "n8": dict(protocol="pbft", n=8, sim_ms=2500),
     "n1000": dict(protocol="pbft", n=1000, sim_ms=2500),
+}
+# bench._cfg(2000): the project's headline workload, field for field
+ROUND_GOLDEN = GOLDEN_DIR / "pbft_round_n100k_s0.json"
+ROUND_CONFIGS = {
+    "n100k": dict(protocol="pbft", n=100_000, sim_ms=100_100, pbft_max_rounds=2000,
+                  pbft_max_slots=2008, pbft_window=8, delivery="stat",
+                  model_serialization=False),
+}
+# the n = 1000 tick-engine config on the stat arm ("auto" sampler: exact)
+STAT_GOLDEN = GOLDEN_DIR / "pbft_stat_n1000_s0.json"
+STAT_CONFIGS = {
+    "n1000": dict(protocol="pbft", n=1000, sim_ms=2500, delivery="stat",
+                  schedule="tick"),
 }
 
 
@@ -65,12 +82,12 @@ def _assert_leaves_equal(want: dict, got: dict):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def golden_entry(name: str, seed: int = 0) -> dict:
+def golden_entry(name: str, seed: int = 0, configs=GOLDEN_CONFIGS) -> dict:
     """One golden entry, computed by the JAX package."""
-    jcfg = jconfig.SimConfig(**GOLDEN_CONFIGS[name])
+    jcfg = jconfig.SimConfig(**configs[name])
     final = jrunner.final_state(jcfg, seed=seed)
     return {
-        "config": GOLDEN_CONFIGS[name],
+        "config": configs[name],
         "seed": seed,
         "jax_version": jax.__version__,
         "metrics": jrunner.base_model.sim_metrics(jcfg, final),
@@ -79,15 +96,17 @@ def golden_entry(name: str, seed: int = 0) -> dict:
 
 
 def write_golden():
-    doc = {
-        "about": "JAX package (blockchain_simulator_tpu) results that the "
-                 "PyTorch port must reproduce bit for bit: metrics and a "
-                 "sha256 of every final-state field "
-                 "(blockchain_simulator_tpu_torch/convert.state_digests). "
-                 "Written by: python tests/test_torch_pbft.py --write-golden",
-        "entries": {name: golden_entry(name) for name in GOLDEN_CONFIGS},
-    }
-    GOLDEN.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
+    for path, configs in ((GOLDEN, GOLDEN_CONFIGS), (ROUND_GOLDEN, ROUND_CONFIGS),
+                          (STAT_GOLDEN, STAT_CONFIGS)):
+        doc = {
+            "about": "JAX package (blockchain_simulator_tpu) results that the "
+                     "PyTorch port must reproduce bit for bit: metrics and a "
+                     "sha256 of every final-state field "
+                     "(blockchain_simulator_tpu_torch/convert.state_digests). "
+                     "Written by: python tests/test_torch_pbft.py --write-golden",
+            "entries": {name: golden_entry(name, configs=configs) for name in configs},
+        }
+        path.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
 
 
 # --------------------------------------------------------------------------- #
@@ -280,8 +299,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(delivery="stat"),
-    dict(edge_sampler="rbg"),
     dict(queued_links=True),
     dict(topology="gossip"),
     dict(topology="kregular", degree=4),
@@ -289,13 +306,40 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     dict(mesh_axis="nodes"),
     dict(protocol="raft"),
     dict(protocol="paxos"),
-    dict(delivery="stat", schedule="round", model_serialization=False),
     dict(echo_back=True),
+    dict(delivery="stat", queued_links=True),
+    dict(protocol="raft", delivery="stat"),
+    dict(protocol="raft", delivery="stat", schedule="round"),
 ])
 def test_unported_configs_raise(kw):
     cfg = tconfig.SimConfig(**dict(dict(protocol="pbft", n=8, sim_ms=50), **kw))
     with pytest.raises(NotImplementedError):
         trunner.run_simulation(cfg, device="cpu")
+
+
+def test_probed_round_run_raises():
+    from blockchain_simulator_tpu_torch.models import pbft_round
+
+    cfg = tconfig.SimConfig(protocol="pbft", n=8, sim_ms=200, delivery="stat",
+                            schedule="round", model_serialization=False)
+    state, _ = pbft_round.init(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        pbft_round.scan_rounds(cfg, state, threefry.key(0), with_probe=True)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(delivery="stat"),
+    dict(edge_sampler="rbg"),
+    dict(delivery="stat", schedule="round", model_serialization=False),
+])
+def test_formerly_refused_configs_run_and_equal_jax(kw):
+    """The stat arm, the rbg edge stream and the round path came with slice
+    2 of the port: the configs that raised before now equal JAX."""
+    jcfg, tcfg = _cfgs(**dict(dict(protocol="pbft", n=8, sim_ms=250), **kw))
+    jfinal = jrunner.final_state(jcfg)
+    tfinal = trunner.final_state(tcfg, device="cpu")
+    assert trunner.sim_metrics(tcfg, tfinal) == jrunner.base_model.sim_metrics(jcfg, jfinal)
+    _assert_leaves_equal(_jax_leaves(jfinal), convert.state_to_numpy(tfinal))
 
 
 @pytest.mark.parametrize("kw", [
@@ -324,4 +368,4 @@ if __name__ == "__main__":
         sys.exit("usage: python tests/test_torch_pbft.py --write-golden")
     jax.config.update("jax_platforms", "cpu")
     write_golden()
-    print(f"wrote {GOLDEN}")
+    print(f"wrote {GOLDEN}, {ROUND_GOLDEN}, {STAT_GOLDEN}")
