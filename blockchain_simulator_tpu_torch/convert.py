@@ -1,9 +1,11 @@
 """State carried across between the JAX package and the port.
 
 The counterpart of carrying weights across: ``state_from_numpy`` turns the
-JAX package's ``PbftState`` / ``PbftBufs`` leaves (the tick engine) or
-``PbftRoundState`` leaves (the round-blocked fast path), given as numpy
-arrays keyed by field name, into the port's dataclasses on a device, and
+JAX package's ``PbftState`` / ``PbftBufs`` leaves (the PBFT tick engine),
+``PbftRoundState`` leaves (the round-blocked fast path) or ``RaftState`` /
+``RaftBufs`` leaves (the Raft tick engine, which the heartbeat path also
+carries), given as numpy arrays keyed by field name, into the port's
+dataclasses on a device, and
 ``state_to_numpy`` goes the other way.  Both packages can then start from one
 mid-run state.  :func:`state_digests` fingerprints every field, so two runs
 can be compared without shipping the arrays.
@@ -17,7 +19,7 @@ import hashlib
 import numpy as np
 import torch
 
-from blockchain_simulator_tpu_torch.models import pbft, pbft_round
+from blockchain_simulator_tpu_torch.models import pbft, pbft_round, raft
 from blockchain_simulator_tpu_torch.runner import use_round_schedule
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
@@ -34,24 +36,31 @@ def _to_tensor(name, arr, device):
 
 def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
     """The state the config's engine carries, on ``device``, from numpy
-    leaves: ``(PbftState, PbftBufs)`` for the tick engine (``bufs=None``
-    gives empty rings), ``(PbftRoundState, ())`` when the config resolves to
-    the round-blocked fast path (which has no rings: ``bufs`` must be
-    ``None``).  Shapes are checked against the engine's ``init``."""
-    if use_round_schedule(cfg):
+    leaves: ``(PbftState, PbftBufs)`` or ``(RaftState, RaftBufs)`` for a
+    tick engine (``bufs=None`` gives empty rings), ``(PbftRoundState, ())``
+    when a PBFT config resolves to the round-blocked fast path (which has no
+    rings: ``bufs`` must be ``None``).  Shapes are checked against the
+    engine's ``init``."""
+    if cfg.protocol == "raft":
+        proto = raft
+        ref_state, ref_bufs = raft.init(cfg, device="meta")
+        groups = ((raft.RaftState, raft.STATE_FIELDS, ref_state, state),
+                  (raft.RaftBufs, raft.BUF_FIELDS, ref_bufs, bufs))
+    elif use_round_schedule(cfg):
         if bufs:
             raise ValueError("the round-blocked fast path carries no rings")
         ref_state, _ = pbft_round.init(cfg, device="meta")
         groups = ((pbft_round.PbftRoundState, pbft_round.STATE_FIELDS,
                    ref_state, state),)
     else:
+        proto = pbft
         ref_state, ref_bufs = pbft.init(cfg, device="meta")
         groups = ((pbft.PbftState, pbft.STATE_FIELDS, ref_state, state),
                   (pbft.PbftBufs, pbft.BUF_FIELDS, ref_bufs, bufs))
     out = []
     for cls, names, ref, leaves in groups:
         if leaves is None:
-            out.append(pbft.init(cfg, device=device)[1])
+            out.append(proto.init(cfg, device=device)[1])
             continue
         fields = {}
         for name in names:

@@ -17,15 +17,19 @@ import torch
 
 
 def get_protocol(name: str):
-    """Runtime protocol selection.  The port runs PBFT in this slice."""
+    """Runtime protocol selection.  The port runs PBFT and Raft."""
     if name == "pbft":
         from blockchain_simulator_tpu_torch.models import pbft as m
 
         return m
-    if name in ("raft", "paxos", "mixed"):
+    if name == "raft":
+        from blockchain_simulator_tpu_torch.models import raft as m
+
+        return m
+    if name in ("paxos", "mixed"):
         raise NotImplementedError(
-            f"protocol {name!r} is not ported yet: raft, paxos and the mixed "
-            "shard sim come with slice 3 of the port (the other protocols)"
+            f"protocol {name!r} is not ported yet: paxos and the mixed shard "
+            "sim come with slice 3 of the port, item 10 (the other protocols)"
         )
     raise ValueError(f"unknown protocol {name!r}")
 

@@ -10,16 +10,19 @@ threefry keys per (tick, channel): a run is bit-equal to the JAX package's.
 
 Ported arms: full mesh with edge (exact per-edge, ``"threefry"`` or
 ``"rbg"`` delays) or stat (multinomial bucket counts) delivery, drops, crash
-and Byzantine masks, ``byz_forge``, both fidelities, both quorum rules, and
-the windowed vote table (``pbft_window < pbft_max_slots``).  Everything else
-raises ``NotImplementedError`` naming the slice of the port that brings it.
+and Byzantine masks, ``byz_forge``, both fidelities, both quorum rules, the
+windowed vote table (``pbft_window < pbft_max_slots``) and queued links
+(blocks ride per-destination serial-pipe FIFOs, ``ppq_*``, instead of the
+pre-prepare ring).  Everything else raises ``NotImplementedError`` naming the
+slice of the port that brings it.
 
 PyTorch idiom: state and rings are mutable tensors.  The rings are updated in
 place (ops/ring.py), and ``t`` is a one-element int32 tensor on the device.
 Gates read their predicate back to the host (models/base.gated).  Each ring
 is popped once at the top of a tick and pushed once; nothing reads a ring
-between its push and the end of the tick, so the four pushes are collected
-and applied together at the end, in one kernel launch on the card.
+between its push and the end of the tick, so the four pushes (three with
+queued links) are collected and applied together at the end, in one kernel
+launch on the card.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ class PbftState:
     honest: torch.Tensor        # [N] bool fault mask
     seen_pp: torch.Tensor       # [N, W] gossip dedup state; zeros on the full mesh
     seen_vc: torch.Tensor       # [N]
-    link_busy: torch.Tensor     # [N] queued-link registers; [N] zeros here
+    link_busy: torch.Tensor     # [N] queued links: busy-until tick per destination
     ppq_tick: torch.Tensor      # [N, Q] queued-block arrival ticks (_NEVER free)
     ppq_val: torch.Tensor       # [N, Q] queued-block slot+1 values
     slot_commits: torch.Tensor      # [S] nodes that finalized slot s (first time)
@@ -100,11 +103,6 @@ def queue_len(cfg) -> int:
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.queued_links:
-        raise NotImplementedError(
-            "queued_links (serial-pipe block FIFOs) comes with the next part "
-            "of slice 2 of the port (the PBFT tick engine's queued links)"
-        )
     if cfg.topology == "gossip":
         raise NotImplementedError(
             "topology='gossip' (flood relay) comes with slice 3 of the port"
@@ -273,10 +271,28 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
     pp_t, prep_t, com_t = pp_t * am[:, None], prep_t * am[:, None], com_t * am[:, None]
     vc_t = vc_t * am
 
+    # queued links: this tick's serial-link block deliveries.  A destination
+    # can receive two blocks in one tick (a view change frees the new
+    # leader's links while an old-leader block is still backlogged), so
+    # every hit lands in its own window (exact mode: window == slot)
+    queued = cfg.queued_links and ser > 0
+    ppq_tick, ppq_val, link_busy = state.ppq_tick, state.ppq_val, state.link_busy
+    if queued:
+        hits = ppq_tick == t  # [N, Q]
+        vals = torch.where(hits & state.alive[:, None], ppq_val, 0)
+        ppq_tick = torch.where(hits, _NEVER, ppq_tick)
+        oh_arr = ((((vals - 1) % w)[:, :, None] == windows[None, None, :])
+                  & (vals > 0)[:, :, None])  # [N, Q, W]
+        pp_t = torch.maximum(pp_t, torch.where(oh_arr, vals[:, :, None], 0).amax(1))
+
     # ---- VIEW_CHANGE arrivals: adopt (v, leader) ----------------------------
     has_vc = vc_t > 0
     v = torch.where(has_vc, (vc_t - 1) // n, state.v)
     leader = torch.where(has_vc, (vc_t - 1) % n, state.leader)
+    if queued:
+        # leadership rotated: the new leader's links carry votes only, hence
+        # are free; its busy registers start fresh
+        link_busy = torch.where(has_vc.any(), 0, link_busy)
 
     # ---- PRE_PREPARE arrivals: evict stale tenant, store, broadcast PREPARE -
     got_pp = pp_t > 0  # [N, W] (any arrival re-broadcasts PREPARE, no dedup)
@@ -389,16 +405,22 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
         committed_w = committed_w & ~own_onehot
     pp_val = own_onehot.to(_I32) * (next_n[:, None] + 1)
     k_pp = chan_key(tkey, Channel.DELAY_BCAST2)
-    pp_contrib = gated(
-        any_block,
-        lambda: (
-            dv.bcast_window_value_max_stat(k_pp, pp_val, ow_probs, drop)
-            if stat else
-            dv.bcast_window_value_max_dense(k_pp, pp_val, lo, hi, drop, impl=eimpl)
-        ),
-        zeros_w,
-    )
-    pushes.append((pp, lo + ser, pp_contrib, "max"))
+    if queued:
+        if any_block:  # with no sender nothing is enqueued and nothing drawn
+            ppq_tick, ppq_val, link_busy = _enqueue_blocks(
+                cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, t, k_pp)
+        # the blocks ride the serial pipes: the pp ring is not pushed
+    else:
+        pp_contrib = gated(
+            any_block,
+            lambda: (
+                dv.bcast_window_value_max_stat(k_pp, pp_val, ow_probs, drop)
+                if stat else
+                dv.bcast_window_value_max_dense(k_pp, pp_val, lo, hi, drop, impl=eimpl)
+            ),
+            zeros_w,
+        )
+        pushes.append((pp, lo + ser, pp_contrib, "max"))
     rounds_sent = state.rounds_sent + send_block
     (slot_propose_tick,) = _scatter_window_events(
         None, None, state.slot_propose_tick,
@@ -449,11 +471,41 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
         block_num=block_num,
         unattributed=unattributed,
         view_changes=view_changes,
+        link_busy=link_busy,
+        ppq_tick=ppq_tick,
+        ppq_val=ppq_val,
         slot_commits=slot_commits,
         slot_commit_tick=slot_commit_tick,
         slot_propose_tick=slot_propose_tick,
     )
     return state, PbftBufs(pp=pp, prep_rt=prep_rt, commit=commit, vc=vc)
+
+
+def _enqueue_blocks(cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, t,
+                    k_pp):
+    """Serial-pipe send (the C++ engine's link_enqueue): the block reaches
+    the (leader -> j) link after its scheduling delay ``d_j - prop``,
+    transmits once the link is free, occupies it ``ser`` ticks, then
+    propagates.  Each destination's delivery goes into the lowest free FIFO
+    slot, never an occupied one (the FIFO holds ``queue_len`` entries, which
+    the backlog cannot outgrow).  Returns ``(ppq_tick, ppq_val,
+    link_busy)``."""
+    lo, hi = cfg.one_way_range()
+    ser = cfg.serialization_ticks(cfg.pbft_block_bytes)
+    prop = cfg.link_delay_ms
+    val_sent = torch.where(send_block, next_n + 1, 0).amax()
+    sender = torch.where(send_block, ids, -1).amax()
+    dest = (val_sent > 0) & (ids != sender)  # crashed peers get it and ignore it
+    d_j = threefry.randint(k_pp, (ids.shape[0],), lo, hi, ids.device)
+    start = torch.maximum(t + d_j - prop, link_busy)
+    delivery = start + ser + prop
+    link_busy = torch.where(dest, start + ser, link_busy)
+    free = ppq_tick == _NEVER  # [N, Q]
+    first_free = free.to(torch.uint8).argmax(1)  # lowest free slot (0 if none)
+    slots = torch.arange(free.shape[1], device=free.device)
+    oh_q = (slots[None, :] == first_free[:, None]) & dest[:, None] & free
+    return (torch.where(oh_q, delivery[:, None], ppq_tick),
+            torch.where(oh_q, val_sent, ppq_val), link_busy)
 
 
 def metrics(cfg, state: PbftState) -> dict:

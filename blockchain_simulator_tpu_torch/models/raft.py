@@ -1,0 +1,543 @@
+"""Raft consensus — the tensorized per-tick engine, in PyTorch.
+
+Port of ``blockchain_simulator_tpu/models/raft.py`` (whose docstring holds
+the design: randomized election timers become per-node deadline registers,
+vote requests ride an identity-preserving ``[D, N, N]`` matrix ring in edge
+mode or a max-combined candidate-id ring in stat mode, the leader's 50 ms
+heartbeats carry 20 KB proposals once ``setProposal`` fires, and proposal
+acks are short-circuited round trips).  Same state fields, same int32
+arithmetic, same threefry keys per (tick, channel): a run is bit-equal to the
+JAX package's.
+
+Ported arms: the full mesh with edge (``"threefry"`` or ``"rbg"`` delays) or
+stat (``"exact"`` or ``"normal"`` bucket counts) delivery, both fidelities,
+drops, crash and Byzantine masks, and queued links (proposals serialize on
+the leader's per-destination links; deliveries land on the rings at dynamic
+offsets).  ``topology="gossip"`` raises ``NotImplementedError`` naming slice
+3's item 10, ``"kregular"`` slice 5, and ``mesh_axis`` slice 6.
+
+PyTorch idiom, as in models/pbft.py: state and rings are mutable tensors, the
+rings are updated in place, and ``t`` is a one-element int32 tensor on the
+device.  JAX's ``lax.cond`` gates become host branches; a step reads the host
+four times (three in reference fidelity): heartbeat arrivals (the clean
+timer re-arm), vote requests, election fires, and heartbeat sends (plain and
+proposal in one read).  A skipped branch would have produced exactly what
+its gate leaves (zeros; the keys are pure functions of seed, tick and
+channel, so skipping consumes nothing).  Each ring is popped once at the top
+of the tick and pushed at most once; nothing reads a ring between its push
+and the end of the tick, so the pushes are collected and applied in one
+kernel launch at the end.  A member whose gate was skipped is left out of the
+group: its contribution is all zeros, and adding 0 or max-combining 0 into a
+ring whose values are all >= 0 changes nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from blockchain_simulator_tpu_torch.models.base import fault_masks
+from blockchain_simulator_tpu_torch.ops import delay as delay_ops
+from blockchain_simulator_tpu_torch.ops import delivery as dv
+from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
+from blockchain_simulator_tpu_torch.utils import threefry
+from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
+
+# Timer sentinel: "canceled".  Any tick comparison against it is false for
+# the whole simulation horizon.
+DISARM = 1 << 30
+_I32 = torch.int32
+
+
+@dataclasses.dataclass
+class RaftState:
+    is_leader: torch.Tensor      # [N] bool
+    has_voted: torch.Tensor      # [N] bool — single vote latch (no terms)
+    election_deadline: torch.Tensor  # [N] tick of next sendVote; DISARM = canceled
+    vote_success: torch.Tensor   # [N] election SUCCESS replies received
+    vote_failed: torch.Tensor    # [N] election FAILED replies received
+    next_hb: torch.Tensor        # [N] next heartbeat tick (leader); DISARM = off
+    proposal_tick: torch.Tensor  # [N] when setProposal fires; DISARM = unscheduled
+    add_change_value: torch.Tensor  # [N] bool — heartbeats carry proposals
+    m_value: torch.Tensor        # [N] last proposal value stored (-1 = unset)
+    block_num: torch.Tensor      # [N] blocks committed (leader counts)
+    round: torch.Tensor          # [N] proposal rounds broadcast (leader)
+    hb_succ: torch.Tensor        # [N] proposal-ack SUCCESS count, current round
+    hb_cnt: torch.Tensor         # [N] proposal-ack total count, current round
+    hb_open: torch.Tensor        # [N] bool — current round not yet committed
+    leader_tick: torch.Tensor    # [N] tick this node became leader (-1 = never)
+    elections: torch.Tensor      # [N] sendVote firings (metrics)
+    block_tick: torch.Tensor     # [N, B] commit tick per block at the leader (-1)
+    alive: torch.Tensor          # [N] bool fault mask
+    honest: torch.Tensor         # [N] bool fault mask
+    seen_vreq: torch.Tensor      # [N] gossip dedup registers; zeros on the full mesh
+    seen_hb: torch.Tensor        # [N]
+    seen_prop: torch.Tensor      # [N]
+    my_base: torch.Tensor        # [N] gossip election base; zeros on the full mesh
+    link_busy: torch.Tensor      # [N] queued links: busy-until tick per destination
+
+
+@dataclasses.dataclass
+class RaftBufs:
+    vreq: torch.Tensor      # edge [D, N_recv, N_send] sender identity; stat [D, N]
+    # candidate id + 1, max-combined
+    vres_ok: torch.Tensor   # [D, N] granted-vote arrivals at the candidate (add)
+    vres_no: torch.Tensor   # [D, N] denial arrivals at the candidate (add)
+    hb_plain: torch.Tensor  # [D, N] plain-heartbeat arrival counts (add)
+    hb_prop: torch.Tensor   # [D, N] proposal value + 1, max-combined (0 = empty)
+    hb_ok: torch.Tensor     # [D, N] proposal-ack SUCCESS arrivals at the leader (add)
+    hb_bad: torch.Tensor    # [D, N] proposal-ack FAILED arrivals (Byzantine repliers)
+
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(RaftState))
+BUF_FIELDS = tuple(f.name for f in dataclasses.fields(RaftBufs))
+
+
+def require_ported(cfg) -> None:
+    """Raise ``NotImplementedError`` for the arms later slices bring."""
+    if cfg.topology == "gossip":
+        raise NotImplementedError(
+            "raft with topology='gossip' (flood relay) comes with slice 3 of the "
+            "port, item 10 (gossip topology, with paxos and the mixed sim)"
+        )
+    if cfg.topology in ("kregular", "committee"):
+        raise NotImplementedError(
+            f"topology={cfg.topology!r} comes with slice 5 of the port "
+            "(sparse topologies)"
+        )
+    if cfg.mesh_axis is not None:
+        raise NotImplementedError(
+            "mesh_axis (node-sharded runs) comes with slice 6 of the port "
+            "(many GPUs)"
+        )
+
+
+def init(cfg, key=None, *, device):
+    """``(RaftState, RaftBufs)`` on ``device``.  The initial election
+    timeouts U[election_lo, election_hi) are drawn from ``key``
+    (``threefry.key(cfg.seed)`` when None); crashed nodes never start one."""
+    require_ported(cfg)
+    n, d, b = cfg.n, cfg.ring_depth, cfg.raft_max_blocks
+    alive, honest = fault_masks(cfg, n, device)
+
+    def zi(*sh):
+        return torch.zeros(sh, dtype=_I32, device=device)
+
+    def full(sh, val):
+        return torch.full(sh, val, dtype=_I32, device=device)
+
+    def zb(*sh):
+        return torch.zeros(sh, dtype=torch.bool, device=device)
+
+    k = threefry.key(cfg.seed) if key is None else key
+    deadline = threefry.randint(threefry.fold_in(k, Channel.ELECTION), (n,),
+                                cfg.raft_election_lo_ms, cfg.raft_election_hi_ms, device)
+    state = RaftState(
+        is_leader=zb(n),
+        has_voted=zb(n),
+        election_deadline=torch.where(alive, deadline, DISARM),
+        vote_success=zi(n),
+        vote_failed=zi(n),
+        next_hb=full((n,), DISARM),
+        proposal_tick=full((n,), DISARM),
+        add_change_value=zb(n),
+        m_value=full((n,), -1),
+        block_num=zi(n),
+        round=zi(n),
+        hb_succ=zi(n),
+        hb_cnt=zi(n),
+        hb_open=zb(n),
+        leader_tick=full((n,), -1),
+        elections=zi(n),
+        block_tick=full((n, b), -1),
+        alive=alive,
+        honest=honest,
+        seen_vreq=zi(n),
+        seen_hb=zi(n),
+        seen_prop=zi(n),
+        my_base=zi(n),
+        link_busy=zi(n),
+    )
+    bufs = RaftBufs(
+        vreq=zi(d, n) if cfg.delivery == "stat" else zi(d, n, n),
+        vres_ok=zi(d, n),
+        vres_no=zi(d, n),
+        hb_plain=zi(d, n),
+        hb_prop=zi(d, n),
+        hb_ok=zi(d, n),
+        hb_bad=zi(d, n),
+    )
+    return state, bufs
+
+
+def push_members(cfg) -> tuple:
+    """``(ring, op, B, lo)`` of every ring push one tick can make, in the
+    order ``step`` collects them: the group a tick whose gates all fire
+    launches (queued links replace the four heartbeat pushes by scatters).
+    ``hb_bad`` is pushed only when the config has Byzantine nodes."""
+    lo, hi = cfg.one_way_range()
+    rt_lo, rt_hi = cfg.roundtrip_range()
+    ser = cfg.serialization_ticks(cfg.raft_block_bytes)
+    return (("vres_ok", "add", hi - lo, lo), ("vres_no", "add", hi - lo, lo),
+            ("vreq", "max", hi - lo, lo), ("hb_plain", "add", hi - lo, lo),
+            ("hb_prop", "max", hi - lo, lo + ser), ("hb_ok", "add", rt_hi - rt_lo, rt_lo + ser),
+            ("hb_bad", "add", rt_hi - rt_lo, rt_lo + ser))
+
+
+@functools.lru_cache(maxsize=8)
+def _ids(n: int, device) -> torch.Tensor:
+    """Node ids on ``device``, made once per (size, device)."""
+    return dv._global_ids(n, None, device)
+
+
+def _rearm(cfg, tkey, channel: int, t, n: int, device):
+    """``t`` + a fresh election timeout per node, U[election_lo, election_hi)."""
+    return t + threefry.randint(chan_key(tkey, channel), (n,), cfg.raft_election_lo_ms,
+                                cfg.raft_election_hi_ms, device)
+
+
+def _reply_counts(grant_to, wire, has_req, n: int):
+    """Per-candidate reply counts: ``zeros(n).at[grant_to].add(wire)``.
+    Rows with no request carry no wire, so they scatter into one extra slot
+    that is cut off."""
+    idx = torch.where(has_req, grant_to, n).to(torch.int64)
+    c = torch.zeros((n + 1,), dtype=_I32, device=wire.device)
+    return c.scatter_add_(0, idx, wire.to(_I32))[:n]
+
+
+def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
+    """One tick.  ``t``: 0-d int32 tensor on the state's device; ``tkey``:
+    the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
+    that the config is ported."""
+    n = cfg.n
+    lo, hi = cfg.one_way_range()
+    rt_lo, _ = cfg.roundtrip_range()
+    drop = cfg.faults.drop_prob
+    clean = cfg.fidelity == "clean"
+    stat = cfg.delivery == "stat"
+    smode = cfg.eff_stat_sampler
+    eimpl = cfg.eff_edge_sampler
+    ow_probs = delay_ops.uniform_probs(lo, hi)
+    rt_probs = delay_ops.roundtrip_probs(lo, hi)
+    dev = state.is_leader.device
+    ids = _ids(n, dev)
+    ser = cfg.serialization_ticks(cfg.raft_block_bytes)
+    # queued links: with ser == 0 the pipe is never busy and queued equals
+    # constant latency, so the plain path runs
+    queued = cfg.queued_links and ser > 0
+    alive, honest = state.alive, state.honest
+    # Byzantine repliers exist (a static fact of the config): otherwise every
+    # FAILED-ack contribution is all zeros and is neither drawn nor pushed
+    liars_exist = cfg.faults.n_byzantine > 0
+    pushes = []
+
+    # ---- pop arrivals; crashed nodes process nothing ------------------------
+    vreq_t, vreq = ring_pop(bufs.vreq, t)
+    ok_t, vres_ok = ring_pop(bufs.vres_ok, t)
+    no_t, vres_no = ring_pop(bufs.vres_no, t)
+    plain_t, hb_plain = ring_pop(bufs.hb_plain, t)
+    prop_t, hb_prop = ring_pop(bufs.hb_prop, t)
+    hbok_t, hb_ok = ring_pop(bufs.hb_ok, t)
+    hbbad_t, hb_bad = ring_pop(bufs.hb_bad, t)
+    am = alive.to(_I32)
+    ok_t, no_t = ok_t * am, no_t * am
+    plain_t, prop_t = plain_t * am, prop_t * am
+    hbok_t, hbbad_t = hbok_t * am, hbbad_t * am
+    hbtot_t = hbok_t + hbbad_t
+    vreq_t = vreq_t * am if stat else vreq_t * am[:, None]
+
+    # ---- heartbeat arrivals (follower side) ---------------------------------
+    got_hb = (plain_t > 0) | (prop_t > 0)
+    m_value = torch.where(prop_t > 0, prop_t - 1, state.m_value)
+    if not clean:
+        # quirk #5: one heartbeat pacifies a follower forever
+        election_deadline = torch.where(got_hb, DISARM, state.election_deadline)
+    elif bool(got_hb.any()):
+        # re-arm the election timer: real failure detection
+        election_deadline = torch.where(
+            got_hb, _rearm(cfg, tkey, Channel.ELECTION, t, n, dev),
+            state.election_deadline)
+    else:
+        election_deadline = state.election_deadline
+
+    # ---- vote requests (acceptor side) --------------------------------------
+    can_grant = ~state.has_voted & alive
+    has_voted = state.has_voted
+    k_vr = chan_key(tkey, Channel.DELAY_REPLY)
+    if stat:
+        # vreq_t[i] = max candidate id + 1 seen this tick (the stat broadcast
+        # reaches the sender too: drop the self-request)
+        grant_to = vreq_t - 1
+        has_req = (vreq_t > 0) & (grant_to != ids)
+        if bool(has_req.any()):
+            grant = has_req & can_grant
+            deny = has_req & ~grant
+            has_voted = has_voted | grant
+            # Byzantine receivers flip their replies (grant <-> deny on the wire)
+            ok_wire = (grant & honest) | (deny & ~honest)
+            no_wire = (deny & honest) | (grant & ~honest)
+            mok = _reply_counts(grant_to, ok_wire, has_req, n)
+            mno = _reply_counts(grant_to, no_wire, has_req, n)
+            if drop > 0.0:
+                kd = threefry.fold_in(k_vr, 0x0D17)
+                mok = dv._thinned(kd, mok, 1.0 - drop, smode)
+                mno = dv._thinned(threefry.fold_in(kd, 1), mno, 1.0 - drop, smode)
+            pushes.append((vres_ok, lo, dv.push_bucket_counts(
+                threefry.fold_in(k_vr, 7), mok, ow_probs, smode), "add"))
+            pushes.append((vres_no, lo, dv.push_bucket_counts(
+                threefry.fold_in(k_vr, 8), mno, ow_probs, smode), "add"))
+    else:
+        # vreq_t[i, j] = 1 iff candidate j's request reaches i this tick;
+        # concurrent same-tick requests: the vote goes to the lowest id
+        has_req = vreq_t > 0
+        any_req = has_req.any(1)
+        if bool(any_req.any()):
+            first = has_req.to(torch.uint8).argmax(1)  # lowest j with a request
+            granting = any_req & can_grant
+            grant_mask = ((ids[None, :] == first[:, None]) & granting[:, None]).to(_I32)
+            deny_mask = has_req.to(_I32) - grant_mask
+            has_voted = has_voted | granting
+            hn = honest.to(_I32)[:, None]
+            ok_wire = grant_mask * hn + deny_mask * (1 - hn)
+            no_wire = deny_mask * hn + grant_mask * (1 - hn)
+            pushes.append((vres_ok, lo, dv.unicast_reply_counts_dense(
+                threefry.fold_in(k_vr, 7), ok_wire, lo, hi, drop, impl=eimpl), "add"))
+            pushes.append((vres_no, lo, dv.unicast_reply_counts_dense(
+                threefry.fold_in(k_vr, 8), no_wire, lo, hi, drop, impl=eimpl), "add"))
+
+    # ---- vote responses (candidate side) ------------------------------------
+    follower = ~state.is_leader
+    vs = state.vote_success + ok_t * follower
+    vf = state.vote_failed + no_t * follower
+    win = follower & (ok_t > 0) & (vs + 1 >= cfg.majority_need) & alive
+    lose = ~win & (no_t > 0) & (vf >= cfg.raft_lose_need) & follower
+    vote_success = torch.where(win | lose, 0, vs)
+    vote_failed = torch.where(win | lose, 0, vf)
+    # winner: cancel own timer, first heartbeat now, proposals in +1 s
+    is_leader = state.is_leader | win
+    election_deadline = torch.where(win, DISARM, election_deadline)
+    next_hb = torch.where(win, t, state.next_hb)
+    proposal_tick = torch.where(win, t + cfg.raft_proposal_delay_ms, state.proposal_tick)
+    leader_tick = torch.where(win & (state.leader_tick < 0), t, state.leader_tick)
+    # loser: majority denied — release the vote latch and retry on the timer
+    has_voted = has_voted & ~lose
+    link_busy = state.link_busy
+    if queued:
+        # leadership changed: the new leader's links carry votes only, hence
+        # are free; in-flight deliveries keep their ring slots
+        lead_prev = torch.where(state.is_leader & alive, ids, -1).amax()
+        lead_new = torch.where(is_leader & alive, ids, -1).amax()
+        link_busy = torch.where(lead_new != lead_prev, 0, link_busy)
+
+    # ---- proposal acks (leader side) ----------------------------------------
+    hs = state.hb_succ + hbok_t
+    hc = state.hb_cnt + hbtot_t
+    if clean:
+        commit = state.hb_open & (hs + 1 >= cfg.majority_need) & is_leader
+        hb_open = state.hb_open & ~commit
+        hb_succ, hb_cnt = hs, hc
+    else:
+        # reference: the check runs only at exactly N-1 responses in
+        done = (hbtot_t > 0) & (hc == n - 1)
+        commit = done & (hs + 1 >= cfg.majority_need)
+        hb_succ = torch.where(done, 0, hs)
+        hb_cnt = torch.where(done, 0, hc)
+        hb_open = state.hb_open
+    b_max = cfg.raft_max_blocks
+    blk = torch.clamp(state.block_num, 0, b_max - 1)
+    slots = torch.arange(b_max, device=dev)
+    block_tick = torch.where(
+        (slots[None, :] == blk[:, None]) & commit[:, None]
+        & (state.block_num < b_max)[:, None],
+        t, state.block_tick)
+    block_num = state.block_num + commit
+    # blockNum >= max cancels the heartbeat
+    next_hb = torch.where(block_num >= b_max, DISARM, next_hb)
+
+    # ---- timer: sendVote ----------------------------------------------------
+    fire = (t >= election_deadline) & (election_deadline != DISARM) & ~is_leader & alive
+    elections = state.elections
+    if bool(fire.any()):
+        has_voted = has_voted | fire  # self-vote latch
+        election_deadline = torch.where(
+            fire, _rearm(cfg, tkey, Channel.ELECTION + 100, t, n, dev), election_deadline)
+        elections = elections + fire
+        k_vq = chan_key(tkey, Channel.DELAY_BCAST)
+        fire_i = fire.to(_I32)
+        vq_contrib = (dv.bcast_value_max_stat(k_vq, (ids + 1) * fire_i, ow_probs, drop)
+                      if stat else
+                      dv.bcast_matrix_dense(k_vq, fire, fire_i, lo, hi, drop, impl=eimpl))
+        pushes.append((vreq, lo, vq_contrib, "max"))
+
+    # ---- timer: sendHeartBeat -----------------------------------------------
+    hb_fire = is_leader & (t >= next_hb) & (next_hb != DISARM) & alive
+    # setProposal fires exactly once; round == max clears add_change_value
+    set_prop = (t >= proposal_tick) & (proposal_tick != DISARM)
+    add_change_value = state.add_change_value | set_prop
+    proposal_tick = torch.where(set_prop, DISARM, proposal_tick)
+    prop_send = hb_fire & add_change_value
+    plain_send = hb_fire & ~add_change_value
+    next_hb = torch.where(hb_fire, next_hb + cfg.raft_heartbeat_ms, next_hb)
+    round_ = state.round + prop_send
+    add_change_value = add_change_value & ~(prop_send & (round_ >= cfg.raft_max_rounds))
+    if clean:  # a new proposal round opens the ack window
+        hb_succ = torch.where(prop_send, 0, hb_succ)
+        hb_cnt = torch.where(prop_send, 0, hb_cnt)
+        hb_open = hb_open | prop_send
+    any_plain, any_prop = torch.stack([plain_send.any(), prop_send.any()]).tolist()
+
+    k_hb = chan_key(tkey, Channel.DELAY_BCAST2)
+    k_rt = chan_key(tkey, Channel.DELAY_ROUNDTRIP)
+    voters = alive & honest
+    liars = alive & ~honest
+    if queued:
+        if any_plain or any_prop:
+            link_busy = _queued_sends(cfg, prop_send, plain_send, any_prop, voters, liars,
+                                      ids, link_busy, hb_prop, hb_plain, hb_ok, hb_bad,
+                                      t, k_hb, k_rt)
+    else:
+        if any_plain:
+            plain_contrib = (
+                # mode stays exact: this channel has O(1) senders (the leader)
+                dv.bcast_counts_stat(k_hb, plain_send.sum(dtype=_I32), plain_send,
+                                     ow_probs, drop, mode="exact")
+                if stat else
+                dv.bcast_counts_dense(k_hb, plain_send, lo, hi, drop, impl=eimpl))
+            pushes.append((hb_plain, lo, plain_contrib, "add"))
+        if any_prop:
+            k_p = threefry.fold_in(k_hb, 1)
+            value = (ids + 1) * prop_send.to(_I32)
+            prop_contrib = (
+                dv.bcast_value_max_stat(k_p, value, ow_probs, drop) if stat else
+                dv.bcast_value_max_dense(k_p, prop_send, value, lo, hi, drop, impl=eimpl))
+            pushes.append((hb_prop, lo + ser, prop_contrib, "max"))
+            # proposal acks: follower state never affects the SUCCESS reply, so
+            # the round trip is short-circuited; Byzantine followers flip to
+            # FAILED.  The two channels cover disjoint peer sets.
+            k_bad = threefry.fold_in(k_rt, 1)
+            if stat:
+                voters_i, liars_i = voters.to(_I32), liars.to(_I32)
+                ok_counts = dv.push_roundtrip_reply_counts_stat(
+                    k_rt, prop_send, voters_i.sum(dtype=_I32) - voters_i, rt_probs, drop,
+                    mode=smode)
+                bad_counts = (dv.push_roundtrip_reply_counts_stat(
+                    k_bad, prop_send, liars_i.sum(dtype=_I32) - liars_i, rt_probs, drop,
+                    mode=smode) if liars_exist else None)
+            else:
+                ok_counts = dv.roundtrip_reply_counts_dense(
+                    k_rt, prop_send, lo, hi, drop, peer_mask=voters, impl=eimpl)
+                bad_counts = (dv.roundtrip_reply_counts_dense(
+                    k_bad, prop_send, lo, hi, drop, peer_mask=liars, impl=eimpl)
+                    if liars_exist else None)
+            pushes.append((hb_ok, rt_lo + ser, ok_counts, "add"))
+            if bad_counts is not None:
+                pushes.append((hb_bad, rt_lo + ser, bad_counts, "add"))
+    ring_push_group(pushes, t)  # in place; no launch when nothing is pushed
+
+    state = dataclasses.replace(
+        state,
+        is_leader=is_leader,
+        has_voted=has_voted,
+        election_deadline=election_deadline,
+        vote_success=vote_success,
+        vote_failed=vote_failed,
+        next_hb=next_hb,
+        proposal_tick=proposal_tick,
+        add_change_value=add_change_value,
+        m_value=m_value,
+        block_num=block_num,
+        round=round_,
+        hb_succ=hb_succ,
+        hb_cnt=hb_cnt,
+        hb_open=hb_open,
+        leader_tick=leader_tick,
+        elections=elections,
+        block_tick=block_tick,
+        link_busy=link_busy,
+    )
+    bufs = RaftBufs(vreq=vreq, vres_ok=vres_ok, vres_no=vres_no, hb_plain=hb_plain,
+                    hb_prop=hb_prop, hb_ok=hb_ok, hb_bad=hb_bad)
+    return state, bufs
+
+
+def _queued_sends(cfg, prop_send, plain_send, any_prop, voters, liars, ids, link_busy,
+                  hb_prop, hb_plain, hb_ok, hb_bad, t, k_hb, k_rt):
+    """Serial-pipe send (the C++ engine's link_enqueue) of this tick's
+    heartbeat: the packet reaches the (leader -> j) link after its scheduling
+    delay ``d_j - prop``, transmits when the link frees (a proposal occupies
+    it ``ser`` ticks; a 4-byte plain heartbeat queues but occupies nothing),
+    then propagates.  Deliveries land on the rings at per-destination
+    offsets, in place: one element per column, so a destination that gets
+    nothing is pointed at row 0 with the identity value (0, which leaves a
+    ring of values >= 0 unchanged under add and max).  Each follower's ack
+    departs at its delivery tick over a link that is never busy and lands in
+    the leader's column.  Returns the new ``link_busy``."""
+    lo, hi = cfg.one_way_range()
+    ser = cfg.serialization_ticks(cfg.raft_block_bytes)
+    prop_ms = cfg.link_delay_ms
+    dev = ids.device
+    n = ids.shape[0]
+    prop_val = torch.where(prop_send, ids + 1, 0).amax()
+    plain_on = plain_send.to(_I32).amax()
+    sender = torch.where(prop_send | plain_send, ids, -1).amax()
+    dest = ids != sender  # a sender exists this tick; crashed peers still
+    # reserve the pipe (the reservation is sender-side)
+    d_j = threefry.randint(threefry.fold_in(k_hb, 7), (n,), lo, hi, dev)
+    ser_s = torch.where(prop_val > 0, ser, 0)
+    start = torch.maximum(t + d_j - prop_ms, link_busy)
+    delivery = start + ser_s + prop_ms
+    link_busy = torch.where(dest, start + ser_s, link_busy)
+    dd = hb_prop.shape[0]
+    flat = torch.where(dest, delivery % dd, 0).to(torch.int64) * n + ids
+    hb_prop.view(-1).scatter_reduce_(0, flat, torch.where(dest, prop_val, 0), "amax")
+    hb_plain.view(-1).scatter_add_(0, flat, (dest & (plain_on > 0)).to(_I32))
+    if any_prop:
+        d2 = threefry.randint(threefry.fold_in(k_rt, 9), (n,), lo, hi, dev)
+        ack_slot = torch.remainder(delivery + d2, dd)
+        col = sender.reshape(1).to(torch.int64)  # the single leader's column
+        for ring, peers in ((hb_ok, voters), (hb_bad, liars)):
+            hist = torch.zeros((dd + 1,), dtype=_I32, device=dev)
+            hist.scatter_add_(0, torch.where(dest & peers, ack_slot, dd).to(torch.int64),
+                              torch.ones_like(ids))
+            ring.index_add_(1, col, hist[:dd, None])
+    return link_busy
+
+
+def metrics(cfg, state: RaftState) -> dict:
+    """The reference's measurement surface (leader-elected time, per-block
+    processed time, Blocks/Rounds, election starts), recomputed on the host
+    with the JAX package's arithmetic."""
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    alive = host(state.alive)
+    is_leader = host(state.is_leader)
+    leader_tick = host(state.leader_tick)
+    block_num = host(state.block_num)
+    block_tick = host(state.block_tick)
+    m_value = host(state.m_value)
+    leaders = np.flatnonzero(is_leader & alive)
+    # under Byzantine double-voting a split brain is possible (no terms):
+    # report the earliest-elected leader as "the" leader
+    lead = int(leaders[np.argmin(leader_tick[leaders])]) if leaders.size else -1
+    blocks = int(block_num[lead]) if lead >= 0 else 0
+    bt = block_tick[lead][:blocks] if lead >= 0 else np.array([])
+    # agreement: every alive follower that stored a value stored the leader's
+    stored = m_value[alive]
+    stored = stored[stored >= 0]
+    return {
+        "protocol": "raft",
+        "n": cfg.n,
+        "n_leaders": int(len(leaders)),
+        "leader": lead,
+        "leader_elected_ms": float(leader_tick[lead]) if lead >= 0 else -1.0,
+        "blocks": blocks,
+        "rounds": int(host(state.round).max()),
+        "elections": int(host(state.elections).sum()),
+        "last_block_ms": float(bt.max()) if bt.size else -1.0,
+        "mean_block_interval_ms": float(np.diff(bt).mean()) if bt.size > 1 else -1.0,
+        "agreement_ok": bool(lead < 0 or (stored.size == 0) or (stored == lead).all()),
+    }

@@ -81,6 +81,12 @@ def _edge_hits(key, send, lo: int, hi: int, drop_prob: float = 0.0, axis=None,
     return (d[None] == _bucket_iota(lo, hi, d.ndim, dev)).to(_I32) * mask[None]
 
 
+def bcast_counts_dense(key, send, lo, hi, drop_prob=0.0, axis=None,
+                       impl="threefry"):
+    """Broadcast → per-receiver arrival counts.  Returns [B, N]."""
+    return _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl).sum(1, dtype=_I32)
+
+
 def bcast_value_max_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
                           impl="threefry"):
     """Broadcast of a per-sender value (>0; 0 = empty), max-combined at the
@@ -154,6 +160,38 @@ def roundtrip_reply_counts_dense(key, send, lo, hi, drop_prob=0.0, peer_mask=Non
     nb = 2 * (hi - lo) - 1
     hit = (total[None] == _bucket_iota(lo2, lo2 + nb, total.ndim, dev)).to(_I32)
     return (hit * mask[None]).sum(2, dtype=_I32)
+
+
+def unicast_reply_counts_dense(key, reply, lo, hi, drop_prob=0.0, axis=None,
+                               impl="threefry"):
+    """Route per-(replier, requester) reply counts back to each requester:
+    ``reply[r, c]`` replies travel from node r to node c, one delay per
+    edge.  Returns [B, N] indexed by requester.  An integer product over the
+    ``[B, N, N]`` bucket mask, summed: exact."""
+    _unsharded(axis)
+    dev = reply.device
+    n_loc, n_glob = reply.shape
+    d = sample_edge_delays(key, (n_loc, n_glob), lo, hi, dev, impl)
+    notself = torch.arange(n_loc, device=dev)[:, None] != torch.arange(n_glob, device=dev)[None, :]
+    mask = notself.to(_I32)
+    if drop_prob > 0.0:
+        keep = threefry.bernoulli(threefry.fold_in(key, 0x0D0F), 1.0 - drop_prob,
+                                  (n_loc, n_glob), dev)
+        mask = mask * keep.to(_I32)
+    r = reply.to(_I32) * mask
+    hit = (d[None] == _bucket_iota(lo, hi, d.ndim, dev)).to(_I32)
+    return (r[None] * hit).sum(1, dtype=_I32)
+
+
+def bcast_matrix_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
+                       impl="threefry"):
+    """Identity-preserving broadcast for request channels whose handling
+    depends on receiver state at arrival (Raft VOTE_REQ): ``value`` (>0 per
+    sender; 0 = empty) lands at ``[b, receiver, sender]``.  Returns [B, N, N],
+    contiguous (the JAX function's ``swapaxes`` view, materialised once, as
+    the ring push takes contiguous contributions)."""
+    hits = _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl)  # [B, send, recv]
+    return (hits * value.to(_I32)[None, :, None]).transpose(1, 2).contiguous()
 
 
 # --------------------------------------------------------------------------- #

@@ -6,7 +6,9 @@ tick as a one-element int32 tensor on the device (rings index with it without
 a host read) and the tick's threefry key, precomputed on the host for all
 ticks at once (utils/prng.tick_key takes an array of ticks).  PBFT configs
 that ``use_round_schedule`` resolves to the round-blocked fast path loop over
-block intervals instead (models/pbft_round.scan_rounds).
+block intervals instead (models/pbft_round.scan_rounds); Raft configs it
+resolves to the heartbeat-blocked path run models/raft_hb.run (the election
+prefix on the tick engine, then one step a heartbeat).
 
 Entry points run on the CUDA card unless the caller asks for another device
 (``device="cpu"``, as the tests do); without CUDA they raise instead of
@@ -36,9 +38,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def use_round_schedule(cfg: SimConfig) -> bool:
-    """Resolve cfg.schedule as the JAX package does: does this PBFT config
-    run the round-blocked fast path (models/pbft_round.py)?  Raft and the
-    mixed shard sim raise (slice 3 of the port)."""
+    """Resolve cfg.schedule as the JAX package does: does this config run a
+    phase-blocked fast path (PBFT: one step a block interval,
+    models/pbft_round.py; Raft: one step a heartbeat, models/raft_hb.py)?
+    The mixed shard sim raises (slice 3 of the port)."""
     if cfg.schedule == "tick":
         return False
     if cfg.topology in ("kregular", "committee"):
@@ -49,7 +52,21 @@ def use_round_schedule(cfg: SimConfig) -> bool:
                 "'tick' or 'auto')"
             )
         return False
-    if cfg.protocol in ("raft", "mixed"):
+    if cfg.protocol == "raft":
+        from blockchain_simulator_tpu_torch.models import raft_hb
+
+        ok = raft_hb.eligible(cfg)
+        if cfg.schedule == "round":
+            if not ok:
+                raise ValueError(
+                    "schedule='round' for raft requires clean fidelity + "
+                    "full mesh + stat delivery with no drops/queued links, "
+                    "heartbeat < election_lo, and a window longer than the "
+                    "election prefix (models/raft_hb.eligible)"
+                )
+            return True
+        return ok and cfg.n >= 4096  # "auto"
+    if cfg.protocol == "mixed":
         get_protocol(cfg.protocol)  # raises NotImplementedError (slice 3)
     if cfg.protocol != "pbft":
         return False
@@ -121,6 +138,13 @@ def make_sim_fn(cfg: SimConfig):
             "committee topology comes with slice 5 of the port (sparse "
             "topologies)"
         )
+    if use_round_schedule(cfg) and cfg.protocol == "raft":
+        from blockchain_simulator_tpu_torch.models import raft_hb
+
+        def sim_hb(seed: int, device):
+            return raft_hb.run(cfg, threefry.key(seed), device)
+
+        return sim_hb
     if use_round_schedule(cfg):
         from blockchain_simulator_tpu_torch.models import pbft_round
 

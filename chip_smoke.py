@@ -38,6 +38,26 @@ Phases (any failure raises, and the script exits non-zero):
 6. tick-stat — the PBFT tick engine on the stat arm (n = 1000, 2500 ms,
               "exact" sampler); metrics and digests equal the JAX golden,
               and one ring-push launch of four pushes per tick.
+7. raft-kernel — the grouped kernel at the Raft tick group's n = 1000 shapes
+              (vreq [3, 1000, 1000] and six [B, 1000] members) against its
+              plain version, bit for bit: eager, under graph replay, and with
+              the members of skipped gates left out; device time against the
+              bound (rings and contributions from HBM, and L2-warm) and
+              against one library call per push.
+8. raft-edge — the port's Raft tick engine at n = 1000, 10,000 ms, package
+              defaults (edge delivery, threefry delays, clean fidelity,
+              serialization modelled; "auto" resolves to the tick engine):
+              metrics and digests equal the JAX golden, one ring-push launch
+              per tick that pushes; wall, ticks/s, launches and pushes.  Then
+              the first 2000 ticks again: host syncs a tick (sync debug mode
+              "warn"), and kernel launches, device-to-host copies and the
+              device's busy share a tick (torch.profiler).
+9. raft-hb  — the same config on stat delivery with schedule "round": the
+              heartbeat-blocked path (the election prefix on the tick engine,
+              one host read at the handoff, then one step a heartbeat),
+              held to its JAX golden; prints whether the handoff was taken.
+10. pbft-queued — PBFT n = 8 with queued links (serial-pipe FIFOs), 10,000
+              ms, held to its JAX golden; one launch of three pushes a tick.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
@@ -58,6 +78,10 @@ HERE = pathlib.Path(__file__).resolve().parent
 GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_edge_s0.json"
 ROUND_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_round_n100k_s0.json"
 STAT_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_stat_n1000_s0.json"
+RAFT_EDGE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_edge_n1000_s0.json"
+RAFT_HB_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_hb_n1000_s0.json"
+QUEUED_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_queued_n8_s0.json"
+SYNC_COUNT_TICKS = 2000
 SAMPLER_N = 1_000_000
 PROFILED_ROUNDS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -310,21 +334,22 @@ def _check_golden(entry, metrics, digests, what: str):
         raise AssertionError(f"{what}: final-state fields differ from the JAX golden: {bad}")
 
 
-def phase_tick(dev, card: str, golden: pathlib.Path, what: str):
-    """A tick-engine run at full size (the golden's n1000 entry: the slice-1
-    main path on edge delivery, or the stat arm), held to the JAX golden,
-    with the ring-push counters set to 0 just before it and read just
-    after."""
+def phase_tick(dev, card: str, golden: pathlib.Path, what: str, entry_name="n1000"):
+    """A PBFT tick-engine run held to its JAX golden (the slice-1 main path
+    on edge delivery, the stat arm, or queued links), with the ring-push
+    counters set to 0 just before it and read just after: one launch a tick
+    of four pushes (three with queued links, whose blocks ride the FIFOs)."""
     import torch
 
     from blockchain_simulator_tpu_torch import convert, runner
     from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
     from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
-    entry = json.loads(golden.read_text())["entries"]["n1000"]
+    entry = json.loads(golden.read_text())["entries"][entry_name]
     cfg = SimConfig(**entry["config"])
     if runner.use_round_schedule(cfg):
         raise AssertionError(f"{what}: the config should run the tick engine")
+    per_tick = 3 if cfg.queued_links else 4
     rk.launches = rk.pushes = 0
     t0 = time.perf_counter()
     final = runner.final_state(cfg, seed=entry["seed"], device=dev)
@@ -333,15 +358,298 @@ def phase_tick(dev, card: str, golden: pathlib.Path, what: str):
     launches, pushes = rk.launches, rk.pushes
     metrics = runner.sim_metrics(cfg, final)
     _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)), what)
-    if (launches, pushes) != (cfg.ticks, 4 * cfg.ticks):
+    if (launches, pushes) != (cfg.ticks, per_tick * cfg.ticks):
         raise AssertionError(f"{what}: ring_push made {launches} launches and {pushes} "
-                             f"pushes, expected {cfg.ticks} and {4 * cfg.ticks} (one "
-                             f"launch of 4 pushes x {cfg.ticks} ticks)")
-    print(f"{what}: pbft n={cfg.n} sim_ms={cfg.sim_ms} {cfg.delivery}: {metrics}", flush=True)
+                             f"pushes, expected {cfg.ticks} and {per_tick * cfg.ticks} (one "
+                             f"launch of {per_tick} pushes x {cfg.ticks} ticks)")
+    print(f"{what}: pbft n={cfg.n} sim_ms={cfg.sim_ms} {cfg.delivery}"
+          f"{' queued links' if cfg.queued_links else ''}: {metrics}", flush=True)
     print(f"{what} on {card}: wall {wall:.3f} s, {cfg.ticks / wall:.1f} ticks/s, "
           f"{metrics['rounds_sent'] / wall:.2f} rounds/s, ring_push launches {launches}, "
           f"pushes {pushes}, metrics + all state digests equal the JAX golden", flush=True)
     return launches, pushes, wall
+
+
+def _raft_tick_group(cfg, dev, seed=0):
+    """``(name, (ring, lo, contrib, op))`` for every push of one Raft tick
+    whose gates all fire (models/raft.push_members), at the config's shapes;
+    rings and contributions hold values >= 0, as on the main path."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import raft
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    _, bufs = raft.init(cfg, device="meta")
+    out = []
+    for name, op, b, lo in raft.push_members(cfg):
+        shape = getattr(bufs, name).shape
+        ring = torch.randint(0, 1 << 20, shape, generator=gen, device=dev, dtype=torch.int32)
+        contrib = torch.randint(0, 1 << 20, (b, *shape[1:]), generator=gen, device=dev,
+                                dtype=torch.int32)
+        out.append((name, (ring, lo, contrib, op)))
+    return out
+
+
+def phase_kernel_raft(dev, card: str):
+    """The grouped kernel at the Raft tick group's n = 1000 shapes against
+    its plain version (eager, graph replay, skipped members left out), and
+    its device time against the bound and one library call per push."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(RAFT_EDGE_GOLDEN.read_text())["entries"]["n1000"]
+    cfg = SimConfig(**entry["config"])
+    d = cfg.ring_depth
+    named = _raft_tick_group(cfg, dev)
+    items = [it for _, it in named]
+    vec = rk.plan_group(items).vec
+    if vec != (True,) * len(items):
+        raise AssertionError(f"the Raft tick group should take the int4 path: {vec}")
+    # the tick shapes the main path launches most: a heartbeat (one plain
+    # member), a proposal and its acks, an election's request and replies
+    by_name = dict(named)
+    groups = {"raft tick": items,
+              "heartbeat": [by_name["hb_plain"]],
+              "proposal": [by_name[k] for k in ("hb_prop", "hb_ok", "hb_bad")],
+              "election": [by_name[k] for k in ("vres_ok", "vres_no", "vreq")]}
+    max_err = 0
+    for name, grp in groups.items():
+        for tick in (0, 7, d - 1, 9999):
+            max_err = max(max_err, _check_group_run(rk, name, grp, tick, dev))
+
+    t = torch.tensor(9999, dtype=torch.int32, device=dev)
+    eager = [(r.clone(), off, c, op) for r, off, c, op in items]
+    rk.fused_push_group(eager, t)
+    replayed = [(r.clone(), off, c, op) for r, off, c, op in items]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rk.fused_push_group(replayed, t)
+    graph.replay()
+    # a skipped gate's member carries zeros: leaving it out changes nothing
+    zeroed = [(r.clone(), off, torch.zeros_like(c) if name in ("vreq", "hb_bad") else c, op)
+              for (name, _), (r, off, c, op) in zip(named, items)]
+    left_out = [(r.clone(), off, c, op) for r, off, c, op in zeroed]
+    rk.fused_push_group(zeroed, t)
+    rk.fused_push_group([it for (name, _), it in zip(named, left_out)
+                         if name not in ("vreq", "hb_bad")], t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a[0], b[0]) for a, b in zip(eager, replayed)):
+        raise AssertionError("Raft tick group: graph replay != eager launch")
+    if not all(torch.equal(a[0], b[0]) for a, b in zip(zeroed, left_out)):
+        raise AssertionError("Raft tick group: leaving out all-zero members changed a ring")
+    print(f"kernel ring_push, Raft tick group at n = {cfg.n} (vreq {tuple(by_name['vreq'][2].shape)}"
+          f" + 6 x [B, {cfg.n}]): bit-equal to the plain version for the whole group, a "
+          f"heartbeat, a proposal and an election at t in (0, 7, {d - 1}, 9999); graph "
+          f"replay == eager; members of skipped gates left out == pushed as zeros",
+          flush=True)
+
+    # L2-warm: the same t and contributions every call (12 MB of ring slots
+    # and 12 MB of vreq contribution stay in the 50 MB L2).  From HBM: t
+    # steps 3 slots a call, so the 22 calls before a slot comes back touch
+    # all 264 MB of vreq, and the calls rotate over 8 sets of contributions
+    reps, n_sets = 100, 8
+    bufs = [r.clone() for r, *_ in items]
+    work = [(bufs[k], off, c, op) for k, (_, off, c, op) in enumerate(items)]
+    sets = [[(bufs[k], off, c if j == 0 else c.clone(), op)
+             for k, (_, off, c, op) in enumerate(items)] for j in range(n_sets)]
+    t_of = [torch.tensor(9999 + 3 * i, dtype=torch.int32, device=dev) for i in range(reps)]
+    lib = [_library(op) for *_, op in items]
+
+    def slots(tick):
+        return [torch.remainder(tick + off + torch.arange(c.shape[0], device=dev), d)
+                for _, off, c, _ in items]
+
+    idx = slots(9999)
+    idx_cold = [slots(9999 + 3 * i) for i in range(reps)]
+
+    def library(members, where):
+        for k, (r, _, c, _) in enumerate(members):
+            lib[k](r, where[k], c)
+
+    fns = {"group": lambda i: rk.fused_push_group(work, t),
+           "library": lambda i: library(work, idx),
+           "plain": lambda i: rk.push_group_plain(work, t),
+           "vreq alone": lambda i: rk.fused_push_group(work[2:3], t),
+           "six [B, N] members": lambda i: rk.fused_push_group(work[:2] + work[3:], t)}
+    cold_fns = {"group": lambda i: rk.fused_push_group(sets[i % n_sets], t_of[i]),
+                "library": lambda i: library(sets[i % n_sets], idx_cold[i]),
+                "plain": lambda i: rk.push_group_plain(sets[i % n_sets], t_of[i]),
+                "vreq alone": lambda i: rk.fused_push_group(sets[i % n_sets][2:3], t_of[i])}
+    dev_ms = {k: _time_device_ms(f, reps) for k, f in fns.items()}
+    cold_ms = {k: _time_device_ms(f, reps) for k, f in cold_fns.items()}
+    eager_ms = {k: _time_eager_ms(lambda f=f: f(0), reps) for k, f in fns.items()}
+    bound = sum(_bound_ms(c.shape[0], c[0].numel()) for _, _, c, _ in items)
+    vreq_contrib = by_name["vreq"][2]
+    bound_vreq = _bound_ms(vreq_contrib.shape[0], vreq_contrib[0].numel())
+    print(f"kernel ring_push Raft tick group (7 pushes, 1 launch) on {card}: device time per "
+          f"tick (graph replay), rings and contributions from HBM: group "
+          f"{cold_ms['group'] * 1e3:.3f} us against a {bound * 1e3:.3f} us bound "
+          f"({100 * bound / cold_ms['group']:.1f}% of it), vreq alone "
+          f"{cold_ms['vreq alone'] * 1e3:.3f} us vs {bound_vreq * 1e3:.3f} us, 7 library calls "
+          f"{cold_ms['library'] * 1e3:.3f} us, plain {cold_ms['plain'] * 1e3:.3f} us", flush=True)
+    print(f"kernel ring_push Raft tick group, L2-warm (same t and contributions): group "
+          f"{dev_ms['group'] * 1e3:.3f} us, vreq alone {dev_ms['vreq alone'] * 1e3:.3f} us, the "
+          f"six [B, N] members {dev_ms['six [B, N] members'] * 1e3:.3f} us, 7 library calls "
+          f"{dev_ms['library'] * 1e3:.3f} us, plain {dev_ms['plain'] * 1e3:.3f} us", flush=True)
+    print("kernel ring_push Raft tick group, eager per tick (host launch cost included): "
+          + ", ".join(f"{k} {v * 1e3:.3f} us" for k, v in eager_ms.items()), flush=True)
+    return dict(ms=cold_ms["group"], library_ms=cold_ms["library"], bound_ms=bound,
+                plain_ms=cold_ms["plain"], vreq_ms=cold_ms["vreq alone"],
+                vreq_bound_ms=bound_vreq, warm_ms=dev_ms, eager_ms=eager_ms), max_err
+
+
+class _GroupCalls:
+    """Counts the tick engine's group calls that carry at least one push
+    (the ticks that push) and their members, around models/raft.py's
+    ``ring_push_group``."""
+
+    def __init__(self, module):
+        self.module, self.real = module, module.ring_push_group
+        self.ticks = self.members = 0
+
+    def __call__(self, items, t):
+        if items:
+            self.ticks += 1
+            self.members += len(items)
+        return self.real(items, t)
+
+    def __enter__(self):
+        self.module.ring_push_group = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ring_push_group = self.real
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs ``fn()`` makes: torch's sync debug mode "warn" raises one
+    warning per synchronizing CUDA call."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def _profile_window(fn, ticks: int) -> dict:
+    """``fn()`` timed plain, then run once more under torch.profiler (CUDA
+    activity): kernel launches and device-to-host copies a tick, the
+    device's busy share of the plain wall, and the kernels with the most
+    device time."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.profile_tick import _device_us, _is_copy
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages() if _device_us(e) > 0]
+    kernels = sorted((e for e in on_device if not _is_copy(e)), key=_device_us, reverse=True)
+    busy_s = sum(_device_us(e) for e in on_device) / 1e6
+    return {"wall_s": wall, "ticks_per_s": ticks / wall,
+            "launches_per_tick": sum(e.count for e in kernels) / ticks,
+            "d2h_copies_per_tick": sum(e.count for e in on_device if "DtoH" in e.key) / ticks,
+            "device_busy_share": busy_s / wall,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "device_ms": _device_us(e) / 1e3} for e in kernels[:6]]}
+
+
+def phase_raft_tick(dev, card: str):
+    """The slice's main path: Raft n = 1000 on the tick engine with edge
+    delivery, through run_simulation's path, held to the JAX golden, with the
+    ring-push counters set to 0 just before it and read just after."""
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.models import raft
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(RAFT_EDGE_GOLDEN.read_text())["entries"]["n1000"]
+    cfg = SimConfig(**entry["config"])
+    if runner.use_round_schedule(cfg) or cfg.delivery != "edge":
+        raise AssertionError("raft edge: the config should run the tick engine on edge delivery")
+    with _GroupCalls(raft) as calls:
+        rk.launches = rk.pushes = 0
+        t0 = time.perf_counter()
+        final = runner.final_state(cfg, seed=entry["seed"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, pushes = rk.launches, rk.pushes
+    metrics = runner.sim_metrics(cfg, final)
+    _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)),
+                  "raft edge")
+    if launches == 0 or (launches, pushes) != (calls.ticks, calls.members):
+        raise AssertionError(f"raft edge: ring_push made {launches} launches and {pushes} "
+                             f"pushes; the ticks that push were {calls.ticks} with "
+                             f"{calls.members} members (one launch each)")
+    # the same first ticks: host syncs, then launches and device time a tick
+    head = cfg.with_(sim_ms=SYNC_COUNT_TICKS)
+    syncs = _count_syncs(lambda: runner.final_state(head, seed=entry["seed"], device=dev))
+    prof = _profile_window(lambda: runner.final_state(head, seed=entry["seed"], device=dev),
+                           head.ticks)
+    print(f"raft edge: raft n={cfg.n} sim_ms={cfg.sim_ms} {cfg.delivery}/{cfg.eff_edge_sampler}"
+          f": {metrics}", flush=True)
+    print(f"raft edge on {card}: wall {wall:.3f} s, {cfg.ticks / wall:.1f} ticks/s, "
+          f"ring_push launches {launches} (the ticks that push) and pushes {pushes} over "
+          f"{cfg.ticks} ticks, {syncs / head.ticks:.3f} host syncs a tick (first "
+          f"{head.ticks} ticks, sync debug mode), metrics + all state digests equal the "
+          f"JAX golden", flush=True)
+    print(f"raft edge, first {head.ticks} ticks under torch.profiler: {json.dumps(prof)}",
+          flush=True)
+    return dict(wall_s=wall, ticks=cfg.ticks, ticks_per_s=cfg.ticks / wall, launches=launches,
+                pushes=pushes, syncs_per_tick=syncs / head.ticks, window=prof)
+
+
+def phase_raft_hb(dev, card: str):
+    """Raft n = 1000 on the heartbeat-blocked path (stat delivery, schedule
+    "round"), held to the JAX golden and to its handoff flag."""
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.models import raft_hb
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils import threefry
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(RAFT_HB_GOLDEN.read_text())["entries"]["n1000"]
+    cfg = SimConfig(**entry["config"])
+    if not runner.use_round_schedule(cfg):
+        raise AssertionError("raft hb: the config should run the heartbeat path")
+    info = {}
+    rk.launches = rk.pushes = 0
+    t0 = time.perf_counter()
+    # what runner.make_sim_fn's round arm calls, with the handoff reported
+    final = raft_hb.run(cfg, threefry.key(entry["seed"]), dev, info=info)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, pushes = rk.launches, rk.pushes
+    metrics = runner.sim_metrics(cfg, final)
+    _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)), "raft hb")
+    if info["handoff_ok"] != entry["handoff_ok"]:
+        raise AssertionError(f"raft hb: handoff {info['handoff_ok']}, JAX {entry['handoff_ok']}")
+    if launches == 0:
+        raise AssertionError("raft hb: the election prefix launched no ring push")
+    print(f"raft hb: raft n={cfg.n} sim_ms={cfg.sim_ms} stat/{cfg.eff_stat_sampler} schedule "
+          f"round: {metrics}", flush=True)
+    print(f"raft hb on {card}: wall {wall:.3f} s, handoff taken: {info['handoff_ok']} "
+          f"(prefix {raft_hb.prefix_ticks(cfg)} ticks, then {raft_hb.n_hb_steps(cfg)} heartbeat "
+          f"steps), ring_push launches {launches} and pushes {pushes} (the prefix), metrics + "
+          f"all state digests equal the JAX golden", flush=True)
+    return dict(wall_s=wall, handoff_ok=info["handoff_ok"], launches=launches, pushes=pushes)
 
 
 def _mismatches(got, want) -> int:
@@ -517,30 +825,43 @@ def main() -> int:
     round_path = phase_round(dev, card)
     stat_launches, stat_pushes, stat_wall = phase_tick(dev, card, STAT_GOLDEN,
                                                        "tick-stat path")
+    raft_group, raft_err = phase_kernel_raft(dev, card)
+    raft_edge = phase_raft_tick(dev, card)
+    raft_hb = phase_raft_hb(dev, card)
+    q_launches, q_pushes, q_wall = phase_tick(dev, card, QUEUED_GOLDEN, "pbft queued", "n8")
 
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
         "source": "blockchain_simulator_tpu_torch/csrc/ring_push.cu",
         "replaces": "blockchain_simulator_tpu/ops/ring_kernel.py:136",
-        "launches": launches,  # the edge main path's run
-        "pushes": pushes,
-        "launches_tick_stat": stat_launches,  # the tick-stat path's run
-        "pushes_tick_stat": stat_pushes,
-        "max_abs_err": max_err,
-        # one tick's four pushes (prep_rt, commit, pp, vc) in one launch
-        "ms": group["ms"],
-        "plain_ms": group["plain_ms"],
-        "bound_ms": group["bound_ms"],
+        "launches": raft_edge["launches"],  # this slice's main path: Raft edge, n = 1000
+        "pushes": raft_edge["pushes"],
+        "launches_by_path": {"pbft_edge": launches, "pbft_tick_stat": stat_launches,
+                             "raft_edge": raft_edge["launches"],
+                             "raft_hb": raft_hb["launches"], "pbft_queued": q_launches},
+        "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
+                           "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
+                           "pbft_queued": q_pushes},
+        "max_abs_err": max(max_err, raft_err),
+        # one Raft tick's seven pushes (vreq [3, N, N] + six [B, N]) in one launch
+        "ms": raft_group["ms"],
+        "plain_ms": raft_group["plain_ms"],
+        "bound_ms": raft_group["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": group["library_ms"],  # the four library calls, summed
-        "singles_ms": group["singles_ms"],  # the four pushes launched one by one
-        "cold_rings_ms": group["cold_rings_ms"],
-        "eager_ms": group["eager_ms"],
-        "per_push": rows,
+        "library_ms": raft_group["library_ms"],  # seven library calls, summed
+        "raft_group": raft_group,
+        # one PBFT tick's four pushes (prep_rt, commit, pp, vc) in one launch
+        "pbft_group": {"ms": group["ms"], "plain_ms": group["plain_ms"],
+                       "bound_ms": group["bound_ms"], "library_ms": group["library_ms"],
+                       "singles_ms": group["singles_ms"],
+                       "cold_rings_ms": group["cold_rings_ms"],
+                       "eager_ms": group["eager_ms"], "per_push": rows},
     }]
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
-                                "samplers": samplers}}), flush=True)
+                                "raft_edge": raft_edge, "raft_hb": raft_hb,
+                                "pbft_queued_wall_s": q_wall, "samplers": samplers}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

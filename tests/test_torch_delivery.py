@@ -124,3 +124,54 @@ def test_roundtrip_reply_counts_dense(n, drop):
                                          peer_mask=jnp.asarray(peers)))
     _eq(tdv.roundtrip_reply_counts_dense(tk, torch.from_numpy(send), LO, HI, drop),
         jdv.roundtrip_reply_counts_dense(jk, jnp.asarray(send), LO, HI, drop))
+
+
+# Raft's edge arm: the three dense helpers it alone calls (raft one-way range)
+RAFT_LO, RAFT_HI = 3, 6
+
+
+@pytest.mark.parametrize("n, drop", CASES)
+def test_bcast_counts_dense(n, drop):
+    rng = np.random.default_rng(50 + n)
+    send = _mask(rng, n, 0.1)
+    jk, tk = _keys(7)
+    _eq(tdv.bcast_counts_dense(tk, torch.from_numpy(send), RAFT_LO, RAFT_HI, drop),
+        jdv.bcast_counts_dense(jk, jnp.asarray(send), RAFT_LO, RAFT_HI, drop))
+
+
+@pytest.mark.parametrize("n, drop", CASES)
+def test_unicast_reply_counts_dense(n, drop):
+    rng = np.random.default_rng(60 + n)
+    # one-hot grants plus a few denial rows, as Raft's vote wires carry them
+    reply = np.zeros((n, n), np.int32)
+    reply[np.arange(n), rng.integers(0, n, n)] = rng.random(n) < 0.6
+    reply[: n // 3] += (rng.random((n // 3, n)) < 0.2).astype(np.int32)
+    jk, tk = _keys(8)
+    _eq(tdv.unicast_reply_counts_dense(tk, torch.from_numpy(reply), RAFT_LO, RAFT_HI, drop),
+        jdv.unicast_reply_counts_dense(jk, jnp.asarray(reply), RAFT_LO, RAFT_HI, drop))
+
+
+@pytest.mark.parametrize("n, drop", CASES)
+def test_bcast_matrix_dense(n, drop):
+    rng = np.random.default_rng(70 + n)
+    send = _mask(rng, n, 0.15)
+    value = send.astype(np.int32) * rng.integers(1, 9, n).astype(np.int32)
+    jk, tk = _keys(9)
+    got = tdv.bcast_matrix_dense(tk, torch.from_numpy(send), torch.from_numpy(value),
+                                 RAFT_LO, RAFT_HI, drop)
+    assert got.is_contiguous()  # the ring push takes contiguous contributions
+    _eq(got, jdv.bcast_matrix_dense(jk, jnp.asarray(send), jnp.asarray(value),
+                                    RAFT_LO, RAFT_HI, drop))
+
+
+def test_dense_helpers_refuse_a_mesh_axis():
+    send = torch.ones(4, dtype=torch.bool)
+    tk = threefry.key(0)
+    with pytest.raises(NotImplementedError):
+        tdv.bcast_counts_dense(tk, send, RAFT_LO, RAFT_HI, axis="nodes")
+    with pytest.raises(NotImplementedError):
+        tdv.unicast_reply_counts_dense(tk, torch.ones((4, 4), dtype=torch.int32),
+                                       RAFT_LO, RAFT_HI, axis="nodes")
+    with pytest.raises(NotImplementedError):
+        tdv.bcast_matrix_dense(tk, send, send.to(torch.int32), RAFT_LO, RAFT_HI,
+                               axis="nodes")

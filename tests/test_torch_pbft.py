@@ -299,17 +299,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(queued_links=True),
+    dict(protocol="mixed", mixed_shards=2),
     dict(topology="gossip"),
     dict(topology="kregular", degree=4),
     dict(topology="committee", committees=2),
     dict(mesh_axis="nodes"),
-    dict(protocol="raft"),
+    dict(protocol="raft", topology="gossip", delivery="stat"),
     dict(protocol="paxos"),
     dict(echo_back=True),
-    dict(delivery="stat", queued_links=True),
-    dict(protocol="raft", delivery="stat"),
-    dict(protocol="raft", delivery="stat", schedule="round"),
+    dict(protocol="raft", topology="kregular", degree=4),
+    dict(protocol="raft", mesh_axis="nodes"),
+    dict(protocol="mixed", mixed_shards=2, delivery="stat", schedule="round"),
 ])
 def test_unported_configs_raise(kw):
     cfg = tconfig.SimConfig(**dict(dict(protocol="pbft", n=8, sim_ms=50), **kw))
@@ -331,10 +331,15 @@ def test_probed_round_run_raises():
     dict(delivery="stat"),
     dict(edge_sampler="rbg"),
     dict(delivery="stat", schedule="round", model_serialization=False),
+    dict(queued_links=True),
+    dict(delivery="stat", queued_links=True),
+    dict(protocol="raft"),
+    dict(protocol="raft", delivery="stat"),
 ])
 def test_formerly_refused_configs_run_and_equal_jax(kw):
     """The stat arm, the rbg edge stream and the round path came with slice
-    2 of the port: the configs that raised before now equal JAX."""
+    2 of the port, queued links and Raft's tick engine later: the configs
+    that raised before now equal JAX."""
     jcfg, tcfg = _cfgs(**dict(dict(protocol="pbft", n=8, sim_ms=250), **kw))
     jfinal = jrunner.final_state(jcfg)
     tfinal = trunner.final_state(tcfg, device="cpu")
