@@ -24,6 +24,13 @@ on 0-d CPU tensors (the card gives the same bits, ``chip_smoke.py``'s
 samplers phase).  ``materialize`` then writes the leader's row back into the
 state on its device.
 
+The prefix and the scan each add their host seconds to a module counter
+(``prefix_s``, ``scan_s``), and each handoff adds one to ``handoffs_taken``
+or ``handoffs_refused``; ``chip_smoke.py`` sets them to 0 before a run and
+reads them after it.  The prefix's time ends at the handoff's read, which
+waits for the device, so the two split a run's wall without a sync of
+their own.
+
 The documented divergence of the JAX path carries over unchanged: when
 replication completes inside the window, this path ends at completion,
 while the tick engine churns elections afterwards (the ``elections`` metric
@@ -33,6 +40,7 @@ then counts the consensus phase only).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +54,12 @@ from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
 DISARM = raft_tick.DISARM
 _I32 = torch.int32
 _INIT_FOLD = 0x1217  # proto.init's key, as in the JAX package
+
+# run counters (see the module docstring)
+handoffs_taken = 0
+handoffs_refused = 0
+prefix_s = 0.0
+scan_s = 0.0
 
 
 def prefix_ticks(cfg) -> int:
@@ -236,32 +250,38 @@ def tick_range(cfg, state, bufs, key, start: int, stop: int):
     return state, bufs
 
 
-def scan_from_init(cfg, state, bufs, key, probe=None, *, info=None):
+def scan_from_init(cfg, state, bufs, key, probe=None):
     """The heartbeat-path simulation from an initial (state, bufs): the
     election prefix on the tick engine, the checked handoff (one host read),
     then the heartbeat scan, or the tick engine continued from the prefix
-    carry.  ``info`` (a dict, optional) receives ``handoff_ok``."""
+    carry."""
+    global handoffs_taken, handoffs_refused, prefix_s, scan_s
     if probe is not None:
         raise NotImplementedError(
             "probed runs come with slice 4 of the port (fault operands, sweeps, "
             "checkpoints and traces)"
         )
+    t0 = time.perf_counter()
     t_e = prefix_ticks(cfg)
     state, bufs = tick_range(cfg, state, bufs, key, 0, t_e)
     ok, h = handoff(cfg, state)
-    if info is not None:
-        info["handoff_ok"] = ok
+    t1 = time.perf_counter()
+    prefix_s += t1 - t0
     if ok:
-        return materialize(cfg, state, h, steady_scan(cfg, key, h))
+        handoffs_taken += 1
+        out = steady_scan(cfg, key, h)
+        scan_s += time.perf_counter() - t1
+        return materialize(cfg, state, h, out)
+    handoffs_refused += 1
     # the prefix did not reach the quiet window: the tick engine takes over
     state, _ = tick_range(cfg, state, bufs, key, t_e, max(cfg.ticks, t_e))
     return state
 
 
-def run(cfg, key, device, info=None):
+def run(cfg, key, device):
     """``run(cfg, key, device) -> RaftState``: init + scan_from_init."""
     state, bufs = raft_tick.init(cfg, threefry.fold_in(key, _INIT_FOLD), device=device)
-    return scan_from_init(cfg, state, bufs, key, info=info)
+    return scan_from_init(cfg, state, bufs, key)
 
 
 def metrics(cfg, state) -> dict:

@@ -54,8 +54,10 @@ Phases (any failure raises, and the script exits non-zero):
               device's busy share a tick (torch.profiler).
 9. raft-hb  — the same config on stat delivery with schedule "round": the
               heartbeat-blocked path (the election prefix on the tick engine,
-              one host read at the handoff, then one step a heartbeat),
-              held to its JAX golden; prints whether the handoff was taken.
+              one host read at the handoff, then one step a heartbeat)
+              through run_simulation's path, held to its JAX golden and to
+              its handoff flag; the wall split into the prefix and the
+              host's heartbeat scan.
 10. pbft-queued — PBFT n = 8 with queued links (serial-pipe FIFOs), 10,000
               ms, held to its JAX golden; one launch of three pushes a tick.
 
@@ -616,40 +618,49 @@ def phase_raft_tick(dev, card: str):
 
 def phase_raft_hb(dev, card: str):
     """Raft n = 1000 on the heartbeat-blocked path (stat delivery, schedule
-    "round"), held to the JAX golden and to its handoff flag."""
+    "round") through ``runner.final_state``, held to the JAX golden and to
+    its handoff flag; the wall split into the prefix (up to the handoff's
+    host read) and the host's heartbeat scan by ``raft_hb``'s counters."""
     import torch
 
     from blockchain_simulator_tpu_torch import convert, runner
     from blockchain_simulator_tpu_torch.models import raft_hb
     from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
-    from blockchain_simulator_tpu_torch.utils import threefry
     from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
     entry = json.loads(RAFT_HB_GOLDEN.read_text())["entries"]["n1000"]
     cfg = SimConfig(**entry["config"])
     if not runner.use_round_schedule(cfg):
         raise AssertionError("raft hb: the config should run the heartbeat path")
-    info = {}
     rk.launches = rk.pushes = 0
+    raft_hb.handoffs_taken = raft_hb.handoffs_refused = 0
+    raft_hb.prefix_s = raft_hb.scan_s = 0.0
     t0 = time.perf_counter()
-    # what runner.make_sim_fn's round arm calls, with the handoff reported
-    final = raft_hb.run(cfg, threefry.key(entry["seed"]), dev, info=info)
-    torch.cuda.synchronize()
+    final = runner.final_state(cfg, seed=entry["seed"], device=dev)
     wall = time.perf_counter() - t0
     launches, pushes = rk.launches, rk.pushes
+    taken, refused = raft_hb.handoffs_taken, raft_hb.handoffs_refused
+    prefix_s, scan_s = raft_hb.prefix_s, raft_hb.scan_s
     metrics = runner.sim_metrics(cfg, final)
     _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)), "raft hb")
-    if info["handoff_ok"] != entry["handoff_ok"]:
-        raise AssertionError(f"raft hb: handoff {info['handoff_ok']}, JAX {entry['handoff_ok']}")
+    if taken + refused != 1:
+        raise AssertionError(f"raft hb: {taken} handoffs taken, {refused} refused; want one")
+    handoff_ok = taken == 1
+    if handoff_ok != entry["handoff_ok"]:
+        raise AssertionError(f"raft hb: handoff {handoff_ok}, JAX {entry['handoff_ok']}")
     if launches == 0:
         raise AssertionError("raft hb: the election prefix launched no ring push")
+    rest_s = wall - prefix_s - scan_s
     print(f"raft hb: raft n={cfg.n} sim_ms={cfg.sim_ms} stat/{cfg.eff_stat_sampler} schedule "
           f"round: {metrics}", flush=True)
-    print(f"raft hb on {card}: wall {wall:.3f} s, handoff taken: {info['handoff_ok']} "
+    print(f"raft hb on {card}: wall {wall:.3f} s, handoff taken: {handoff_ok} "
           f"(prefix {raft_hb.prefix_ticks(cfg)} ticks, then {raft_hb.n_hb_steps(cfg)} heartbeat "
-          f"steps), ring_push launches {launches} and pushes {pushes} (the prefix), metrics + "
-          f"all state digests equal the JAX golden", flush=True)
-    return dict(wall_s=wall, handoff_ok=info["handoff_ok"], launches=launches, pushes=pushes)
+          f"steps): prefix to the handoff's read {prefix_s:.3f} s, heartbeat scan on the host "
+          f"{scan_s:.3f} s ({scan_s / wall:.1%} of the wall), init + materialize {rest_s:.3f} s; "
+          f"ring_push launches {launches} and pushes {pushes} (the prefix), metrics + all "
+          f"state digests equal the JAX golden", flush=True)
+    return dict(wall_s=wall, handoff_ok=handoff_ok, prefix_s=prefix_s, scan_s=scan_s,
+                rest_s=rest_s, launches=launches, pushes=pushes)
 
 
 def _mismatches(got, want) -> int:
@@ -835,28 +846,32 @@ def main() -> int:
         "route": "cuda",
         "source": "blockchain_simulator_tpu_torch/csrc/ring_push.cu",
         "replaces": "blockchain_simulator_tpu/ops/ring_kernel.py:136",
-        "launches": raft_edge["launches"],  # this slice's main path: Raft edge, n = 1000
-        "pushes": raft_edge["pushes"],
+        # the keys of earlier slices keep their meaning: PBFT's edge path and
+        # one PBFT tick's four pushes (prep_rt, commit, pp, vc) in one launch
+        "launches": launches,  # the edge main path's run
+        "pushes": pushes,
+        "launches_tick_stat": stat_launches,  # the tick-stat path's run
+        "pushes_tick_stat": stat_pushes,
+        "max_abs_err": max(max_err, raft_err),
+        "ms": group["ms"],
+        "plain_ms": group["plain_ms"],
+        "bound_ms": group["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": group["library_ms"],  # the four library calls, summed
+        "singles_ms": group["singles_ms"],  # the four pushes launched one by one
+        "cold_rings_ms": group["cold_rings_ms"],
+        "eager_ms": group["eager_ms"],
+        "per_push": rows,
+        # this slice's path, Raft edge at n = 1000: one Raft tick's seven
+        # pushes (vreq [3, N, N] + six [B, N]) in one launch
+        "raft_group": dict(raft_group, launches=raft_edge["launches"],
+                           pushes=raft_edge["pushes"], bound_by="bytes"),
         "launches_by_path": {"pbft_edge": launches, "pbft_tick_stat": stat_launches,
                              "raft_edge": raft_edge["launches"],
                              "raft_hb": raft_hb["launches"], "pbft_queued": q_launches},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes},
-        "max_abs_err": max(max_err, raft_err),
-        # one Raft tick's seven pushes (vreq [3, N, N] + six [B, N]) in one launch
-        "ms": raft_group["ms"],
-        "plain_ms": raft_group["plain_ms"],
-        "bound_ms": raft_group["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": raft_group["library_ms"],  # seven library calls, summed
-        "raft_group": raft_group,
-        # one PBFT tick's four pushes (prep_rt, commit, pp, vc) in one launch
-        "pbft_group": {"ms": group["ms"], "plain_ms": group["plain_ms"],
-                       "bound_ms": group["bound_ms"], "library_ms": group["library_ms"],
-                       "singles_ms": group["singles_ms"],
-                       "cold_rings_ms": group["cold_rings_ms"],
-                       "eager_ms": group["eager_ms"], "per_push": rows},
     }]
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,

@@ -49,12 +49,9 @@ def test_round_run_equals_jax(name):
     assert jrunner.use_round_schedule(jcfg) and trunner.use_round_schedule(tcfg)
     # a fallback must equal one uninterrupted run of the JAX tick engine
     jfinal = jrunner.final_state(jcfg if handoff_ok else jcfg.with_(schedule="tick"))
-    info = {}
-    key = threefry.key(0)
-    tstate, tbufs = thb.raft_tick.init(tcfg, threefry.fold_in(key, thb._INIT_FOLD),
-                                       device="cpu")
-    tfinal = thb.scan_from_init(tcfg, tstate, tbufs, key, info=info)
-    assert info["handoff_ok"] is handoff_ok
+    thb.handoffs_taken = thb.handoffs_refused = 0
+    tfinal = trunner.final_state(tcfg, seed=0, device="cpu")
+    assert (thb.handoffs_taken, thb.handoffs_refused) == ((1, 0) if handoff_ok else (0, 1))
     assert trunner.sim_metrics(tcfg, tfinal) == jrunner.base_model.sim_metrics(jcfg, jfinal)
     _assert_leaves_equal(_jax_leaves(jfinal), convert.state_to_numpy(tfinal))
 
