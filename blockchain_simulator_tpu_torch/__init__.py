@@ -7,18 +7,22 @@ by ``tests/test_torch_*.py``.  It imports torch and numpy, never jax nor the
 JAX package.  Its one hand-written kernel is the ring push
 (``csrc/ring_push.cu``, bound in ``ops/ring_kernel.py``).
 
-Ported so far (slices 1 and 2): PBFT on the full mesh, the tick engine with
-edge or stat delivery and the round-blocked fast path that ``schedule="auto"``
-picks at n >= 4096 (the bench headline, n = 100,000).  Entry points run on the
-CUDA card unless the caller passes ``device="cpu"``.
+Ported so far: PBFT, Raft and Paxos on the full mesh and over the gossip
+topology (the tick engines, with edge or stat delivery), PBFT's
+round-blocked fast path and Raft's heartbeat-blocked path (``schedule=
+"auto"`` picks them at n >= 4096), and the C++ reference engine's wrapper.
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 
 Subpackages
 -----------
-- ``utils``  — config (a copy of the JAX package's), the threefry and Philox
-  streams, the binomial and categorical draws, XLA:CPU's float32 math.
-- ``ops``    — delay samplers, ring buffers and the ring-push kernel, edge and
-  stat delivery.
-- ``models`` — the PBFT tick engine and the round-blocked fast path.
+- ``utils``  — config and the wire codec (copies of the JAX package's), the
+  threefry and Philox streams, the binomial and categorical draws, XLA:CPU's
+  float32 math.
+- ``ops``    — delay samplers, ring buffers and the ring-push kernel, edge,
+  stat and gossip delivery, the gossip topology.
+- ``models`` — the PBFT, Raft and Paxos tick engines, PBFT's round-blocked
+  fast path and Raft's heartbeat-blocked path.
 """
 
 from blockchain_simulator_tpu_torch.utils.config import SimConfig  # noqa: F401

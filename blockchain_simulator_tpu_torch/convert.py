@@ -2,10 +2,11 @@
 
 The counterpart of carrying weights across: ``state_from_numpy`` turns the
 JAX package's ``PbftState`` / ``PbftBufs`` leaves (the PBFT tick engine),
-``PbftRoundState`` leaves (the round-blocked fast path) or ``RaftState`` /
+``PbftRoundState`` leaves (the round-blocked fast path), ``RaftState`` /
 ``RaftBufs`` leaves (the Raft tick engine, which the heartbeat path also
-carries), given as numpy arrays keyed by field name, into the port's
-dataclasses on a device, and
+carries) or ``PaxosState`` / ``PaxosBufs`` leaves (the Paxos tick engine),
+given as numpy arrays keyed by field name, into the port's dataclasses on a
+device, and
 ``state_to_numpy`` goes the other way.  Both packages can then start from one
 mid-run state.  :func:`state_digests` fingerprints every field, so two runs
 can be compared without shipping the arrays.
@@ -19,7 +20,7 @@ import hashlib
 import numpy as np
 import torch
 
-from blockchain_simulator_tpu_torch.models import pbft, pbft_round, raft
+from blockchain_simulator_tpu_torch.models import paxos, pbft, pbft_round, raft
 from blockchain_simulator_tpu_torch.runner import use_round_schedule
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
@@ -36,8 +37,8 @@ def _to_tensor(name, arr, device):
 
 def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
     """The state the config's engine carries, on ``device``, from numpy
-    leaves: ``(PbftState, PbftBufs)`` or ``(RaftState, RaftBufs)`` for a
-    tick engine (``bufs=None`` gives empty rings), ``(PbftRoundState, ())``
+    leaves: ``(PbftState, PbftBufs)``, ``(RaftState, RaftBufs)`` or
+    ``(PaxosState, PaxosBufs)`` for a tick engine (``bufs=None`` gives empty rings), ``(PbftRoundState, ())``
     when a PBFT config resolves to the round-blocked fast path (which has no
     rings: ``bufs`` must be ``None``).  Shapes are checked against the
     engine's ``init``."""
@@ -46,6 +47,11 @@ def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
         ref_state, ref_bufs = raft.init(cfg, device="meta")
         groups = ((raft.RaftState, raft.STATE_FIELDS, ref_state, state),
                   (raft.RaftBufs, raft.BUF_FIELDS, ref_bufs, bufs))
+    elif cfg.protocol == "paxos":
+        proto = paxos
+        ref_state, ref_bufs = paxos.init(cfg, device="meta")
+        groups = ((paxos.PaxosState, paxos.STATE_FIELDS, ref_state, state),
+                  (paxos.PaxosBufs, paxos.BUF_FIELDS, ref_bufs, bufs))
     elif use_round_schedule(cfg):
         if bufs:
             raise ValueError("the round-blocked fast path carries no rings")

@@ -11,10 +11,13 @@ threefry keys per (tick, channel): a run is bit-equal to the JAX package's.
 Ported arms: full mesh with edge (exact per-edge, ``"threefry"`` or
 ``"rbg"`` delays) or stat (multinomial bucket counts) delivery, drops, crash
 and Byzantine masks, ``byz_forge``, both fidelities, both quorum rules, the
-windowed vote table (``pbft_window < pbft_max_slots``) and queued links
+windowed vote table (``pbft_window < pbft_max_slots``), queued links
 (blocks ride per-destination serial-pipe FIFOs, ``ppq_*``, instead of the
-pre-prepare ring).  Everything else raises ``NotImplementedError`` naming the
-slice of the port that brings it.
+pre-prepare ring) and the gossip topology (PRE_PREPARE and VIEW_CHANGE
+flood over the random k-out digraph of ops/topology.py with a hop TTL,
+deduplicated by the ``seen_pp`` / ``seen_vc`` registers; votes stay direct;
+exact vote table only).  Everything else raises ``NotImplementedError``
+naming the slice of the port that brings it.
 
 PyTorch idiom: state and rings are mutable tensors.  The rings are updated in
 place (ops/ring.py), and ``t`` is a one-element int32 tensor on the device.
@@ -36,6 +39,7 @@ import torch
 from blockchain_simulator_tpu_torch.models.base import fault_masks, gated
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.ops import delivery as dv
+from blockchain_simulator_tpu_torch.ops import topology
 from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
 from blockchain_simulator_tpu_torch.utils import threefry
 from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
@@ -103,10 +107,6 @@ def queue_len(cfg) -> int:
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.topology == "gossip":
-        raise NotImplementedError(
-            "topology='gossip' (flood relay) comes with slice 3 of the port"
-        )
     if cfg.topology in ("kregular", "committee"):
         raise NotImplementedError(
             f"topology={cfg.topology!r} comes with slice 5 of the port "
@@ -125,6 +125,13 @@ def init(cfg, key=None, *, device):
     n, s = cfg.n, cfg.pbft_max_slots
     w = eff_window(cfg)
     d = cfg.ring_depth
+    if cfg.topology == "gossip" and w < s:
+        raise ValueError(
+            "pbft gossip (topology='gossip') requires exact vote-table mode "
+            "(pbft_window = 0 or >= pbft_max_slots): a multi-hop PRE_PREPARE "
+            "can trail its slot's direct-unicast COMMIT votes, which exact "
+            "mode attributes by window identity while a window would misfile"
+        )
     if w < s:
         lo, hi = cfg.one_way_range()
         if 4 * lo <= hi:
@@ -285,6 +292,30 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
                   & (vals > 0)[:, :, None])  # [N, Q, W]
         pp_t = torch.maximum(pp_t, torch.where(oh_arr, vals[:, :, None], 0).amax(1))
 
+    # ---- gossip decode: PRE_PREPARE and VIEW_CHANGE flood with a hop TTL
+    # (value * H + hops_left, H = gossip_hops + 1); a node processes each
+    # base value once (first sighting) but forwards any strictly better TTL
+    # copy, so a nearly-expired first arrival cannot truncate the flood
+    gossip = cfg.topology == "gossip"
+    seen_pp, seen_vc = state.seen_pp, state.seen_vc
+    if gossip:
+        h_enc = cfg.gossip_hops + 1
+        nbrs = topology.neighbours(n, cfg.degree, cfg.seed, dev)
+        pp_base, pp_hops = pp_t // h_enc, pp_t % h_enc
+        better = (pp_t > seen_pp) & state.alive[:, None]
+        new_base = (pp_base > seen_pp // h_enc) & state.alive[:, None]
+        seen_pp = torch.maximum(seen_pp, pp_t * better)
+        pp_fwd = ((pp_base * h_enc + torch.clamp(pp_hops - 1, min=0))
+                  * (better & (pp_hops > 0)))
+        pp_t = pp_base * new_base  # first sighting processes (value = slot+1)
+        vc_base, vc_hops = vc_t // h_enc, vc_t % h_enc
+        vbetter = (vc_t > seen_vc) & state.alive
+        vnew = (vc_base > seen_vc // h_enc) & state.alive
+        seen_vc = torch.maximum(seen_vc, vc_t * vbetter)
+        vc_fwd = ((vc_base * h_enc + torch.clamp(vc_hops - 1, min=0))
+                  * (vbetter & (vc_hops > 0)))
+        vc_t = vc_base * vnew
+
     # ---- VIEW_CHANGE arrivals: adopt (v, leader) ----------------------------
     has_vc = vc_t > 0
     v = torch.where(has_vc, (vc_t - 1) // n, state.v)
@@ -410,6 +441,15 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
             ppq_tick, ppq_val, link_busy = _enqueue_blocks(
                 cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, t, k_pp)
         # the blocks ride the serial pipes: the pp ring is not pushed
+    elif gossip:
+        # origin injection (TTL = gossip_hops) + this tick's relays, one
+        # flood push over the out-edges; every hop re-serializes the block
+        # (store-and-forward), hence the ser term on each leg.  The proposer
+        # marks its own copy seen: it must never process its own
+        # announcement, and the digraph has self-loops
+        origin_enc = (pp_val * h_enc + cfg.gossip_hops) * (pp_val > 0)
+        seen_pp = torch.maximum(seen_pp, origin_enc)
+        pp_out = torch.maximum(origin_enc, pp_fwd)
     else:
         pp_contrib = gated(
             any_block,
@@ -445,15 +485,34 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
     view_changes = state.view_changes + trigger
     enc = torch.where(trigger, new_v * n + new_leader + 1, 0)
     k_vc = chan_key(tkey, Channel.DELAY_REPLY)
-    vc_contrib = gated(
-        any_block and trigger.any(),
-        lambda: (
-            dv.bcast_value_max_stat(k_vc, enc, ow_probs, drop)
-            if stat else
-            dv.bcast_value_max_dense(k_vc, trigger, enc, lo, hi, drop, impl=eimpl)
-        ),
-        consts.zeros_vc,
-    )
+    if gossip:
+        vc_origin = (enc * h_enc + cfg.gossip_hops) * (enc > 0)
+        seen_vc = torch.maximum(seen_vc, vc_origin)  # self-loop guard
+        vc_out = torch.maximum(vc_origin, vc_fwd)
+        # both floods' gates in one host read
+        pp_on, vc_on = torch.stack([pp_out.any(), vc_out.any()]).tolist()
+        pp_contrib = gated(
+            pp_on,
+            lambda: dv.gossip_fwd(k_pp, pp_out, nbrs, n, lo, hi, drop, impl=eimpl),
+            zeros_w,
+        )
+        pushes.append((pp, lo + ser, pp_contrib, "max"))
+        vc_contrib = gated(
+            vc_on,
+            lambda: dv.gossip_fwd(k_vc, vc_out[:, None], nbrs, n, lo, hi, drop,
+                                  impl=eimpl)[:, :, 0],
+            consts.zeros_vc,
+        )
+    else:
+        vc_contrib = gated(
+            any_block and trigger.any(),
+            lambda: (
+                dv.bcast_value_max_stat(k_vc, enc, ow_probs, drop)
+                if stat else
+                dv.bcast_value_max_dense(k_vc, trigger, enc, lo, hi, drop, impl=eimpl)
+            ),
+            consts.zeros_vc,
+        )
     pushes.append((vc, lo, vc_contrib, "max"))
     ring_push_group(pushes, t)  # in place on all four rings
 
@@ -471,6 +530,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
         block_num=block_num,
         unattributed=unattributed,
         view_changes=view_changes,
+        seen_pp=seen_pp,
+        seen_vc=seen_vc,
         link_busy=link_busy,
         ppq_tick=ppq_tick,
         ppq_val=ppq_val,

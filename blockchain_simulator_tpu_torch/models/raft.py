@@ -11,19 +11,27 @@ JAX package's.
 
 Ported arms: the full mesh with edge (``"threefry"`` or ``"rbg"`` delays) or
 stat (``"exact"`` or ``"normal"`` bucket counts) delivery, both fidelities,
-drops, crash and Byzantine masks, and queued links (proposals serialize on
+drops, crash and Byzantine masks, queued links (proposals serialize on
 the leader's per-destination links; deliveries land on the rings at dynamic
-offsets).  ``topology="gossip"`` raises ``NotImplementedError`` naming slice
-3's item 10, ``"kregular"`` slice 5, and ``mesh_axis`` slice 6.
+offsets), and the gossip topology (clean fidelity, stat delivery: VOTE_REQ,
+plain HEARTBEAT and proposal HEARTBEAT flood over the random k-out digraph
+of ops/topology.py with a hop TTL and per-channel ``seen`` registers; votes
+and proposal acks go direct to the decoded originator, acks generated at
+flood arrival; votes go to the newest election seen, and a leader steps
+down on seeing a newer election than its own, ``my_base``).
+``"kregular"`` raises ``NotImplementedError`` naming slice 5, and
+``mesh_axis`` slice 6.
 
 PyTorch idiom, as in models/pbft.py: state and rings are mutable tensors, the
 rings are updated in place, and ``t`` is a one-element int32 tensor on the
 device.  JAX's ``lax.cond`` gates become host branches; a step reads the host
 four times (three in reference fidelity): heartbeat arrivals (the clean
 timer re-arm), vote requests, election fires, and heartbeat sends (plain and
-proposal in one read).  A skipped branch would have produced exactly what
-its gate leaves (zeros; the keys are pure functions of seed, tick and
-channel, so skipping consumes nothing).  Each ring is popped once at the top
+proposal in one read).  Over gossip the last read takes the three floods'
+and the acks' gates together, and a fifth reads whether a leader steps
+down.  A skipped branch would have produced exactly what its gate leaves
+(zeros; the keys are pure functions of seed, tick and channel, so skipping
+consumes nothing).  Each ring is popped once at the top
 of the tick and pushed at most once; nothing reads a ring between its push
 and the end of the tick, so the pushes are collected and applied in one
 kernel launch at the end.  A member whose gate was skipped is left out of the
@@ -42,6 +50,7 @@ import torch
 from blockchain_simulator_tpu_torch.models.base import fault_masks
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.ops import delivery as dv
+from blockchain_simulator_tpu_torch.ops import topology
 from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
 from blockchain_simulator_tpu_torch.utils import threefry
 from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
@@ -98,11 +107,6 @@ BUF_FIELDS = tuple(f.name for f in dataclasses.fields(RaftBufs))
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.topology == "gossip":
-        raise NotImplementedError(
-            "raft with topology='gossip' (flood relay) comes with slice 3 of the "
-            "port, item 10 (gossip topology, with paxos and the mixed sim)"
-        )
     if cfg.topology in ("kregular", "committee"):
         raise NotImplementedError(
             f"topology={cfg.topology!r} comes with slice 5 of the port "
@@ -177,10 +181,17 @@ def push_members(cfg) -> tuple:
     """``(ring, op, B, lo)`` of every ring push one tick can make, in the
     order ``step`` collects them: the group a tick whose gates all fire
     launches (queued links replace the four heartbeat pushes by scatters).
-    ``hb_bad`` is pushed only when the config has Byzantine nodes."""
+    ``hb_bad`` is pushed only when the config has Byzantine nodes.  Over
+    gossip the plain heartbeats are a max-combined flood and the acks leave
+    at flood arrival, one way."""
     lo, hi = cfg.one_way_range()
     rt_lo, rt_hi = cfg.roundtrip_range()
     ser = cfg.serialization_ticks(cfg.raft_block_bytes)
+    if cfg.topology == "gossip":
+        return (("vres_ok", "add", hi - lo, lo), ("vres_no", "add", hi - lo, lo),
+                ("vreq", "max", hi - lo, lo), ("hb_plain", "max", hi - lo, lo),
+                ("hb_prop", "max", hi - lo, lo + ser), ("hb_ok", "add", hi - lo, lo),
+                ("hb_bad", "add", hi - lo, lo))
     return (("vres_ok", "add", hi - lo, lo), ("vres_no", "add", hi - lo, lo),
             ("vreq", "max", hi - lo, lo), ("hb_plain", "add", hi - lo, lo),
             ("hb_prop", "max", hi - lo, lo + ser), ("hb_ok", "add", rt_hi - rt_lo, rt_lo + ser),
@@ -249,9 +260,33 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
     hbtot_t = hbok_t + hbbad_t
     vreq_t = vreq_t * am if stat else vreq_t * am[:, None]
 
+    # ---- gossip decode: the three broadcast channels flood with a hop TTL
+    # (value * H + hops_left, H = gossip_hops + 1) over time-monotone bases:
+    # vreq (t+1)*n + cand + 1, plain hb t+1, proposal (t+1)*(n+1) + leader + 1.
+    # A node processes each base once (first sighting) but forwards any
+    # strictly better TTL copy
+    gossip = cfg.topology == "gossip"
+    seen_vreq, seen_hb, seen_prop = state.seen_vreq, state.seen_hb, state.seen_prop
+    if gossip:
+        h_enc = cfg.gossip_hops + 1
+        nbrs = topology.neighbours(n, cfg.degree, cfg.seed, dev)
+
+        def _decode(arr, seen):
+            base, hops = arr // h_enc, arr % h_enc
+            new = (base > seen // h_enc) & alive
+            better = (arr > seen) & alive
+            fwd = (base * h_enc + torch.clamp(hops - 1, min=0)) * (better & (hops > 0))
+            return base * new, torch.maximum(seen, arr * better), fwd
+
+        vreq_t, seen_vreq, vreq_fwd = _decode(vreq_t, seen_vreq)
+        plain_t, seen_hb, hb_fwd = _decode(plain_t, seen_hb)
+        prop_t, seen_prop, prop_fwd = _decode(prop_t, seen_prop)
+
     # ---- heartbeat arrivals (follower side) ---------------------------------
     got_hb = (plain_t > 0) | (prop_t > 0)
-    m_value = torch.where(prop_t > 0, prop_t - 1, state.m_value)
+    # over gossip the proposal value (the leader id) rides the flood encoding
+    m_value = torch.where(prop_t > 0, (prop_t - 1) % (n + 1) if gossip else prop_t - 1,
+                          state.m_value)
     if not clean:
         # quirk #5: one heartbeat pacifies a follower forever
         election_deadline = torch.where(got_hb, DISARM, state.election_deadline)
@@ -263,17 +298,50 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
     else:
         election_deadline = state.election_deadline
 
+    # ---- gossip proposal acks: a follower acks the proposal when the flood
+    # lands, direct to the decoded leader (the full mesh's short-circuited
+    # round trip has no meaning over multi-hop paths); the gate is read with
+    # the flood gates at the end of the tick
+    if gossip:
+        got_prop = prop_t > 0
+        ack_to = torch.where(got_prop, (prop_t - 1) % (n + 1), n)
+
+        def ack_pushes():
+            k_ack = chan_key(tkey, Channel.DELAY_REPLY2)
+            mok = _reply_counts(ack_to, got_prop & honest & alive, got_prop, n)
+            mbad = _reply_counts(ack_to, got_prop & ~honest & alive, got_prop, n)
+            if drop > 0.0:
+                kd = threefry.fold_in(k_ack, 0x0D18)
+                mok = dv._thinned(kd, mok, 1.0 - drop, smode)
+                mbad = dv._thinned(threefry.fold_in(kd, 1), mbad, 1.0 - drop, smode)
+            out = [(hb_ok, lo, dv.push_bucket_counts(
+                threefry.fold_in(k_ack, 1), mok, ow_probs, smode), "add")]
+            if liars_exist:
+                out.append((hb_bad, lo, dv.push_bucket_counts(
+                    threefry.fold_in(k_ack, 2), mbad, ow_probs, smode), "add"))
+            return out
+
     # ---- vote requests (acceptor side) --------------------------------------
     can_grant = ~state.has_voted & alive
     has_voted = state.has_voted
     k_vr = chan_key(tkey, Channel.DELAY_REPLY)
     if stat:
         # vreq_t[i] = max candidate id + 1 seen this tick (the stat broadcast
-        # reaches the sender too: drop the self-request)
-        grant_to = vreq_t - 1
+        # reaches the sender too: drop the self-request); over gossip the
+        # candidate id rides the flood encoding
+        grant_to = (vreq_t - 1) % n if gossip else vreq_t - 1
         has_req = (vreq_t > 0) & (grant_to != ids)
         if bool(has_req.any()):
-            grant = has_req & can_grant
+            if gossip:
+                # term-style release: the dedup register admits only strictly
+                # newer elections, so every processed request is a grant, and
+                # granting re-arms the election timeout (standard Raft)
+                grant = has_req & alive
+                election_deadline = torch.where(
+                    grant, _rearm(cfg, tkey, Channel.ELECTION + 300, t, n, dev),
+                    election_deadline)
+            else:
+                grant = has_req & can_grant
             deny = has_req & ~grant
             has_voted = has_voted | grant
             # Byzantine receivers flip their replies (grant <-> deny on the wire)
@@ -332,12 +400,31 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
         lead_new = torch.where(is_leader & alive, ids, -1).amax()
         link_busy = torch.where(lead_new != lead_prev, 0, link_busy)
 
+    # ---- gossip: leader step-down on a newer election (see my_base) ---------
+    hb_succ_in, hb_cnt_in, hb_open_in = state.hb_succ, state.hb_cnt, state.hb_open
+    resign = None  # no leader steps down this tick
+    if gossip:
+        newer = is_leader & (seen_vreq // h_enc > state.my_base) & alive
+        if bool(newer.any()):
+            resign = newer
+            is_leader = is_leader & ~resign
+            next_hb = torch.where(resign, DISARM, next_hb)
+            proposal_tick = torch.where(resign, DISARM, proposal_tick)
+            # back to follower: re-arm the election timer
+            election_deadline = torch.where(
+                resign, _rearm(cfg, tkey, Channel.ELECTION + 200, t, n, dev),
+                election_deadline)
+            # a resigned leader abandons its open ack window
+            hb_succ_in = torch.where(resign, 0, hb_succ_in)
+            hb_cnt_in = torch.where(resign, 0, hb_cnt_in)
+            hb_open_in = hb_open_in & ~resign
+
     # ---- proposal acks (leader side) ----------------------------------------
-    hs = state.hb_succ + hbok_t
-    hc = state.hb_cnt + hbtot_t
+    hs = hb_succ_in + hbok_t
+    hc = hb_cnt_in + hbtot_t
     if clean:
-        commit = state.hb_open & (hs + 1 >= cfg.majority_need) & is_leader
-        hb_open = state.hb_open & ~commit
+        commit = hb_open_in & (hs + 1 >= cfg.majority_need) & is_leader
+        hb_open = hb_open_in & ~commit
         hb_succ, hb_cnt = hs, hc
     else:
         # reference: the check runs only at exactly N-1 responses in
@@ -345,7 +432,7 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
         commit = done & (hs + 1 >= cfg.majority_need)
         hb_succ = torch.where(done, 0, hs)
         hb_cnt = torch.where(done, 0, hc)
-        hb_open = state.hb_open
+        hb_open = hb_open_in
     b_max = cfg.raft_max_blocks
     blk = torch.clamp(state.block_num, 0, b_max - 1)
     slots = torch.arange(b_max, device=dev)
@@ -354,32 +441,57 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
         & (state.block_num < b_max)[:, None],
         t, state.block_tick)
     block_num = state.block_num + commit
-    # blockNum >= max cancels the heartbeat
-    next_hb = torch.where(block_num >= b_max, DISARM, next_hb)
+    # blockNum >= max cancels the heartbeat.  Gossip keeps its 4-byte control
+    # heartbeat after completion (silence would start a fresh election) and
+    # simply stops proposing
+    if not gossip:
+        next_hb = torch.where(block_num >= b_max, DISARM, next_hb)
 
     # ---- timer: sendVote ----------------------------------------------------
     fire = (t >= election_deadline) & (election_deadline != DISARM) & ~is_leader & alive
     elections = state.elections
+    my_base = state.my_base
+    k_vq = chan_key(tkey, Channel.DELAY_BCAST)
+    floods = []  # gossip: (ring, lo, key, out value) of the tick's floods
     if bool(fire.any()):
         has_voted = has_voted | fire  # self-vote latch
         election_deadline = torch.where(
             fire, _rearm(cfg, tkey, Channel.ELECTION + 100, t, n, dev), election_deadline)
         elections = elections + fire
-        k_vq = chan_key(tkey, Channel.DELAY_BCAST)
         fire_i = fire.to(_I32)
-        vq_contrib = (dv.bcast_value_max_stat(k_vq, (ids + 1) * fire_i, ow_probs, drop)
-                      if stat else
-                      dv.bcast_matrix_dense(k_vq, fire, fire_i, lo, hi, drop, impl=eimpl))
-        pushes.append((vreq, lo, vq_contrib, "max"))
+        if gossip:
+            # a fresh election restarts the reply count (stale replies
+            # drained long ago: reply horizon << timeout)
+            vote_success = torch.where(fire, 0, vote_success)
+            vote_failed = torch.where(fire, 0, vote_failed)
+            # flood origin: full TTL, marked seen so the self-loop copy is
+            # inert; the candidate backs its own (newest) election
+            base_v = ((t + 1) * n + ids + 1) * fire_i
+            origin_v = (base_v * h_enc + cfg.gossip_hops) * (base_v > 0)
+            seen_vreq = torch.maximum(seen_vreq, origin_v)
+            my_base = torch.maximum(my_base, base_v)
+            vreq_fwd = torch.maximum(origin_v, vreq_fwd)
+        else:
+            vq_contrib = (dv.bcast_value_max_stat(k_vq, (ids + 1) * fire_i, ow_probs, drop)
+                          if stat else
+                          dv.bcast_matrix_dense(k_vq, fire, fire_i, lo, hi, drop,
+                                                impl=eimpl))
+            pushes.append((vreq, lo, vq_contrib, "max"))
+    if gossip:
+        floods.append((vreq, lo, k_vq, vreq_fwd))
 
     # ---- timer: sendHeartBeat -----------------------------------------------
     hb_fire = is_leader & (t >= next_hb) & (next_hb != DISARM) & alive
     # setProposal fires exactly once; round == max clears add_change_value
     set_prop = (t >= proposal_tick) & (proposal_tick != DISARM)
     add_change_value = state.add_change_value | set_prop
+    if resign is not None:
+        add_change_value = add_change_value & ~resign
     proposal_tick = torch.where(set_prop, DISARM, proposal_tick)
     prop_send = hb_fire & add_change_value
-    plain_send = hb_fire & ~add_change_value
+    # gossip: the leader ALWAYS floods the 4-byte plain heartbeat, the
+    # failure detector, beside the 20 KB proposal flood
+    plain_send = hb_fire if gossip else hb_fire & ~add_change_value
     next_hb = torch.where(hb_fire, next_hb + cfg.raft_heartbeat_ms, next_hb)
     round_ = state.round + prop_send
     add_change_value = add_change_value & ~(prop_send & (round_ >= cfg.raft_max_rounds))
@@ -387,13 +499,37 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
         hb_succ = torch.where(prop_send, 0, hb_succ)
         hb_cnt = torch.where(prop_send, 0, hb_cnt)
         hb_open = hb_open | prop_send
-    any_plain, any_prop = torch.stack([plain_send.any(), prop_send.any()]).tolist()
 
     k_hb = chan_key(tkey, Channel.DELAY_BCAST2)
     k_rt = chan_key(tkey, Channel.DELAY_ROUNDTRIP)
     voters = alive & honest
     liars = alive & ~honest
-    if queued:
+    if not gossip:
+        any_plain, any_prop = torch.stack([plain_send.any(), prop_send.any()]).tolist()
+    if gossip:
+        # plain heartbeats flood with the tick as the monotone base; proposals
+        # carry the block, re-serialized on every hop (store-and-forward)
+        base_h = (t + 1) * plain_send.to(_I32)
+        origin_h = (base_h * h_enc + cfg.gossip_hops) * (base_h > 0)
+        seen_hb = torch.maximum(seen_hb, origin_h)
+        floods.append((hb_plain, lo, threefry.fold_in(k_hb, 2),
+                       torch.maximum(origin_h, hb_fwd)))
+        base_p = ((t + 1) * (n + 1) + ids + 1) * prop_send.to(_I32)
+        origin_p = (base_p * h_enc + cfg.gossip_hops) * (base_p > 0)
+        seen_prop = torch.maximum(seen_prop, origin_p)
+        floods.append((hb_prop, lo + ser, threefry.fold_in(k_hb, 3),
+                       torch.maximum(origin_p, prop_fwd)))
+        # the floods' and the acks' gates in one host read
+        *flood_on, any_ack = torch.stack(
+            [out.any() for *_, out in floods] + [got_prop.any()]).tolist()
+        for (ring, off, key, out), on in zip(floods, flood_on):
+            if on:
+                pushes.append((ring, off, dv.gossip_fwd(key, out[:, None], nbrs, n, lo,
+                                                        hi, drop, impl=eimpl)[:, :, 0],
+                               "max"))
+        if any_ack:
+            pushes += ack_pushes()
+    elif queued:
         if any_plain or any_prop:
             link_busy = _queued_sends(cfg, prop_send, plain_send, any_prop, voters, liars,
                                       ids, link_busy, hb_prop, hb_plain, hb_ok, hb_bad,
@@ -456,6 +592,10 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
         leader_tick=leader_tick,
         elections=elections,
         block_tick=block_tick,
+        seen_vreq=seen_vreq,
+        seen_hb=seen_hb,
+        seen_prop=seen_prop,
+        my_base=my_base,
         link_busy=link_busy,
     )
     bufs = RaftBufs(vreq=vreq, vres_ok=vres_ok, vres_no=vres_no, hb_plain=hb_plain,

@@ -18,17 +18,25 @@ copy: one sync a run).  When the check fails (a split first election that
 re-ran past the prefix, or setProposal already fired inside it), the tick
 engine continues from the prefix's (state, bufs) through the rest of the
 window: tick keys derive from the absolute tick, so that equals one
-uninterrupted tick run.  The scan's carry is a handful of scalars, so it runs
-on the host as Python integers; its bucket draws are the port's own samplers
-on 0-d CPU tensors (the card gives the same bits, ``chip_smoke.py``'s
-samplers phase).  ``materialize`` then writes the leader's row back into the
-state on its device.
+uninterrupted tick run.
+
+The scan runs on the state's device over a leading shard axis ``[S]``:
+:func:`steady_scan` is ``jax.vmap`` of the JAX scan over per-shard keys and
+``Handoff``s (the mixed shard sim runs S of them side by side; the single
+Raft path calls it with S = 1).  Its carry is ``[S]`` tensors, its ack
+waves are drawn for every step and shard up front
+(``ops/delay.sample_bucket_counts_vmapped``), and each step's bins go
+through the ack window in one vectorised pass (:func:`_cross`), so the step
+loop reads nothing back.  ``materialize`` writes the leader's row back into
+the state.
 
 The prefix and the scan each add their host seconds to a module counter
 (``prefix_s``, ``scan_s``), and each handoff adds one to ``handoffs_taken``
 or ``handoffs_refused``; ``chip_smoke.py`` sets them to 0 before a run and
 reads them after it.  The prefix's time ends at the handoff's read, which
-waits for the device, so the two split a run's wall without a sync of
+waits for the device.  The scan's time ends at the next sync the run
+makes anyway: ``runner.final_state`` calls :func:`book_scan_time` after its
+``synchronize``.  So the counters split a run's wall without a sync of
 their own.
 
 The documented divergence of the JAX path carries over unchanged: when
@@ -60,6 +68,16 @@ handoffs_taken = 0
 handoffs_refused = 0
 prefix_s = 0.0
 scan_s = 0.0
+_scan_started = None  # perf_counter() at a scan whose time is not booked yet
+
+
+def book_scan_time() -> None:
+    """Add the host seconds since the last scan started to ``scan_s``.  The
+    caller has just waited for the device, so the scan's work is done."""
+    global scan_s, _scan_started
+    if _scan_started is not None:
+        scan_s += time.perf_counter() - _scan_started
+        _scan_started = None
 
 
 def prefix_ticks(cfg) -> int:
@@ -97,20 +115,24 @@ def _ack_bins(cfg):
 
 
 class Handoff(NamedTuple):
-    """Leader-global scalars the heartbeat scan consumes, as host values."""
+    """Leader-global values the heartbeat scan consumes, one per shard:
+    ``[S]`` tensors on the state's device (``bt0`` is ``[S, B]``), except
+    ``hb0``, a host array: the scan's tick keys are host threefry words
+    derived from it (utils/threefry.py)."""
 
-    lead: int          # leader id (-1 if none)
-    hb0: int           # leader's next heartbeat tick
-    p_start: int       # leader's setProposal tick
-    bn0: int           # leader's block_num at handoff (0 in the quiet window)
-    rnd0: int          # leader's round at handoff (0 in the quiet window)
-    bt0: tuple         # [B] leader's block_tick row
-    ok_cnt: float      # honest alive followers (SUCCESS acks), a float32 value
+    lead: torch.Tensor     # leader id (-1 if none)
+    hb0: np.ndarray        # leader's next heartbeat tick (host int64)
+    p_start: torch.Tensor  # leader's setProposal tick
+    bn0: torch.Tensor      # leader's block_num at handoff (0 in the quiet window)
+    rnd0: torch.Tensor     # leader's round at handoff (0 in the quiet window)
+    bt0: torch.Tensor      # [S, B] leader's block_tick row
+    ok_cnt: torch.Tensor   # honest alive followers (SUCCESS acks), float32
 
 
 def handoff(cfg, state):
-    """The checked handoff on the post-prefix tick-engine state, read to the
-    host in one copy.  Returns ``(ok, Handoff)``."""
+    """The checked handoff on the post-prefix tick-engine state, as a
+    one-shard ``Handoff``; the check's scalars are read to the host in one
+    copy.  Returns ``(ok, Handoff)``."""
     t_e = prefix_ticks(cfg)
     hb = cfg.raft_heartbeat_ms
     rt_hi = cfg.roundtrip_range()[1]
@@ -132,9 +154,8 @@ def handoff(cfg, state):
         lval(state.leader_tick, -1),
         voters.sum(dtype=_I32) - lval(voters, 0),
     ])
-    bt0 = torch.where(lead_mask[:, None], state.block_tick, -1).amax(0)
-    host = torch.cat([scalars, bt0]).tolist()  # the run's one host read
-    n_leaders, lead, hb0, p_start, bn0, rnd0, lead_tick, ok_cnt = host[:8]
+    host = scalars.tolist()  # the run's one host read
+    n_leaders, _, hb0, p_start, _, _, lead_tick, _ = host
     ok = (
         n_leaders == 1
         # the election wave has fully drained
@@ -144,99 +165,134 @@ def handoff(cfg, state):
         # waves may be in flight in the rings the scan would discard
         and p_start != DISARM
     )
-    return ok, Handoff(lead=lead, hb0=hb0, p_start=p_start, bn0=bn0, rnd0=rnd0,
-                       bt0=tuple(host[8:]), ok_cnt=float(np.float32(ok_cnt)))
+    row = torch.where(lead_mask[:, None], state.block_tick, -1).amax(0)
+    return ok, Handoff(lead=scalars[1:2], hb0=np.array([hb0], np.int64),
+                       p_start=scalars[3:4], bn0=scalars[4:5], rnd0=scalars[5:6],
+                       bt0=row[None], ok_cnt=scalars[7:8].to(torch.float32))
 
 
-def steady_scan(cfg, key, h: Handoff, with_probe: bool = False):
-    """The heartbeat-blocked steady state from the handoff scalars, on the
-    host.  Returns ``(hs, open_, bn, rnd, add_on, stopped, bt)``."""
+def _cross(hs, open_, bn, bt, cnt, tick, need: int, b_max: int):
+    """Ack bins ``cnt [S, m]`` (arriving at ``tick [S, m]``, in processing
+    order) through each shard's window, the tick engine's per-tick rule bin
+    after bin: count, threshold-cross, commit.  A window closes at its first
+    crossing and stays closed, so a run of bins crosses at most once: at the
+    first bin with a count whose running total reaches the threshold."""
+    cum = torch.cumsum(cnt, 1, dtype=_I32)
+    hit = open_[:, None] & (cnt > 0) & (hs[:, None] + cum + 1 >= need)
+    crossed = hit.any(1)
+    first = hit.to(torch.uint8).argmax(1, keepdim=True)
+    at = tick.gather(1, first)  # [S, 1] the crossing bin's tick
+    blk = torch.clamp(bn, 0, b_max - 1)
+    slots = torch.arange(b_max, device=bn.device)
+    write = (slots[None, :] == blk[:, None]) & (crossed & (bn < b_max))[:, None]
+    return (hs + cum[:, -1], open_ & ~crossed, bn + crossed.to(_I32),
+            torch.where(write, at, bt))
+
+
+def steady_scan(cfg, keys, h: Handoff, with_probe: bool = False):
+    """The heartbeat-blocked steady state of ``S`` shards from their handoff
+    values, on the handoff tensors' device: ``jax.vmap`` of the JAX
+    package's ``steady_scan`` over ``(keys [S, 2], h)``.  Returns ``(hs,
+    open_, bn, rnd, add_on, stopped, bt)``, ``[S]`` tensors (``bt`` is
+    ``[S, B]``).
+
+    Every step's ack-wave draw is made up front, for all steps and shards at
+    once, with the count ``ok_cnt``: a step that proposes nothing takes its
+    draw masked to 0, which is what JAX's draw of a count of 0 gives in
+    both samplers.  The step loop then makes no host read."""
     if with_probe:
         raise NotImplementedError(
             "probed runs (per-heartbeat probe series) come with slice 4 of the "
             "port (fault operands, sweeps, checkpoints and traces)"
         )
+    keys = np.asarray(keys, np.int64)
+    dev = h.bt0.device
+    n_sh = len(h.hb0)
     hb = cfg.raft_heartbeat_ms
     b_max = cfg.raft_max_blocks
-    ticks = cfg.ticks
     need = cfg.majority_need
     bins = _ack_bins(cfg)
     b2 = len(bins)
     span = max(s for s, _ in bins) + 1
     # bin order within a step: tick-within-step ascending (ties: one update)
     order = sorted(range(b2), key=lambda i: bins[i][1])
-    rt_probs = delay_ops.roundtrip_probs(*cfg.one_way_range())
-    smode = cfg.eff_stat_sampler
+    steps = n_hb_steps(cfg)
 
-    pend = [[0] * b2 for _ in range(span)]
-    hs, open_, bn, rnd = 0, False, h.bn0, h.rnd0
-    add_on, stopped, bt = True, False, list(h.bt0)
+    # the draws: [B2, K, S] on the keys of every (step, shard)
+    t_host = h.hb0[None, :] + hb * np.arange(steps, dtype=np.int64)[:, None]
+    kk = threefry.fold_in(
+        chan_key(prng.tick_key(keys[None], t_host), Channel.DELAY_ROUNDTRIP), 0x4B)
+    draws = delay_ops.sample_bucket_counts_vmapped(
+        kk, h.ok_cnt[None, :].expand(steps, n_sh),
+        delay_ops.roundtrip_probs(*cfg.one_way_range()), cfg.eff_stat_sampler)
 
-    def apply_bin(cnt, tick):
-        """One ack bin through the window: count, threshold-cross, commit."""
-        nonlocal hs, open_, bn
-        hs += cnt
-        crossed = open_ and cnt > 0 and hs + 1 >= need
-        if crossed and bn < b_max:
-            bt[min(max(bn, 0), b_max - 1)] = tick
-        open_ = open_ and not crossed
-        bn += crossed
+    def idx(ix):
+        return torch.tensor(ix, dtype=torch.int64, device=dev)
 
-    for k in range(n_hb_steps(cfg)):
-        t_k = h.hb0 + k * hb
-        arrivals = pend[0]
-        # boundary-tick arrivals hit the OLD window, before the proposal
-        for i in order:
-            if bins[i][1] == 0:
-                apply_bin(arrivals[i] if t_k < ticks else 0, t_k)
+    # arrivals on the boundary tick hit the OLD window, before the proposal;
+    # the rest of the step's arrivals, then the bins of this step's own wave
+    # that land inside the step (ser + rt < heartbeat), fill the new one
+    seg_a = [i for i in order if bins[i][1] == 0]
+    seg_b = [i for i in order if bins[i][1] != 0]
+    seg_0 = [i for i in order if bins[i][0] == 0]
+    off_b = idx([bins[i][1] for i in seg_b + seg_0]).to(_I32)
+    seg_a, seg_b, seg_0 = idx(seg_a), idx(seg_b), idx(seg_0)
+    later = [i for i in range(b2) if bins[i][0] > 0]  # land bins[i][0] steps on
+    later_rows = idx([bins[i][0] - 1 for i in later])  # rows after the rotation
+    later = idx(later)
+
+    t_all = threefry.lane_tensor(t_host, dev).to(_I32)  # [K, S]
+    pend = torch.zeros((n_sh, span, b2), dtype=_I32, device=dev)
+    hs = torch.zeros((n_sh,), dtype=_I32, device=dev)
+    open_ = torch.zeros((n_sh,), dtype=torch.bool, device=dev)
+    add_on = torch.ones((n_sh,), dtype=torch.bool, device=dev)
+    stopped = torch.zeros((n_sh,), dtype=torch.bool, device=dev)
+    bn, rnd, bt = h.bn0.to(_I32), h.rnd0.to(_I32), h.bt0.to(_I32)
+    for k in range(steps):
+        t_k = t_all[k]
+        arrivals = pend[:, 0]
+        live = t_k < cfg.ticks
+        if len(seg_a):
+            hs, open_, bn, bt = _cross(hs, open_, bn, bt,
+                                       arrivals[:, seg_a] * live[:, None].to(_I32),
+                                       t_k[:, None].expand(n_sh, len(seg_a)), need, b_max)
         # heartbeat boundary: proposal + clean window reset
-        p = t_k < ticks and not stopped and t_k >= h.p_start and add_on and bn < b_max
-        rnd += p
-        add_on = add_on and not (p and rnd >= cfg.raft_max_rounds)
-        if p:
-            hs, open_ = 0, True
-        # post-boundary arrivals fill the (possibly new) window
-        for i in order:
-            off = bins[i][1]
-            if off != 0:
-                apply_bin(arrivals[i] if t_k + off < ticks else 0, t_k + off)
-        pend = pend[1:] + [[0] * b2]
-        if p:  # with no proposal every count is 0: nothing to draw
-            kk = threefry.fold_in(
-                chan_key(prng.tick_key(key, t_k), Channel.DELAY_ROUNDTRIP), 0x4B)
-            count = torch.tensor(h.ok_cnt, dtype=torch.float32)
-            cnts = delay_ops.sample_bucket_counts(kk, count, rt_probs, smode).tolist()
-        else:
-            cnts = [0] * b2
-        for i, (s_i, _) in enumerate(bins):
-            if s_i > 0:  # lands s_i steps later: row s_i - 1 after the rotation
-                pend[s_i - 1][i] += cnts[i]
-        # bins landing later in THIS step (ser + rt < heartbeat)
-        for i in order:
-            s_i, off = bins[i]
-            if s_i == 0:
-                apply_bin(cnts[i] if t_k + off < ticks else 0, t_k + off)
-        stopped = stopped or bn >= b_max  # blockNum >= max cancels the heartbeat
-    return hs, open_, bn, rnd, add_on, stopped, tuple(bt)
+        p = live & ~stopped & (t_k >= h.p_start) & add_on & (bn < b_max)
+        rnd = rnd + p.to(_I32)
+        add_on = add_on & ~(p & (rnd >= cfg.raft_max_rounds))
+        hs = torch.where(p, 0, hs)
+        open_ = open_ | p
+        cnts = draws[:, k, :].T * p[:, None].to(_I32)  # [S, B2]
+        cnt_b = torch.cat([arrivals[:, seg_b], cnts[:, seg_0]], 1)
+        if cnt_b.shape[1]:
+            tick_b = t_k[:, None] + off_b[None, :]
+            hs, open_, bn, bt = _cross(hs, open_, bn, bt,
+                                       cnt_b * (tick_b < cfg.ticks).to(_I32), tick_b,
+                                       need, b_max)
+        # rotate the pending ring and enqueue this step's later-landing bins
+        pend = torch.cat([pend[:, 1:], torch.zeros_like(pend[:, :1])], 1)
+        pend[:, later_rows, later] += cnts[:, later]
+        stopped = stopped | (bn >= b_max)  # blockNum >= max cancels the heartbeat
+    return hs, open_, bn, rnd, add_on, stopped, bt
 
 
-def materialize(cfg, state, h: Handoff, scan_out):
-    """Fold the steady-scan scalars back into the [N] state the metrics
-    read: the leader's row, and every alive follower's stored value."""
-    hs, open_, bn, rnd, add_on, stopped, bt = scan_out
-    dev = state.is_leader.device
-    onehot = raft_tick._ids(cfg.n, dev) == h.lead
-    bt_row = torch.tensor(bt, dtype=_I32, device=dev)
+def materialize(cfg, state, h: Handoff, scan_out, shard: int = 0):
+    """Fold shard ``shard``'s steady-scan values back into the [N] state the
+    metrics read: the leader's row, and every alive follower's stored
+    value.  Tensor ops on the state's device (no host read)."""
+    hs, open_, bn, rnd, add_on, stopped, bt = (x[shard] for x in scan_out)
+    lead = h.lead[shard]
+    onehot = raft_tick._ids(cfg.n, state.is_leader.device) == lead
     return dataclasses.replace(
         state,
         block_num=torch.where(onehot, bn, state.block_num),
         round=torch.where(onehot, rnd, state.round),
-        block_tick=torch.where(onehot[:, None], bt_row[None, :], state.block_tick),
+        block_tick=torch.where(onehot[:, None], bt[None, :], state.block_tick),
         hb_succ=torch.where(onehot, hs, state.hb_succ),
         hb_open=torch.where(onehot, open_, state.hb_open),
         add_change_value=torch.where(onehot, add_on, state.add_change_value),
         next_hb=torch.where(onehot & stopped, DISARM, state.next_hb),
-        m_value=torch.where(state.alive & ~onehot & (rnd > 0), h.lead, state.m_value),
+        m_value=torch.where(state.alive & ~onehot & (rnd > 0), lead, state.m_value),
     )
 
 
@@ -255,7 +311,7 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     election prefix on the tick engine, the checked handoff (one host read),
     then the heartbeat scan, or the tick engine continued from the prefix
     carry."""
-    global handoffs_taken, handoffs_refused, prefix_s, scan_s
+    global handoffs_taken, handoffs_refused, prefix_s, _scan_started
     if probe is not None:
         raise NotImplementedError(
             "probed runs come with slice 4 of the port (fault operands, sweeps, "
@@ -269,9 +325,12 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     prefix_s += t1 - t0
     if ok:
         handoffs_taken += 1
-        out = steady_scan(cfg, key, h)
-        scan_s += time.perf_counter() - t1
-        return materialize(cfg, state, h, out)
+        _scan_started = t1
+        out = steady_scan(cfg, np.asarray(key, np.int64)[None], h)
+        state = materialize(cfg, state, h, out)
+        if state.is_leader.device.type != "cuda":
+            book_scan_time()  # the CPU is done when the calls return
+        return state
     handoffs_refused += 1
     # the prefix did not reach the quiet window: the tick engine takes over
     state, _ = tick_range(cfg, state, bufs, key, t_e, max(cfg.ticks, t_e))

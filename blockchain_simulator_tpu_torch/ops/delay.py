@@ -113,33 +113,81 @@ def _round_normal(n, p: float, z):
     return torch.minimum(torch.clamp(torch.round(x), min=0.0), n)
 
 
-def sample_bucket_counts(key, n, probs: np.ndarray, mode: str = "exact"):
-    """Split ``n`` (int tensor, any shape) into bucket counts ~
-    Multinomial(n, probs): int32 of shape ``(len(probs),) + n.shape``."""
-    return torch.stack(list(bucket_count_chain(key, n, probs, mode))).to(torch.int32)
-
-
-def bucket_count_chain(key, n, probs: np.ndarray, mode: str = "exact"):
-    """The conditional-binomial chain behind :func:`sample_bucket_counts`,
-    one float32 bucket at a time.  The last bucket is the remainder and
-    draws nothing.  ``"normal"``: one Philox draw for all buckets;
-    ``"exact"``: bucket ``b`` draws on ``fold_in(key, b)``."""
-    n = n.to(_F32)
+def _chain(n, probs: np.ndarray, normal_z, exact_draw):
+    """The conditional-binomial chain behind the multinomial bucket counts,
+    float32 ``n`` into ``len(probs)`` buckets: bucket ``b`` takes
+    ``Binomial(remaining, probs[b] / p_left)``, the last one the remainder
+    (it draws nothing).  ``normal_z[b]`` are the Gaussian draws of bucket
+    ``b`` (``"normal"``), else ``exact_draw(b, remaining, frac)`` draws it.
+    Returns int32 ``[B, *n.shape]``."""
     nb = len(probs)
-    z_all = (_fast_normal(key, (max(nb - 1, 1),) + tuple(n.shape), n.device)
-             if mode == "normal" else None)
-    keys = (threefry.fold_in(key, np.arange(max(nb - 1, 1)))
-            if mode != "normal" and nb > 1 else None)
     remaining = n
     p_left = 1.0
+    out = []
     for b, pb in enumerate(probs):
         frac = float(min(max(pb / max(p_left, 1e-9), 0.0), 1.0))
         if b == nb - 1 or frac >= 1.0:
             c = remaining
-        elif mode == "normal":
-            c = _round_normal(remaining, frac, z_all[b])
+        elif normal_z is not None:
+            c = _round_normal(remaining, frac, normal_z[b])
         else:
-            c = binom(keys[b], remaining, frac, mode)
-        yield c
+            c = exact_draw(b, remaining, frac)
+        out.append(c)
         remaining = remaining - c
         p_left -= pb
+    return torch.stack(out).to(torch.int32)
+
+
+def sample_bucket_counts(key, n, probs: np.ndarray, mode: str = "exact"):
+    """Split ``n`` (int tensor, any shape) into bucket counts ~
+    Multinomial(n, probs): int32 of shape ``(len(probs),) + n.shape``.
+    ``"normal"``: one Philox draw for all buckets; ``"exact"``: bucket ``b``
+    draws on ``fold_in(key, b)``."""
+    n = n.to(_F32)
+    nb = len(probs)
+    if mode == "normal":
+        z = _fast_normal(key, (max(nb - 1, 1),) + tuple(n.shape), n.device)
+        return _chain(n, probs, z, None)
+    keys = threefry.fold_in(key, np.arange(max(nb - 1, 1)))
+    return _chain(n, probs, None, lambda b, rem, frac: binom(keys[b], rem, frac, mode))
+
+
+def _fast_normal_vmapped(keys, shape, device) -> torch.Tensor:
+    """``jax.vmap(_fast_normal)`` over ``W`` lanes, for ``G`` vmaps at once:
+    ``keys [G, W, 2]`` → ``[G, W, *shape]``.  Under ``vmap`` the JAX draw is
+    not per lane: the batching rule of ``rng_bit_generator`` draws the FIRST
+    lane's key at shape ``(W, *shape)`` and hands row ``w`` to lane ``w``
+    (``jax/_src/lax/control_flow/loops.py``, ``_rng_bit_generator_batching_
+    rule``), so lane ``w`` gets other values than ``_fast_normal(keys[w])``
+    alone whenever ``W > 1``."""
+    shape = tuple(int(s) for s in shape)
+    g, w = keys.shape[:2]
+    r = shape[0]
+    words = philox.bits(philox.rbg_key(keys[:, 0]), (w, (r + 1) // 2) + shape[1:], device)
+    half = torch.cat([words & 0xFFFF, words >> 16], dim=2)[:, :, :r]
+    return (_popcount16(half).to(_F32) - 8.0) * 0.5
+
+
+def sample_bucket_counts_vmapped(keys, n, probs: np.ndarray, mode: str = "exact"):
+    """``jax.vmap(sample_bucket_counts)`` over ``W`` lanes, ``G`` vmaps at
+    once: ``keys [G, W, 2]`` (one threefry key a lane) and counts ``n [G, W,
+    ...]`` → int32 ``[B, G, W, ...]``.  ``"exact"``: each lane's chain of
+    binomials on its own keys, every rejection loop ending each lane where
+    its own loop would (utils/threefry.binomial on lane keys); ``"normal"``:
+    the Gaussian draws of each vmap come from its first lane's key
+    (:func:`_fast_normal_vmapped`)."""
+    keys = np.asarray(keys, np.int64)
+    g, w = keys.shape[:2]
+    n = n.to(_F32)
+    rest = tuple(n.shape[2:])
+    nb = len(probs)
+    if mode == "normal":
+        z = _fast_normal_vmapped(keys, (max(nb - 1, 1),) + rest, n.device)
+        return _chain(n, probs, z.movedim(2, 0), None)
+    lane_keys = keys.reshape(g * w, 2)
+
+    def draw(b, rem, frac):
+        return threefry.binomial(threefry.fold_in(lane_keys, b),
+                                 rem.reshape((g * w,) + rest), frac, n.device).reshape(rem.shape)
+
+    return _chain(n, probs, None, draw)

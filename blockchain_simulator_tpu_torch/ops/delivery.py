@@ -326,3 +326,37 @@ def push_roundtrip_reply_counts_stat(key, send, n_peers, rt_probs: np.ndarray,
     its ring: the stat round-trip counts, each bucket through ``expand``."""
     k, m = _roundtrip_stat_m(key, send, n_peers, drop_prob, axis, mode)
     return push_bucket_counts(k, m, rt_probs, mode, expand)
+
+
+# --------------------------------------------------------------------------- #
+# gossip flood forwarding (gossip topology)                                   #
+# --------------------------------------------------------------------------- #
+
+
+def gossip_fwd(key, fwd_vals, nbrs, n_glob: int, lo: int, hi: int, drop_prob=0.0,
+               axis=None, fold=0x0D22, impl="threefry"):
+    """TTL-flood forwarding: ``fwd_vals [N, P]`` (> 0: TTL-encoded values
+    held by the rows; P is any per-value lane, Paxos proposers or PBFT
+    windows) → ``[B, N, P]`` max-combined contributions at each sender's
+    out-neighbours (``nbrs [N, deg]`` global ids), one delay draw per
+    (sender, edge, lane).  The JAX function's scatter-max over the flat
+    ``(bucket, receiver)`` index takes duplicate indices and self-loops;
+    max is order-free, so one ``scatter_reduce_("amax")`` into zeros is
+    bit-equal to it."""
+    k = _shard_key(key, axis)
+    dev = fwd_vals.device
+    n, p = fwd_vals.shape
+    deg = nbrs.shape[1]
+    d = sample_edge_delays(k, (n, deg, p), lo, hi, dev, impl)
+    vals = fwd_vals.to(_I32)[:, None, :].expand(n, deg, p)
+    if drop_prob > 0.0:
+        keep = threefry.bernoulli(threefry.fold_in(k, fold), 1.0 - drop_prob,
+                                  (n, deg, p), dev)
+        vals = vals * keep.to(_I32)
+    lanes = torch.arange(p, device=dev)
+    flat_idx = (((d - lo).to(torch.int64) * n_glob + nbrs[:, :, None]) * p
+                + lanes[None, None, :])
+    flat = torch.zeros(((hi - lo) * n_glob * p,), dtype=_I32, device=dev)
+    flat.scatter_reduce_(0, flat_idx.reshape(-1), vals.reshape(-1), "amax",
+                         include_self=True)
+    return flat.reshape(hi - lo, n_glob, p)

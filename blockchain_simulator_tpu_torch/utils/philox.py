@@ -27,6 +27,8 @@ import math
 import numpy as np
 import torch
 
+from blockchain_simulator_tpu_torch.utils.threefry import lane_tensor
+
 MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -34,11 +36,11 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
 def rbg_key(threefry_key) -> np.ndarray:
     """``delay._rbg_key``: the 4-word ``rbg`` key of a 2-word threefry key
-    (``tile(words, 2)``)."""
+    (``tile(words, 2)``); keys ``[..., 2]`` give ``[..., 4]``."""
     k = np.asarray(threefry_key, np.int64)
-    if k.shape != (2,):
-        raise ValueError(f"expected one threefry key of shape (2,), got {k.shape}")
-    return np.concatenate([k, k]) & MASK
+    if k.shape[-1:] != (2,):
+        raise ValueError(f"expected threefry keys of shape (..., 2), got {k.shape}")
+    return np.concatenate([k, k], axis=-1) & MASK
 
 
 def _mulhilo(m: int, x):
@@ -61,23 +63,29 @@ def philox4x32(k0: int, k1: int, c0, c1, c2, c3):
 
 def bits(key, shape, device) -> torch.Tensor:
     """32-bit ``jax.random.bits(key, shape)`` for a 4-word ``rbg`` key, as an
-    int64 tensor of uint32 values on ``device``."""
+    int64 tensor of uint32 values on ``device``.  A stack of keys ``[G, 4]``
+    gives ``[G, *shape]``, row ``g`` the bits of key ``g``."""
     shape = tuple(int(s) for s in shape)
-    w = [int(x) & MASK for x in np.asarray(key, np.int64).reshape(-1)]
-    if len(w) != 4:
-        raise ValueError("expected one rbg key of 4 words")
+    k = np.asarray(key, np.int64)
+    if k.shape[-1:] != (4,) or k.ndim > 2:
+        raise ValueError("expected one rbg key of 4 words, or a [G, 4] stack")
     count = math.prod(shape)
     nblocks = (count + 3) // 4
-    base_lo = w[2] | (w[3] << 32)
-    base_hi = w[0] | (w[1] << 32)
     i = torch.arange(nblocks, dtype=torch.int64, device=device)
-    # low 64 bits of the counter, kept as two 32-bit halves: base + i, with
-    # the carry out of bit 63 raising the high half
-    lo_lo = (base_lo & MASK) + i
-    lo_hi = (base_lo >> 32) + (lo_lo >> 32)
-    hi_lo = (base_hi & MASK) + (lo_hi >> 32)
-    hi_hi = (base_hi >> 32) + (hi_lo >> 32)
-    c0, c1 = lo_lo & MASK, lo_hi & MASK
-    c2, c3 = hi_lo & MASK, hi_hi & MASK
-    out = torch.stack(philox4x32(w[0], w[1], c0, c1, c2, c3), dim=1)
-    return out.reshape(-1)[:count].reshape(shape)
+    if k.ndim == 1:
+        w = [int(x) & MASK for x in k]
+    else:  # one row of key words a key, against one column of blocks
+        kw = lane_tensor(k & MASK, device)
+        w = [kw[:, j:j + 1] for j in range(4)]
+        i = i[None]
+    # the 128-bit counter base + i, kept as four 32-bit words: the key's
+    # words 2, 3 are its low half and 0, 1 its high half; carries ripple up
+    c0 = w[2] + i
+    c1 = w[3] + (c0 >> 32)
+    c2 = w[0] + (c1 >> 32)
+    c3 = w[1] + (c2 >> 32)
+    out = torch.stack(philox4x32(w[0], w[1], c0 & MASK, c1 & MASK, c2 & MASK, c3 & MASK),
+                      dim=-1)
+    if k.ndim == 1:
+        return out.reshape(-1)[:count].reshape(shape)
+    return out.reshape(k.shape[0], -1)[:, :count].reshape((k.shape[0],) + shape)

@@ -26,6 +26,15 @@ Keys are tiny and depend only on (seed, tick, channel), never on simulation
 state, so they live on the host as numpy ``int64`` arrays of shape
 ``(..., 2)``.  Only the bulk draws (:func:`bits` and what builds on it) run on
 the device, with the key words passed in as Python ints.
+
+*Lane keys.*  :func:`fold_in` and :func:`split` work elementwise on a stack of
+keys ``[L, 2]``, and :func:`bits`, :func:`uniform`, :func:`randint` and
+:func:`binomial` take one key per lane: a ``[L, 2]`` key array gives
+``[L, *shape]``, lane ``l`` what the single key ``k[l]`` would draw.  That is
+``jax.vmap`` of the single-key function over the keys, and the binomial's
+rejection loops end each lane where its own loop would: a lane that is done
+keeps its values while the others draw on (a vmapped ``while_loop`` freezes
+finished lanes the same way).
 """
 
 from __future__ import annotations
@@ -74,39 +83,66 @@ def _words(k):
     return int(k[0]), int(k[1])
 
 
+def _keys(k) -> np.ndarray:
+    k = np.asarray(k, np.int64)
+    if k.shape[-1:] != (2,):
+        raise ValueError(f"expected threefry keys of shape (..., 2), got {k.shape}")
+    return k
+
+
 def fold_in(k, data) -> np.ndarray:
-    """``jax.random.fold_in(k, data)``; ``data`` may be an int or an integer
-    array, giving one key per element (shape ``data.shape + (2,)``)."""
-    k1, k2 = _words(k)
+    """``jax.random.fold_in(k, data)``, elementwise over the broadcast of the
+    keys ``k`` (``(..., 2)``) and the integers ``data``: one key per element
+    (shape ``broadcast(k.shape[:-1], data.shape) + (2,)``)."""
+    k = _keys(k)
     d = np.asarray(data, np.int64) & MASK
-    y1, y2 = threefry2x32(k1, k2, np.zeros_like(d), d)
-    return np.stack([y1, y2], axis=-1)
+    y1, y2 = threefry2x32(k[..., 0], k[..., 1], np.zeros_like(d), d)
+    return np.stack(np.broadcast_arrays(y1, y2), axis=-1)
 
 
 def split(k, num: int = 2) -> np.ndarray:
-    """``jax.random.split(k, num)`` (partitionable form): ``[num, 2]``."""
-    k1, k2 = _words(k)
+    """``jax.random.split(k, num)`` (partitionable form): ``[..., num, 2]``
+    for keys ``[..., 2]``."""
+    k = _keys(k)
     cnt = np.arange(num, dtype=np.int64)
-    y1, y2 = threefry2x32(k1, k2, cnt >> 32, cnt & MASK)
+    y1, y2 = threefry2x32(k[..., 0, None], k[..., 1, None], cnt >> 32, cnt & MASK)
     return np.stack([y1, y2], axis=-1)
+
+
+def lane_tensor(words: np.ndarray, device) -> torch.Tensor:
+    """Host words as an int64 tensor on ``device``.  To a card the copy goes
+    from pinned memory without blocking, so it adds no host sync."""
+    t = torch.from_numpy(np.ascontiguousarray(words, np.int64))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def bits(k, shape, device) -> torch.Tensor:
     """32-bit ``jax.random.bits(k, shape)`` as an int64 tensor of uint32
-    values on ``device``."""
+    values on ``device``; lane keys ``[L, 2]`` give ``[L, *shape]``."""
     shape = tuple(int(s) for s in shape)
-    k1, k2 = _words(k)
+    k = _keys(k)
     cnt = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-    y1, y2 = threefry2x32(k1, k2, cnt >> 32, cnt & MASK)
-    return (y1 ^ y2).reshape(shape)
+    if k.ndim == 1:
+        k1, k2 = _words(k)
+        y1, y2 = threefry2x32(k1, k2, cnt >> 32, cnt & MASK)
+        return (y1 ^ y2).reshape(shape)
+    if k.shape[0] == 1:  # one lane: its words as Python ints
+        return bits(k[0], shape, device)[None]
+    kw = lane_tensor(k, device)
+    y1, y2 = threefry2x32(kw[:, :1], kw[:, 1:], (cnt >> 32)[None], (cnt & MASK)[None])
+    return (y1 ^ y2).reshape((k.shape[0],) + shape)
 
 
 def randint(k, shape, minval: int, maxval: int, device) -> torch.Tensor:
-    """``jax.random.randint(k, shape, minval, maxval)`` with int32 output."""
+    """``jax.random.randint(k, shape, minval, maxval)`` with int32 output
+    (lane keys ``[L, 2]`` give ``[L, *shape]``)."""
     minval, maxval = int(minval), int(maxval)
     if not (-(2**31) <= minval and maxval <= 2**31 - 1):
         raise ValueError("randint bounds must fit int32")
-    ka, kb = split(k)
+    sk = split(k)
+    ka, kb = sk[..., 0, :], sk[..., 1, :]
     higher, lower = bits(ka, shape, device), bits(kb, shape, device)
     span = (maxval - minval) & MASK if maxval > minval else 1
     # JAX squares 2**16 % span in uint32, which wraps to 0 once span > 2**16
@@ -154,18 +190,38 @@ def _stirling_approx_tail(k):
     return torch.where(use_table, table[torch.floor(k).to(torch.int64)], approx)
 
 
+def _lane_view(mask, like):
+    """A per-lane ``[L]`` mask broadcast against ``like`` ``[L, ...]``."""
+    return mask.view((-1,) + (1,) * (like.ndim - 1))
+
+
 def _binomial_inversion(k, count, q, shape, device):
     """``random._binomial_inversion``: count geometric gaps until their sum
     passes ``count``; the loop runs until every element is done (one host
-    read an iteration)."""
+    read an iteration).  With lane keys, a lane stops drawing once all of
+    its own elements are done."""
+    lanes = k.ndim == 2
+    draw_shape = shape[1:] if lanes else shape
     log1mq = xm.log1p(-q)
     num_geom = torch.zeros(shape, dtype=torch.float32, device=device)
     geom_sum = torch.zeros(shape, dtype=torch.float32, device=device)
-    while bool((geom_sum <= count).any()):
-        subkey, k = split(k)
-        num_geom = torch.where(geom_sum <= count, num_geom + 1.0, num_geom)
-        u = uniform(subkey, shape, device)
-        geom_sum = geom_sum + torch.ceil(xm.div(xm.log(u), log1mq))
+    while True:
+        going = geom_sum <= count
+        if lanes:
+            active = _lane_view(going.reshape(shape[0], -1).any(1), going)
+            if not bool(active.any()):
+                break
+        elif not bool(going.any()):
+            break
+        sk = split(k)
+        subkey, k = sk[..., 0, :], sk[..., 1, :]
+        step = torch.where(going, num_geom + 1.0, num_geom)
+        u = uniform(subkey, draw_shape, device)
+        grown = geom_sum + torch.ceil(xm.div(xm.log(u), log1mq))
+        if lanes:
+            step = torch.where(active, step, num_geom)
+            grown = torch.where(active, grown, geom_sum)
+        num_geom, geom_sum = step, grown
     return num_geom - 1.0
 
 
@@ -173,7 +229,11 @@ def _btrs(k, count, q, shape, device):
     """``random._btrs`` (transformed rejection, Hörmann 1993).  Every
     element draws until all have accepted, and ``k_out`` keeps each
     element's LAST accept, as the JAX loop does; one host read an
-    iteration.  The fused multiply-adds are those XLA:CPU makes."""
+    iteration.  With lane keys, a lane stops drawing (and keeps its
+    ``k_out``) once all of its own elements have accepted.  The fused
+    multiply-adds are those XLA:CPU makes."""
+    lanes = k.ndim == 2
+    draw_shape = shape[1:] if lanes else shape
     stddev = xm.sqrt((count * q) * (1.0 - q))
     b = xm.fma32(stddev, 2.53, 1.15)
     a = xm.fma32(q, 0.01, xm.fma32(b, 0.0248, -0.0873))
@@ -186,10 +246,17 @@ def _btrs(k, count, q, shape, device):
     ub_m = (m + 0.5) * xm.log(xm.div(m + 1.0, r * ((count - m) + 1.0)))
     k_out = torch.full(shape, -1.0, dtype=torch.float32, device=device)
     accepted = torch.zeros(shape, dtype=torch.bool, device=device)
-    while not bool(accepted.all()):
-        k, sk0, sk1 = split(k, 3)
-        u = uniform(sk0, shape, device) - 0.5
-        v = uniform(sk1, shape, device)
+    while True:
+        if lanes:
+            active = _lane_view(~accepted.reshape(shape[0], -1).all(1), accepted)
+            if not bool(active.any()):
+                break
+        elif bool(accepted.all()):
+            break
+        sk = split(k, 3)
+        k, sk0, sk1 = sk[..., 0, :], sk[..., 1, :], sk[..., 2, :]
+        u = uniform(sk0, draw_shape, device) - 0.5
+        v = uniform(sk1, draw_shape, device)
         us = 0.5 - u.abs()
         accept1 = (us >= 0.07) & (v <= v_r)
         kk = torch.floor(xm.fma32(xm.div(two_a, us) + b, u, c))
@@ -201,6 +268,8 @@ def _btrs(k, count, q, shape, device):
         ub = ((ub + _stirling_approx_tail(m)) + _stirling_approx_tail(count - m)
               - _stirling_approx_tail(kk) - _stirling_approx_tail(count - kk))
         accept = accept1 | (~reject & (v <= ub))
+        if lanes:
+            accept = accept & active
         k_out = torch.where(accept, kk, k_out)
         accepted = accepted | accept
     return k_out
@@ -212,9 +281,13 @@ def binomial(k, count, p: float, device) -> torch.Tensor:
     XLA:CPU.  Inversion where ``count * q <= 10``, BTRS elsewhere; both arms
     run over the whole shape (the other arm's elements get the dummy
     arguments JAX substitutes) and one is selected, and ``q = min(p, 1-p)``
-    is flipped back at the end."""
+    is flipped back at the end.  Lane keys ``[L, 2]`` take a ``count`` of
+    ``[L, ...]``: ``jax.vmap`` of the single-key draw over the lanes."""
+    k = _keys(k)
     count = count.to(torch.float32)
     shape = tuple(count.shape)
+    if k.ndim == 2 and (not shape or shape[0] != k.shape[0]):
+        raise ValueError(f"{k.shape[0]} lane keys for a count of shape {shape}")
     prob = torch.full(shape, float(np.float32(p)), dtype=torch.float32, device=device)
     p_lt_half = prob < 0.5
     q = torch.where(p_lt_half, prob, 1.0 - prob)

@@ -49,7 +49,7 @@ Phases (any failure raises, and the script exits non-zero):
               serialization modelled; "auto" resolves to the tick engine):
               metrics and digests equal the JAX golden, one ring-push launch
               per tick that pushes; wall, ticks/s, launches and pushes.  Then
-              the first 2000 ticks again: host syncs a tick (sync debug mode
+              the first 500 ticks again: host syncs a tick (sync debug mode
               "warn"), and kernel launches, device-to-host copies and the
               device's busy share a tick (torch.profiler).
 9. raft-hb  — the same config on stat delivery with schedule "round": the
@@ -57,9 +57,28 @@ Phases (any failure raises, and the script exits non-zero):
               one host read at the handoff, then one step a heartbeat)
               through run_simulation's path, held to its JAX golden and to
               its handoff flag; the wall split into the prefix and the
-              host's heartbeat scan.
+              heartbeat scan over [S] shards on the card (S = 1).
 10. pbft-queued — PBFT n = 8 with queued links (serial-pipe FIFOs), 10,000
               ms, held to its JAX golden; one launch of three pushes a tick.
+11. paxos-kernel — the grouped kernel at the Paxos tick group's BASELINE
+              config 3 shapes (n = 10,000, D = 106, six members of 50
+              buckets: three max and two add of 30,000 lanes, one max of
+              10,000) against its plain version, bit for bit, on the int4
+              and the scalar path, at ticks that wrap around D, under graph
+              replay and with skipped members left out; device time against
+              the bound, the plain version and six library calls.
+12. paxos-gossip — config 3 itself (tools/run_config3.py: Paxos, n = 10,000,
+              3,000 ms, degree-16 gossip) through run_simulation's path:
+              the neighbour table's sha256 first, then metrics and digests
+              against the JAX golden; wall, ticks/s, launches and pushes,
+              and over the first 100 ticks host syncs and kernel launches a
+              tick.
+13. pbft-gossip, 14. raft-gossip — PBFT (1,000 ms) and Raft (4,000 ms) at
+              n = 1000 over degree-16 gossip, stat delivery, each held to its
+              JAX golden, table first.
+
+``python3 chip_smoke.py --only PHASE[,PHASE...]`` runs the build and the
+named phases (names as in ``PHASES``) and prints no result line.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
@@ -83,7 +102,11 @@ STAT_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_stat_n1
 RAFT_EDGE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_edge_n1000_s0.json"
 RAFT_HB_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_hb_n1000_s0.json"
 QUEUED_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_queued_n8_s0.json"
-SYNC_COUNT_TICKS = 2000
+PAXOS_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "paxos_gossip_n10k_s0.json"
+PBFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_gossip_n1000_s0.json"
+RAFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_gossip_n1000_s0.json"
+GOSSIP_WINDOW_TICKS = 100
+SYNC_COUNT_TICKS = 500
 SAMPLER_N = 1_000_000
 PROFILED_ROUNDS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -372,18 +395,17 @@ def phase_tick(dev, card: str, golden: pathlib.Path, what: str, entry_name="n100
     return launches, pushes, wall
 
 
-def _raft_tick_group(cfg, dev, seed=0):
-    """``(name, (ring, lo, contrib, op))`` for every push of one Raft tick
-    whose gates all fire (models/raft.push_members), at the config's shapes;
-    rings and contributions hold values >= 0, as on the main path."""
+def _tick_group(model, cfg, dev, seed=0):
+    """``(name, (ring, lo, contrib, op))`` for every push of one tick whose
+    gates all fire (``model.push_members``: models/raft.py or
+    models/paxos.py), at the config's shapes; rings and contributions hold
+    values >= 0, as on the main path."""
     import torch
 
-    from blockchain_simulator_tpu_torch.models import raft
-
     gen = torch.Generator(device=dev).manual_seed(seed)
-    _, bufs = raft.init(cfg, device="meta")
+    _, bufs = model.init(cfg, device="meta")
     out = []
-    for name, op, b, lo in raft.push_members(cfg):
+    for name, op, b, lo in model.push_members(cfg):
         shape = getattr(bufs, name).shape
         ring = torch.randint(0, 1 << 20, shape, generator=gen, device=dev, dtype=torch.int32)
         contrib = torch.randint(0, 1 << 20, (b, *shape[1:]), generator=gen, device=dev,
@@ -398,13 +420,14 @@ def phase_kernel_raft(dev, card: str):
     its device time against the bound and one library call per push."""
     import torch
 
+    from blockchain_simulator_tpu_torch.models import raft
     from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
     from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
     entry = json.loads(RAFT_EDGE_GOLDEN.read_text())["entries"]["n1000"]
     cfg = SimConfig(**entry["config"])
     d = cfg.ring_depth
-    named = _raft_tick_group(cfg, dev)
+    named = _tick_group(raft, cfg, dev)
     items = [it for _, it in named]
     vec = rk.plan_group(items).vec
     if vec != (True,) * len(items):
@@ -620,7 +643,8 @@ def phase_raft_hb(dev, card: str):
     """Raft n = 1000 on the heartbeat-blocked path (stat delivery, schedule
     "round") through ``runner.final_state``, held to the JAX golden and to
     its handoff flag; the wall split into the prefix (up to the handoff's
-    host read) and the host's heartbeat scan by ``raft_hb``'s counters."""
+    host read) and the heartbeat scan on the card (up to the run's closing
+    sync) by ``raft_hb``'s counters."""
     import torch
 
     from blockchain_simulator_tpu_torch import convert, runner
@@ -655,12 +679,184 @@ def phase_raft_hb(dev, card: str):
           f"round: {metrics}", flush=True)
     print(f"raft hb on {card}: wall {wall:.3f} s, handoff taken: {handoff_ok} "
           f"(prefix {raft_hb.prefix_ticks(cfg)} ticks, then {raft_hb.n_hb_steps(cfg)} heartbeat "
-          f"steps): prefix to the handoff's read {prefix_s:.3f} s, heartbeat scan on the host "
-          f"{scan_s:.3f} s ({scan_s / wall:.1%} of the wall), init + materialize {rest_s:.3f} s; "
+          f"steps): prefix to the handoff's read {prefix_s:.3f} s, the [S] heartbeat scan on "
+          f"the card to the run's closing sync {scan_s:.3f} s ({scan_s / wall:.1%} of the "
+          f"wall), init {rest_s:.3f} s; "
           f"ring_push launches {launches} and pushes {pushes} (the prefix), metrics + all "
           f"state digests equal the JAX golden", flush=True)
     return dict(wall_s=wall, handoff_ok=handoff_ok, prefix_s=prefix_s, scan_s=scan_s,
                 rest_s=rest_s, launches=launches, pushes=pushes)
+
+
+def phase_kernel_paxos(dev, card: str):
+    """The grouped kernel at the Paxos tick group's BASELINE config 3 shapes
+    (n = 10,000, D = 106, six members of 50 buckets) against its plain
+    version, bit for bit: the int4 path and the scalar path (misaligned
+    contributions), ticks that wrap around D, graph replay, and skipped
+    members left out.  Its device time against the bound, the plain version
+    and six library calls, with the rings' slots and the contributions
+    L2-warm and from HBM."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import paxos
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(PAXOS_GOSSIP_GOLDEN.read_text())["entries"]["n10k"]
+    cfg = SimConfig(**entry["config"])
+    d = cfg.ring_depth
+    named = _tick_group(paxos, cfg, dev)
+    items = [it for _, it in named]
+    if rk.plan_group(items).vec != (True,) * len(items):
+        raise AssertionError("the Paxos tick group should take the int4 path")
+
+    def misaligned(c):  # one element off 16-byte alignment: the scalar path
+        return torch.empty(c.numel() + 1, dtype=c.dtype, device=dev)[1:].view_as(c).copy_(c)
+
+    scalar = [(r, lo, misaligned(c), op) for r, lo, c, op in items]
+    if rk.plan_group(scalar).vec != (False,) * len(items):
+        raise AssertionError("misaligned contributions should take the scalar path")
+    by_name = dict(named)
+    groups = {"paxos tick": items, "paxos tick, scalar path": scalar,
+              "replies": [by_name[k] for k in ("resp_ok", "resp_no", "resp_cmd")],
+              "ticket requests": [by_name["req_ticket"]]}
+    max_err = 0
+    for name, grp in groups.items():
+        for tick in (0, 7, d - 1, 2999):  # 2999 + lo + b wraps past D
+            max_err = max(max_err, _check_group_run(rk, name, grp, tick, dev))
+    t = torch.tensor(2999, dtype=torch.int32, device=dev)
+    eager = [(r.clone(), off, c, op) for r, off, c, op in items]
+    rk.fused_push_group(eager, t)
+    replayed = [(r.clone(), off, c, op) for r, off, c, op in items]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rk.fused_push_group(replayed, t)
+    graph.replay()
+    skipped = ("resp_ok", "resp_no", "resp_cmd", "req_commit")
+    zeroed = [(r.clone(), off, torch.zeros_like(c) if name in skipped else c, op)
+              for (name, _), (r, off, c, op) in zip(named, items)]
+    left_out = [(r.clone(), off, c, op) for r, off, c, op in zeroed]
+    rk.fused_push_group(zeroed, t)
+    rk.fused_push_group([it for (name, _), it in zip(named, left_out) if name not in skipped],
+                        t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a[0], b[0]) for a, b in zip(eager, replayed)):
+        raise AssertionError("Paxos tick group: graph replay != eager launch")
+    if not all(torch.equal(a[0], b[0]) for a, b in zip(zeroed, left_out)):
+        raise AssertionError("Paxos tick group: leaving out all-zero members changed a ring")
+    print(f"kernel ring_push, Paxos tick group at config 3 (n = {cfg.n}, D = {d}, 6 members "
+          f"of B = {items[0][2].shape[0]}): bit-equal to the plain version on the int4 and "
+          f"the scalar path, the replies and the ticket requests alone, at t in (0, 7, "
+          f"{d - 1}, 2999); graph replay == eager; members of skipped gates left out == "
+          f"pushed as zeros", flush=True)
+
+    # L2-warm: the same t and contributions every call.  From HBM: t steps
+    # 53 slots a call and the calls rotate over 4 sets of contributions
+    # (the 68 MB of rings and 4 x 32 MB of contributions exceed the 50 MB L2)
+    reps, n_sets = 100, 4
+    bufs = [r.clone() for r, *_ in items]
+    work = [(bufs[k], off, c, op) for k, (_, off, c, op) in enumerate(items)]
+    sets = [[(bufs[k], off, c if j == 0 else c.clone(), op)
+             for k, (_, off, c, op) in enumerate(items)] for j in range(n_sets)]
+    t_of = [torch.tensor(2999 + 53 * i, dtype=torch.int32, device=dev) for i in range(reps)]
+    lib = [_library(op) for *_, op in items]
+
+    def slots(tick):
+        return [torch.remainder(tick + off + torch.arange(c.shape[0], device=dev), d)
+                for _, off, c, _ in items]
+
+    idx = slots(2999)
+    idx_cold = [slots(2999 + 53 * i) for i in range(reps)]
+    for k, (r, off, c, op) in enumerate(items):
+        if not torch.equal(lib[k](r.clone(), idx[k], c), rk.push_plain(r.clone(), t, off, c, op)):
+            raise AssertionError(f"library call disagrees with the plain version ({named[k][0]})")
+
+    def library(members, where):
+        for k, (r, _, c, _) in enumerate(members):
+            lib[k](r, where[k], c)
+
+    fns = {"group": lambda i: rk.fused_push_group(work, t),
+           "library": lambda i: library(work, idx),
+           "plain": lambda i: rk.push_group_plain(work, t)}
+    cold_fns = {"group": lambda i: rk.fused_push_group(sets[i % n_sets], t_of[i]),
+                "library": lambda i: library(sets[i % n_sets], idx_cold[i]),
+                "plain": lambda i: rk.push_group_plain(sets[i % n_sets], t_of[i])}
+    dev_ms = {k: _time_device_ms(f, reps) for k, f in fns.items()}
+    cold_ms = {k: _time_device_ms(f, reps) for k, f in cold_fns.items()}
+    eager_ms = {k: _time_eager_ms(lambda f=f: f(0), reps) for k, f in fns.items()}
+    bound = sum(_bound_ms(c.shape[0], c[0].numel()) for _, _, c, _ in items)
+    print(f"kernel ring_push Paxos tick group (6 pushes, 1 launch) on {card}: device time per "
+          f"tick (graph replay), L2-warm: group {dev_ms['group'] * 1e3:.3f} us against a "
+          f"{bound * 1e3:.3f} us bound ({100 * bound / dev_ms['group']:.1f}% of it), 6 library "
+          f"calls {dev_ms['library'] * 1e3:.3f} us, plain {dev_ms['plain'] * 1e3:.3f} us",
+          flush=True)
+    print(f"kernel ring_push Paxos tick group, rings' slots and contributions from HBM: group "
+          f"{cold_ms['group'] * 1e3:.3f} us ({100 * bound / cold_ms['group']:.1f}% of the "
+          f"bound), 6 library calls {cold_ms['library'] * 1e3:.3f} us, plain "
+          f"{cold_ms['plain'] * 1e3:.3f} us", flush=True)
+    print("kernel ring_push Paxos tick group, eager per tick (host launch cost included): "
+          + ", ".join(f"{k} {v * 1e3:.3f} us" for k, v in eager_ms.items()), flush=True)
+    return dict(ms=dev_ms["group"], plain_ms=dev_ms["plain"], bound_ms=bound,
+                bound_by="bytes", library_ms=dev_ms["library"], cold_rings_ms=cold_ms,
+                eager_ms=eager_ms), max_err
+
+
+def phase_gossip(dev, card: str, golden: pathlib.Path, entry_name: str, what: str,
+                 window_ticks: int = 0):
+    """A gossip run through ``runner.final_state`` held to its JAX golden,
+    the neighbour table's digest checked first (a numpy that permuted
+    differently must be named as such, not as a protocol fault).  The
+    ring-push counters are set to 0 just before the run and read just after:
+    one launch per tick that pushes.  With ``window_ticks``, the first ticks
+    again: host syncs a tick (sync debug mode) and kernel launches a tick
+    (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.models.base import get_protocol
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.ops import topology
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(golden.read_text())["entries"][entry_name]
+    cfg = SimConfig(**entry["config"])
+    if runner.use_round_schedule(cfg) or cfg.topology != "gossip":
+        raise AssertionError(f"{what}: the config should run the tick engine over gossip")
+    table = topology.kregular_out_neighbors(cfg.n, cfg.degree, cfg.seed)
+    if convert.digest(table) != entry["neighbours_sha256"]:
+        raise AssertionError(f"{what}: the gossip neighbour table differs from the golden's "
+                             f"(numpy {np.__version__} here, {entry['numpy_version']} there): "
+                             "default_rng(seed ^ 0x70B0).permutation gave another table")
+    with _GroupCalls(get_protocol(cfg.protocol)) as calls:
+        rk.launches = rk.pushes = 0
+        t0 = time.perf_counter()
+        final = runner.final_state(cfg, seed=entry["seed"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, pushes = rk.launches, rk.pushes
+    metrics = runner.sim_metrics(cfg, final)
+    _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)), what)
+    if launches == 0 or (launches, pushes) != (calls.ticks, calls.members):
+        raise AssertionError(f"{what}: ring_push made {launches} launches and {pushes} "
+                             f"pushes; the ticks that push were {calls.ticks} with "
+                             f"{calls.members} members (one launch each)")
+    out = dict(wall_s=wall, ticks=cfg.ticks, ticks_per_s=cfg.ticks / wall, launches=launches,
+               pushes=pushes)
+    print(f"{what}: {cfg.protocol} n={cfg.n} sim_ms={cfg.sim_ms} gossip degree {cfg.degree} "
+          f"hops {cfg.gossip_hops} {cfg.delivery}: {metrics}", flush=True)
+    print(f"{what} on {card}: wall {wall:.3f} s, {cfg.ticks / wall:.1f} ticks/s, ring_push "
+          f"launches {launches} and pushes {pushes} over {cfg.ticks} ticks, neighbour table "
+          f"and metrics + all state digests equal the JAX golden", flush=True)
+    if window_ticks:
+        head = cfg.with_(sim_ms=window_ticks)
+        syncs = _count_syncs(lambda: runner.final_state(head, seed=entry["seed"], device=dev))
+        prof = _profile_window(lambda: runner.final_state(head, seed=entry["seed"], device=dev),
+                               head.ticks)
+        out.update(syncs_per_tick=syncs / head.ticks, window=prof)
+        print(f"{what}, first {head.ticks} ticks: {syncs / head.ticks:.3f} host syncs a tick "
+              f"(sync debug mode); under torch.profiler: {json.dumps(prof)}", flush=True)
+    return out
 
 
 def _mismatches(got, want) -> int:
@@ -803,9 +999,23 @@ def phase_round(dev, card: str):
             "launches_per_round": per_round, "d2h_copies_per_round": copies_d2h}
 
 
-def main() -> int:
+PHASES = ("kernel", "main", "samplers", "round", "tick-stat", "raft-kernel", "raft-edge",
+          "raft-hb", "pbft-queued", "paxos-kernel", "paxos-gossip", "pbft-gossip",
+          "raft-gossip")
+
+
+def main(argv) -> int:
     import torch
 
+    only = None
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = argv[1].split(",")
+        if not set(only) <= set(PHASES):
+            print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
+            return 2
+    elif argv:
+        print("usage: python3 chip_smoke.py [--only PHASE[,PHASE...]]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch reports no CUDA device", file=sys.stderr)
         return 2
@@ -830,17 +1040,43 @@ def main() -> int:
 
     entry = json.loads(GOLDEN.read_text())["entries"]["n1000"]
     cfg = SimConfig(**entry["config"])
-    group, rows, max_err = phase_kernel(cfg, dev)
-    launches, pushes, _ = phase_tick(dev, card, GOLDEN, "main path")
-    samplers = phase_samplers(dev, card)
-    round_path = phase_round(dev, card)
-    stat_launches, stat_pushes, stat_wall = phase_tick(dev, card, STAT_GOLDEN,
-                                                       "tick-stat path")
-    raft_group, raft_err = phase_kernel_raft(dev, card)
-    raft_edge = phase_raft_tick(dev, card)
-    raft_hb = phase_raft_hb(dev, card)
-    q_launches, q_pushes, q_wall = phase_tick(dev, card, QUEUED_GOLDEN, "pbft queued", "n8")
+    phases = {
+        "kernel": lambda: phase_kernel(cfg, dev),
+        "main": lambda: phase_tick(dev, card, GOLDEN, "main path"),
+        "samplers": lambda: phase_samplers(dev, card),
+        "round": lambda: phase_round(dev, card),
+        "tick-stat": lambda: phase_tick(dev, card, STAT_GOLDEN, "tick-stat path"),
+        "raft-kernel": lambda: phase_kernel_raft(dev, card),
+        "raft-edge": lambda: phase_raft_tick(dev, card),
+        "raft-hb": lambda: phase_raft_hb(dev, card),
+        "pbft-queued": lambda: phase_tick(dev, card, QUEUED_GOLDEN, "pbft queued", "n8"),
+        "paxos-kernel": lambda: phase_kernel_paxos(dev, card),
+        "paxos-gossip": lambda: phase_gossip(dev, card, PAXOS_GOSSIP_GOLDEN, "n10k",
+                                             "paxos gossip", GOSSIP_WINDOW_TICKS),
+        "pbft-gossip": lambda: phase_gossip(dev, card, PBFT_GOSSIP_GOLDEN, "n1000",
+                                            "pbft gossip"),
+        "raft-gossip": lambda: phase_gossip(dev, card, RAFT_GOSSIP_GOLDEN, "n1000",
+                                            "raft gossip"),
+    }
+    res, secs = {}, {}
+    for name in PHASES if only is None else only:
+        t0 = time.perf_counter()
+        res[name] = phases[name]()
+        secs[name] = time.perf_counter() - t0
+        print(f"phase {name}: {secs[name]:.1f} s", flush=True)
+    if only is not None:  # a partial run prints no result line
+        print(json.dumps({"phase_seconds": secs}, default=str), flush=True)
+        return 0
 
+    group, rows, max_err = res["kernel"]
+    launches, pushes, _ = res["main"]
+    stat_launches, stat_pushes, stat_wall = res["tick-stat"]
+    raft_group, raft_err = res["raft-kernel"]
+    raft_edge, raft_hb = res["raft-edge"], res["raft-hb"]
+    q_launches, q_pushes, q_wall = res["pbft-queued"]
+    paxos_group, paxos_err = res["paxos-kernel"]
+    gossip = {k: res[f"{k.replace('_', '-')}"] for k in ("paxos_gossip", "pbft_gossip",
+                                                        "raft_gossip")}
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -852,7 +1088,7 @@ def main() -> int:
         "pushes": pushes,
         "launches_tick_stat": stat_launches,  # the tick-stat path's run
         "pushes_tick_stat": stat_pushes,
-        "max_abs_err": max(max_err, raft_err),
+        "max_abs_err": max(max_err, raft_err, paxos_err),
         "ms": group["ms"],
         "plain_ms": group["plain_ms"],
         "bound_ms": group["bound_ms"],
@@ -862,20 +1098,27 @@ def main() -> int:
         "cold_rings_ms": group["cold_rings_ms"],
         "eager_ms": group["eager_ms"],
         "per_push": rows,
-        # this slice's path, Raft edge at n = 1000: one Raft tick's seven
-        # pushes (vreq [3, N, N] + six [B, N]) in one launch
+        # Raft edge at n = 1000: one Raft tick's seven pushes (vreq [3, N, N]
+        # + six [B, N]) in one launch
         "raft_group": dict(raft_group, launches=raft_edge["launches"],
                            pushes=raft_edge["pushes"], bound_by="bytes"),
+        # BASELINE config 3: one Paxos tick's six pushes of 50 buckets
+        "paxos_group": dict(paxos_group, launches=gossip["paxos_gossip"]["launches"],
+                            pushes=gossip["paxos_gossip"]["pushes"]),
         "launches_by_path": {"pbft_edge": launches, "pbft_tick_stat": stat_launches,
                              "raft_edge": raft_edge["launches"],
-                             "raft_hb": raft_hb["launches"], "pbft_queued": q_launches},
+                             "raft_hb": raft_hb["launches"], "pbft_queued": q_launches,
+                             **{k: v["launches"] for k, v in gossip.items()}},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
-                           "pbft_queued": q_pushes},
+                           "pbft_queued": q_pushes,
+                           **{k: v["pushes"] for k, v in gossip.items()}},
     }]
-    print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
+    print(json.dumps({"paths": {"round": res["round"], "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
-                                "pbft_queued_wall_s": q_wall, "samplers": samplers}}),
+                                "pbft_queued_wall_s": q_wall, "samplers": res["samplers"],
+                                **gossip},
+                      "phase_seconds": secs}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -886,4 +1129,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

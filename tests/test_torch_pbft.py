@@ -300,12 +300,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("kw", [
     dict(protocol="mixed", mixed_shards=2),
-    dict(topology="gossip"),
+    dict(protocol="paxos", topology="kregular", degree=4),  # gossip runs now
     dict(topology="kregular", degree=4),
     dict(topology="committee", committees=2),
     dict(mesh_axis="nodes"),
-    dict(protocol="raft", topology="gossip", delivery="stat"),
-    dict(protocol="paxos"),
+    dict(protocol="paxos", mesh_axis="nodes"),  # raft gossip runs now
+    dict(protocol="paxos", topology="committee", committees=2),  # full-mesh paxos runs now
     dict(echo_back=True),
     dict(protocol="raft", topology="kregular", degree=4),
     dict(protocol="raft", mesh_axis="nodes"),

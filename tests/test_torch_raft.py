@@ -218,12 +218,13 @@ def test_step_pushes_one_group_of_the_members_that_fire(monkeypatch, delivery):
 
 
 @pytest.mark.parametrize("kw, slice_no", [
-    (dict(topology="gossip", delivery="stat"), "slice 3"),
+    # raft gossip runs now; the mixed sim's Raft shards are still slice 3
+    (dict(protocol="mixed", mixed_shards=2), "slice 3"),
     (dict(topology="kregular", degree=4), "slice 5"),
     (dict(mesh_axis="nodes"), "slice 6"),
 ])
 def test_unported_raft_arms_raise(kw, slice_no):
-    cfg = tconfig.SimConfig(protocol="raft", n=8, sim_ms=50, **kw)
+    cfg = tconfig.SimConfig(**dict(dict(protocol="raft", n=8, sim_ms=50), **kw))
     with pytest.raises(NotImplementedError, match=slice_no):
         trunner.run_simulation(cfg, device="cpu")
 
