@@ -34,10 +34,10 @@ The prefix and the scan each add their host seconds to a module counter
 (``prefix_s``, ``scan_s``), and each handoff adds one to ``handoffs_taken``
 or ``handoffs_refused``; ``chip_smoke.py`` sets them to 0 before a run and
 reads them after it.  The prefix's time ends at the handoff's read, which
-waits for the device.  The scan's time ends at the next sync the run
-makes anyway: ``runner.final_state`` calls :func:`book_scan_time` after its
-``synchronize``.  So the counters split a run's wall without a sync of
-their own.
+waits for the device.  The scan's ends when its calls return: on the CPU
+that is its whole time, on the card the device may still be working, and
+the caller's next sync (``runner.final_state``'s) waits for it.  Neither
+counter adds a sync of its own.
 
 The documented divergence of the JAX path carries over unchanged: when
 replication completes inside the window, this path ends at completion,
@@ -68,16 +68,6 @@ handoffs_taken = 0
 handoffs_refused = 0
 prefix_s = 0.0
 scan_s = 0.0
-_scan_started = None  # perf_counter() at a scan whose time is not booked yet
-
-
-def book_scan_time() -> None:
-    """Add the host seconds since the last scan started to ``scan_s``.  The
-    caller has just waited for the device, so the scan's work is done."""
-    global scan_s, _scan_started
-    if _scan_started is not None:
-        scan_s += time.perf_counter() - _scan_started
-        _scan_started = None
 
 
 def prefix_ticks(cfg) -> int:
@@ -276,12 +266,12 @@ def steady_scan(cfg, keys, h: Handoff, with_probe: bool = False):
     return hs, open_, bn, rnd, add_on, stopped, bt
 
 
-def materialize(cfg, state, h: Handoff, scan_out, shard: int = 0):
-    """Fold shard ``shard``'s steady-scan values back into the [N] state the
+def materialize(cfg, state, h: Handoff, scan_out):
+    """Fold a one-shard steady scan's values back into the [N] state the
     metrics read: the leader's row, and every alive follower's stored
     value.  Tensor ops on the state's device (no host read)."""
-    hs, open_, bn, rnd, add_on, stopped, bt = (x[shard] for x in scan_out)
-    lead = h.lead[shard]
+    hs, open_, bn, rnd, add_on, stopped, bt = (x[0] for x in scan_out)
+    lead = h.lead[0]
     onehot = raft_tick._ids(cfg.n, state.is_leader.device) == lead
     return dataclasses.replace(
         state,
@@ -311,7 +301,7 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     election prefix on the tick engine, the checked handoff (one host read),
     then the heartbeat scan, or the tick engine continued from the prefix
     carry."""
-    global handoffs_taken, handoffs_refused, prefix_s, _scan_started
+    global handoffs_taken, handoffs_refused, prefix_s, scan_s
     if probe is not None:
         raise NotImplementedError(
             "probed runs come with slice 4 of the port (fault operands, sweeps, "
@@ -325,11 +315,9 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     prefix_s += t1 - t0
     if ok:
         handoffs_taken += 1
-        _scan_started = t1
         out = steady_scan(cfg, np.asarray(key, np.int64)[None], h)
         state = materialize(cfg, state, h, out)
-        if state.is_leader.device.type != "cuda":
-            book_scan_time()  # the CPU is done when the calls return
+        scan_s += time.perf_counter() - t1
         return state
     handoffs_refused += 1
     # the prefix did not reach the quiet window: the tick engine takes over

@@ -175,10 +175,6 @@ def final_state(cfg: SimConfig, seed: int | None = None, device=None):
     state = make_sim_fn(cfg)(cfg.seed if seed is None else seed, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-        if cfg.protocol == "raft":
-            from blockchain_simulator_tpu_torch.models import raft_hb
-
-            raft_hb.book_scan_time()  # a heartbeat scan's clock stops at this sync
     return state
 
 

@@ -35,7 +35,7 @@ Phases (any failure raises, and the script exits non-zero):
               digest must equal the JAX golden; prints wall, rounds/s and
               kernel launches per round (counted by torch.profiler over the
               first rounds).
-6. tick-stat — the PBFT tick engine on the stat arm (n = 1000, 2500 ms,
+6. tick-stat — the PBFT tick engine on the stat arm (n = 1000, 1000 ms,
               "exact" sampler); metrics and digests equal the JAX golden,
               and one ring-push launch of four pushes per tick.
 7. raft-kernel — the grouped kernel at the Raft tick group's n = 1000 shapes
@@ -49,15 +49,15 @@ Phases (any failure raises, and the script exits non-zero):
               serialization modelled; "auto" resolves to the tick engine):
               metrics and digests equal the JAX golden, one ring-push launch
               per tick that pushes; wall, ticks/s, launches and pushes.  Then
-              the first 500 ticks again: host syncs a tick (sync debug mode
+              the first 2000 ticks again: host syncs a tick (sync debug mode
               "warn"), and kernel launches, device-to-host copies and the
               device's busy share a tick (torch.profiler).
 9. raft-hb  — the same config on stat delivery with schedule "round": the
               heartbeat-blocked path (the election prefix on the tick engine,
               one host read at the handoff, then one step a heartbeat)
               through run_simulation's path, held to its JAX golden and to
-              its handoff flag; the wall split into the prefix and the
-              heartbeat scan over [S] shards on the card (S = 1).
+              its handoff flag; the wall split into init, the prefix and
+              the heartbeat scan over [S] shards on the card (S = 1).
 10. pbft-queued — PBFT n = 8 with queued links (serial-pipe FIFOs), 10,000
               ms, held to its JAX golden; one launch of three pushes a tick.
 11. paxos-kernel — the grouped kernel at the Paxos tick group's BASELINE
@@ -71,14 +71,11 @@ Phases (any failure raises, and the script exits non-zero):
               3,000 ms, degree-16 gossip) through run_simulation's path:
               the neighbour table's sha256 first, then metrics and digests
               against the JAX golden; wall, ticks/s, launches and pushes,
-              and over the first 100 ticks host syncs and kernel launches a
-              tick.
-13. pbft-gossip, 14. raft-gossip — PBFT (1,000 ms) and Raft (4,000 ms) at
+              and over the first 300 ticks (the ticket, propose and commit
+              phases) host syncs and kernel launches a tick.
+13. pbft-gossip, 14. raft-gossip — PBFT (1,700 ms) and Raft (2,000 ms) at
               n = 1000 over degree-16 gossip, stat delivery, each held to its
               JAX golden, table first.
-
-``python3 chip_smoke.py --only PHASE[,PHASE...]`` runs the build and the
-named phases (names as in ``PHASES``) and prints no result line.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
@@ -98,15 +95,15 @@ import warnings
 HERE = pathlib.Path(__file__).resolve().parent
 GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_edge_s0.json"
 ROUND_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_round_n100k_s0.json"
-STAT_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_stat_n1000_s0.json"
+STAT_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_stat_n1000_1000ms_s0.json"
 RAFT_EDGE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_edge_n1000_s0.json"
 RAFT_HB_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_hb_n1000_s0.json"
 QUEUED_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_queued_n8_s0.json"
 PAXOS_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "paxos_gossip_n10k_s0.json"
 PBFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_gossip_n1000_s0.json"
 RAFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_gossip_n1000_s0.json"
-GOSSIP_WINDOW_TICKS = 100
-SYNC_COUNT_TICKS = 500
+GOSSIP_WINDOW_TICKS = 300
+SYNC_COUNT_TICKS = 2000
 SAMPLER_N = 1_000_000
 PROFILED_ROUNDS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -567,29 +564,35 @@ def _profile_window(fn, ticks: int) -> dict:
     """``fn()`` timed plain, then run once more under torch.profiler (CUDA
     activity): kernel launches and device-to-host copies a tick, the
     device's busy share of the plain wall, and the kernels with the most
-    device time."""
-    import torch
+    device time.  The profiler's raw device events are counted as they
+    come: building its FunctionEvent tree (``key_averages``) would cost
+    about ten times the run itself at a thousand launches a tick."""
+    import collections
 
-    from blockchain_simulator_tpu_torch.profile_tick import _device_us, _is_copy
+    import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                acc_events=True) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    on_device = [e for e in prof.key_averages() if _device_us(e) > 0]
-    kernels = sorted((e for e in on_device if not _is_copy(e)), key=_device_us, reverse=True)
-    busy_s = sum(_device_us(e) for e in on_device) / 1e6
+    on_device = [e for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+    count, device_ns = collections.Counter(), collections.Counter()
+    for e in on_device:
+        count[e.name()] += 1
+        device_ns[e.name()] += e.duration_ns()
+    kernels = sorted((k for k in count if not k.startswith(("Memcpy", "Memset"))),
+                     key=device_ns.__getitem__, reverse=True)
     return {"wall_s": wall, "ticks_per_s": ticks / wall,
-            "launches_per_tick": sum(e.count for e in kernels) / ticks,
-            "d2h_copies_per_tick": sum(e.count for e in on_device if "DtoH" in e.key) / ticks,
-            "device_busy_share": busy_s / wall,
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "device_ms": _device_us(e) / 1e3} for e in kernels[:6]]}
+            "launches_per_tick": sum(count[k] for k in kernels) / ticks,
+            "d2h_copies_per_tick": sum(v for k, v in count.items() if "DtoH" in k) / ticks,
+            "device_busy_share": sum(device_ns.values()) / 1e9 / wall,
+            "top_kernels": [{"name": k[:80], "count": count[k], "device_ms": device_ns[k] / 1e6}
+                            for k in kernels[:6]]}
 
 
 def phase_raft_tick(dev, card: str):
@@ -642,20 +645,23 @@ def phase_raft_tick(dev, card: str):
 def phase_raft_hb(dev, card: str):
     """Raft n = 1000 on the heartbeat-blocked path (stat delivery, schedule
     "round") through ``runner.final_state``, held to the JAX golden and to
-    its handoff flag; the wall split into the prefix (up to the handoff's
-    host read) and the heartbeat scan on the card (up to the run's closing
-    sync) by ``raft_hb``'s counters."""
+    its handoff flag; the wall split into init (timed alone just before),
+    the prefix (up to the handoff's host read, ``raft_hb.prefix_s``) and the
+    heartbeat scan on the card (the rest, up to the run's closing sync)."""
     import torch
 
     from blockchain_simulator_tpu_torch import convert, runner
-    from blockchain_simulator_tpu_torch.models import raft_hb
+    from blockchain_simulator_tpu_torch.models import raft, raft_hb
     from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils import threefry
     from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
     entry = json.loads(RAFT_HB_GOLDEN.read_text())["entries"]["n1000"]
     cfg = SimConfig(**entry["config"])
     if not runner.use_round_schedule(cfg):
         raise AssertionError("raft hb: the config should run the heartbeat path")
+    init_key = threefry.fold_in(threefry.key(entry["seed"]), raft_hb._INIT_FOLD)
+    init_s = _timed_ms(lambda: raft.init(cfg, init_key, device=dev), dev) / 1e3
     rk.launches = rk.pushes = 0
     raft_hb.handoffs_taken = raft_hb.handoffs_refused = 0
     raft_hb.prefix_s = raft_hb.scan_s = 0.0
@@ -674,18 +680,18 @@ def phase_raft_hb(dev, card: str):
         raise AssertionError(f"raft hb: handoff {handoff_ok}, JAX {entry['handoff_ok']}")
     if launches == 0:
         raise AssertionError("raft hb: the election prefix launched no ring push")
-    rest_s = wall - prefix_s - scan_s
+    card_scan_s = wall - prefix_s - init_s
     print(f"raft hb: raft n={cfg.n} sim_ms={cfg.sim_ms} stat/{cfg.eff_stat_sampler} schedule "
           f"round: {metrics}", flush=True)
     print(f"raft hb on {card}: wall {wall:.3f} s, handoff taken: {handoff_ok} "
           f"(prefix {raft_hb.prefix_ticks(cfg)} ticks, then {raft_hb.n_hb_steps(cfg)} heartbeat "
-          f"steps): prefix to the handoff's read {prefix_s:.3f} s, the [S] heartbeat scan on "
-          f"the card to the run's closing sync {scan_s:.3f} s ({scan_s / wall:.1%} of the "
-          f"wall), init {rest_s:.3f} s; "
-          f"ring_push launches {launches} and pushes {pushes} (the prefix), metrics + all "
-          f"state digests equal the JAX golden", flush=True)
-    return dict(wall_s=wall, handoff_ok=handoff_ok, prefix_s=prefix_s, scan_s=scan_s,
-                rest_s=rest_s, launches=launches, pushes=pushes)
+          f"steps): init {init_s:.3f} s (timed alone), prefix to the handoff's read "
+          f"{prefix_s:.3f} s, the [S] heartbeat scan on the card to the run's closing sync "
+          f"{card_scan_s:.3f} s ({card_scan_s / wall:.1%} of the wall; its calls returned "
+          f"after {scan_s:.3f} s); ring_push launches {launches} and pushes {pushes} (the "
+          f"prefix), metrics + all state digests equal the JAX golden", flush=True)
+    return dict(wall_s=wall, handoff_ok=handoff_ok, init_s=init_s, prefix_s=prefix_s,
+                scan_s=card_scan_s, scan_host_s=scan_s, launches=launches, pushes=pushes)
 
 
 def phase_kernel_paxos(dev, card: str):
@@ -999,23 +1005,9 @@ def phase_round(dev, card: str):
             "launches_per_round": per_round, "d2h_copies_per_round": copies_d2h}
 
 
-PHASES = ("kernel", "main", "samplers", "round", "tick-stat", "raft-kernel", "raft-edge",
-          "raft-hb", "pbft-queued", "paxos-kernel", "paxos-gossip", "pbft-gossip",
-          "raft-gossip")
-
-
-def main(argv) -> int:
+def main() -> int:
     import torch
 
-    only = None
-    if argv[:1] == ["--only"] and len(argv) == 2:
-        only = argv[1].split(",")
-        if not set(only) <= set(PHASES):
-            print(f"chip_smoke: --only takes phases of {PHASES}", file=sys.stderr)
-            return 2
-    elif argv:
-        print("usage: python3 chip_smoke.py [--only PHASE[,PHASE...]]", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch reports no CUDA device", file=sys.stderr)
         return 2
@@ -1040,43 +1032,23 @@ def main(argv) -> int:
 
     entry = json.loads(GOLDEN.read_text())["entries"]["n1000"]
     cfg = SimConfig(**entry["config"])
-    phases = {
-        "kernel": lambda: phase_kernel(cfg, dev),
-        "main": lambda: phase_tick(dev, card, GOLDEN, "main path"),
-        "samplers": lambda: phase_samplers(dev, card),
-        "round": lambda: phase_round(dev, card),
-        "tick-stat": lambda: phase_tick(dev, card, STAT_GOLDEN, "tick-stat path"),
-        "raft-kernel": lambda: phase_kernel_raft(dev, card),
-        "raft-edge": lambda: phase_raft_tick(dev, card),
-        "raft-hb": lambda: phase_raft_hb(dev, card),
-        "pbft-queued": lambda: phase_tick(dev, card, QUEUED_GOLDEN, "pbft queued", "n8"),
-        "paxos-kernel": lambda: phase_kernel_paxos(dev, card),
-        "paxos-gossip": lambda: phase_gossip(dev, card, PAXOS_GOSSIP_GOLDEN, "n10k",
-                                             "paxos gossip", GOSSIP_WINDOW_TICKS),
-        "pbft-gossip": lambda: phase_gossip(dev, card, PBFT_GOSSIP_GOLDEN, "n1000",
-                                            "pbft gossip"),
-        "raft-gossip": lambda: phase_gossip(dev, card, RAFT_GOSSIP_GOLDEN, "n1000",
-                                            "raft gossip"),
+    group, rows, max_err = phase_kernel(cfg, dev)
+    launches, pushes, _ = phase_tick(dev, card, GOLDEN, "main path")
+    samplers = phase_samplers(dev, card)
+    round_path = phase_round(dev, card)
+    stat_launches, stat_pushes, stat_wall = phase_tick(dev, card, STAT_GOLDEN,
+                                                       "tick-stat path")
+    raft_group, raft_err = phase_kernel_raft(dev, card)
+    raft_edge = phase_raft_tick(dev, card)
+    raft_hb = phase_raft_hb(dev, card)
+    q_launches, q_pushes, q_wall = phase_tick(dev, card, QUEUED_GOLDEN, "pbft queued", "n8")
+    paxos_group, paxos_err = phase_kernel_paxos(dev, card)
+    gossip = {
+        "paxos_gossip": phase_gossip(dev, card, PAXOS_GOSSIP_GOLDEN, "n10k", "paxos gossip",
+                                     GOSSIP_WINDOW_TICKS),
+        "pbft_gossip": phase_gossip(dev, card, PBFT_GOSSIP_GOLDEN, "n1000", "pbft gossip"),
+        "raft_gossip": phase_gossip(dev, card, RAFT_GOSSIP_GOLDEN, "n1000", "raft gossip"),
     }
-    res, secs = {}, {}
-    for name in PHASES if only is None else only:
-        t0 = time.perf_counter()
-        res[name] = phases[name]()
-        secs[name] = time.perf_counter() - t0
-        print(f"phase {name}: {secs[name]:.1f} s", flush=True)
-    if only is not None:  # a partial run prints no result line
-        print(json.dumps({"phase_seconds": secs}, default=str), flush=True)
-        return 0
-
-    group, rows, max_err = res["kernel"]
-    launches, pushes, _ = res["main"]
-    stat_launches, stat_pushes, stat_wall = res["tick-stat"]
-    raft_group, raft_err = res["raft-kernel"]
-    raft_edge, raft_hb = res["raft-edge"], res["raft-hb"]
-    q_launches, q_pushes, q_wall = res["pbft-queued"]
-    paxos_group, paxos_err = res["paxos-kernel"]
-    gossip = {k: res[f"{k.replace('_', '-')}"] for k in ("paxos_gossip", "pbft_gossip",
-                                                        "raft_gossip")}
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -1114,11 +1086,10 @@ def main(argv) -> int:
                            "pbft_queued": q_pushes,
                            **{k: v["pushes"] for k, v in gossip.items()}},
     }]
-    print(json.dumps({"paths": {"round": res["round"], "tick_stat_wall_s": stat_wall,
+    print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
-                                "pbft_queued_wall_s": q_wall, "samplers": res["samplers"],
-                                **gossip},
-                      "phase_seconds": secs}),
+                                "pbft_queued_wall_s": q_wall, "samplers": samplers,
+                                **gossip}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1129,4 +1100,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -56,13 +56,15 @@ GOLDENS = {
     },
     # the windows are cut to what chip_smoke.py's time limit allows: over
     # gossip every tick runs the exact sampler's rejection loops on the card
-    # (PERF.md section 4)
+    # (PERF.md section 4).  PBFT's 1,700 ms still holds both view changes
+    # (the second near 1,600 ms); Raft's 2,000 ms holds the election, the
+    # step-downs and 13 blocks
     "pbft_gossip_n1000_s0.json": {
-        "n1000": dict(protocol="pbft", n=1000, sim_ms=1000, topology="gossip",
+        "n1000": dict(protocol="pbft", n=1000, sim_ms=1700, topology="gossip",
                       degree=16, gossip_hops=8, delivery="stat"),
     },
     "raft_gossip_n1000_s0.json": {
-        "n1000": dict(protocol="raft", n=1000, sim_ms=4000, topology="gossip",
+        "n1000": dict(protocol="raft", n=1000, sim_ms=2000, topology="gossip",
                       degree=16, gossip_hops=8, delivery="stat"),
     },
 }
@@ -155,7 +157,7 @@ RUNS = {
     "paxos_faults": dict(protocol="paxos", n=32, sim_ms=1000, topology="gossip",
                          degree=4, gossip_hops=6, paxos_retry_timeout_ms=600,
                          faults=dict(n_crashed=3, n_byzantine=2, drop_prob=0.05)),
-    "pbft": dict(protocol="pbft", n=32, sim_ms=700, topology="gossip", degree=8,
+    "pbft": dict(protocol="pbft", n=32, sim_ms=500, topology="gossip", degree=8,
                  gossip_hops=8, delivery="stat"),
     "pbft_faults_edge": dict(protocol="pbft", n=32, sim_ms=900, topology="gossip",
                              degree=4, gossip_hops=6, faults=dict(drop_prob=0.05,
@@ -240,6 +242,7 @@ def test_goldens_hold_their_configs_and_tables():
     assert sorted(px["entries"]["n10k"]["state_sha256"]) == sorted(tpaxos.STATE_FIELDS)
     pb = json.loads((GOLDEN_DIR / "pbft_gossip_n1000_s0.json").read_text())
     assert pb["entries"]["n1000"]["metrics"]["blocks_final_all_nodes"] > 0
+    assert pb["entries"]["n1000"]["metrics"]["view_changes"] == 2
     rf = json.loads((GOLDEN_DIR / "raft_gossip_n1000_s0.json").read_text())
     assert rf["entries"]["n1000"]["metrics"]["n_leaders"] == 1
     assert rf["entries"]["n1000"]["metrics"]["blocks"] > 0

@@ -71,8 +71,10 @@ def test_ticks_from_carried_state(monkeypatch):
     jcfg, tcfg = _cfgs(protocol="paxos", n=8, sim_ms=t0 + k,
                        faults=dict(drop_prob=0.1))
     key = jax.random.key(0)
+    jstep = jax.jit(lambda st, bf, t, kk: jpaxos.step(jcfg, st, bf, t, kk))
     jstate, jbufs = jpaxos.init(jcfg, jax.random.fold_in(key, 0x1217))
-    jstate, jbufs = jrunner.make_segment_fn(jcfg, t0)(key, jstate, jbufs, jnp.int32(0))
+    for t in range(t0):  # the JAX tick loop, one compiled step
+        jstate, jbufs = jstep(jstate, jbufs, jnp.int32(t), jprng.tick_key(key, t))
     assert int(np.asarray(jbufs.req_propose).max()) > 0  # proposals in flight
     tstate, tbufs = convert.state_from_numpy(tcfg, _jax_leaves(jstate),
                                              _jax_leaves(jbufs), "cpu")
@@ -85,7 +87,6 @@ def test_ticks_from_carried_state(monkeypatch):
         return real(items, t)
 
     monkeypatch.setattr(tpaxos, "ring_push_group", record)
-    jstep = jax.jit(lambda st, bf, t, kk: jpaxos.step(jcfg, st, bf, t, kk))
     tkey = threefry.key(0)
     for t in range(t0, t0 + k):
         jstate, jbufs = jstep(jstate, jbufs, jnp.int32(t), jprng.tick_key(key, t))

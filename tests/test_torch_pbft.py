@@ -10,8 +10,8 @@ The golden files under ``blockchain_simulator_tpu_torch/golden/`` hold the
 JAX package's metrics and per-field state digests: ``pbft_edge_s0.json`` for
 the edge tick engine at n = 8 and n = 1000, ``pbft_round_n100k_s0.json`` for
 the round-blocked fast path at the bench headline (``bench._cfg(2000)``,
-n = 100,000) and ``pbft_stat_n1000_s0.json`` for the tick engine's stat arm
-at n = 1000.  ``chip_smoke.py`` holds the port's runs on the card to them.
+n = 100,000) and ``pbft_stat_n1000_1000ms_s0.json`` for the tick engine's
+stat arm at n = 1000.  ``chip_smoke.py`` holds the port's runs on the card to them.
 Regenerate them with ``python tests/test_torch_pbft.py --write-golden``
 (a few minutes of JAX on the CPU).
 """
@@ -56,10 +56,12 @@ ROUND_CONFIGS = {
                   pbft_max_slots=2008, pbft_window=8, delivery="stat",
                   model_serialization=False),
 }
-# the n = 1000 tick-engine config on the stat arm ("auto" sampler: exact)
-STAT_GOLDEN = GOLDEN_DIR / "pbft_stat_n1000_s0.json"
+# the n = 1000 tick-engine config on the stat arm ("auto" sampler: exact),
+# its window cut from 2,500 to 1,000 ms (15 blocks, the first view change)
+# for chip_smoke.py's time limit
+STAT_GOLDEN = GOLDEN_DIR / "pbft_stat_n1000_1000ms_s0.json"
 STAT_CONFIGS = {
-    "n1000": dict(protocol="pbft", n=1000, sim_ms=2500, delivery="stat",
+    "n1000": dict(protocol="pbft", n=1000, sim_ms=1000, delivery="stat",
                   schedule="tick"),
 }
 
