@@ -10,7 +10,10 @@ JAX package.  Its one hand-written kernel is the ring push
 Ported so far: PBFT, Raft and Paxos on the full mesh and over the gossip
 topology (the tick engines, with edge or stat delivery), PBFT's
 round-blocked fast path and Raft's heartbeat-blocked path (``schedule=
-"auto"`` picks them at n >= 4096), and the C++ reference engine's wrapper.
+"auto"`` picks them at n >= 4096), the mixed shard sim (BASELINE config 5:
+Raft shards under a cross-shard PBFT layer, on the tick engine and on the
+heartbeat path; the Raft step runs over a leading shard axis), and the C++
+reference engine's wrapper.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 
@@ -22,7 +25,7 @@ Subpackages
 - ``ops``    — delay samplers, ring buffers and the ring-push kernel, edge,
   stat and gossip delivery, the gossip topology.
 - ``models`` — the PBFT, Raft and Paxos tick engines, PBFT's round-blocked
-  fast path and Raft's heartbeat-blocked path.
+  fast path, Raft's heartbeat-blocked path and the mixed shard sim.
 """
 
 from blockchain_simulator_tpu_torch.utils.config import SimConfig  # noqa: F401

@@ -4,12 +4,18 @@ The counterpart of carrying weights across: ``state_from_numpy`` turns the
 JAX package's ``PbftState`` / ``PbftBufs`` leaves (the PBFT tick engine),
 ``PbftRoundState`` leaves (the round-blocked fast path), ``RaftState`` /
 ``RaftBufs`` leaves (the Raft tick engine, which the heartbeat path also
-carries) or ``PaxosState`` / ``PaxosBufs`` leaves (the Paxos tick engine),
-given as numpy arrays keyed by field name, into the port's dataclasses on a
-device, and
+carries), ``PaxosState`` / ``PaxosBufs`` leaves (the Paxos tick engine) or
+``MixedState`` / ``MixedBufs`` leaves (the mixed shard sim), given as numpy
+arrays keyed by field name, into the port's dataclasses on a device, and
 ``state_to_numpy`` goes the other way.  Both packages can then start from one
 mid-run state.  :func:`state_digests` fingerprints every field, so two runs
 can be compared without shipping the arrays.
+
+The mixed sim's leaves are keyed ``"raft.<field>"`` and ``"pbft.<field>"``,
+as its two sub-states nest them.  Its Raft rings are laid out as the JAX
+package's ``jax.vmap`` leaves them, ``[S, D, m, ...]``; the port keeps them
+slot-major, ``[D, S, m, ...]``, and the conversion moves the axes both ways,
+so the numpy side (and every digest) has JAX's layout.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import hashlib
 import numpy as np
 import torch
 
-from blockchain_simulator_tpu_torch.models import paxos, pbft, pbft_round, raft
+from blockchain_simulator_tpu_torch.models import mixed, paxos, pbft, pbft_round, raft
 from blockchain_simulator_tpu_torch.runner import use_round_schedule
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
@@ -32,16 +38,20 @@ def _to_tensor(name, arr, device):
         raise TypeError(f"field {name!r}: dtype {a.dtype} is not int32 or bool")
     # a copy: the port updates its rings in place, and must not write into
     # the caller's (possibly read-only, possibly shared) arrays
-    return torch.tensor(a, device=device)
+    return torch.tensor(np.ascontiguousarray(a), device=device)
 
 
 def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
     """The state the config's engine carries, on ``device``, from numpy
     leaves: ``(PbftState, PbftBufs)``, ``(RaftState, RaftBufs)`` or
-    ``(PaxosState, PaxosBufs)`` for a tick engine (``bufs=None`` gives empty rings), ``(PbftRoundState, ())``
+    ``(PaxosState, PaxosBufs)`` for a tick engine (``bufs=None`` gives empty
+    rings), ``(PbftRoundState, ())``
     when a PBFT config resolves to the round-blocked fast path (which has no
-    rings: ``bufs`` must be ``None``).  Shapes are checked against the
-    engine's ``init``."""
+    rings: ``bufs`` must be ``None``), ``(MixedState, MixedBufs)`` for the
+    mixed sim (either schedule).  Shapes are checked against the engine's
+    ``init``."""
+    if cfg.protocol == "mixed":
+        return _mixed_from_numpy(cfg, state, bufs, device)
     if cfg.protocol == "raft":
         proto = raft
         ref_state, ref_bufs = raft.init(cfg, device="meta")
@@ -63,30 +73,73 @@ def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
         ref_state, ref_bufs = pbft.init(cfg, device="meta")
         groups = ((pbft.PbftState, pbft.STATE_FIELDS, ref_state, state),
                   (pbft.PbftBufs, pbft.BUF_FIELDS, ref_bufs, bufs))
-    out = []
-    for cls, names, ref, leaves in groups:
-        if leaves is None:
-            out.append(proto.init(cfg, device=device)[1])
-            continue
-        fields = {}
-        for name in names:
-            t = _to_tensor(name, leaves[name], device)
-            want = getattr(ref, name)
-            if t.shape != want.shape or t.dtype != want.dtype:
-                raise ValueError(f"field {name!r}: got {tuple(t.shape)} {t.dtype}, "
-                                 f"config needs {tuple(want.shape)} {want.dtype}")
-            fields[name] = t
-        out.append(cls(**fields))
+    out = [proto.init(cfg, device=device)[1] if leaves is None
+           else _fields(cls, names, ref, leaves, device)
+           for cls, names, ref, leaves in groups]
     return tuple(out) if len(out) == 2 else (out[0], ())
 
 
+def _split(leaves: dict, part: str) -> dict:
+    """The ``"<part>.<field>"`` leaves of a mixed state, keyed by field."""
+    pre = part + "."
+    return {k[len(pre):]: v for k, v in leaves.items() if k.startswith(pre)}
+
+
+def _mixed_from_numpy(cfg, state: dict, bufs: dict | None, device):
+    """``(MixedState, MixedBufs)`` from ``"raft.*"`` / ``"pbft.*"`` leaves
+    (``bufs=None`` gives empty rings)."""
+    ref_state, ref_bufs = mixed.init(cfg, device="meta")
+    if bufs is None:
+        new_bufs = mixed.init(cfg, device=device)[1]
+    else:
+        # JAX's [S, D, m, ...] -> slot-major [D, S, m, ...]
+        r_bufs = {k: np.swapaxes(np.asarray(v), 0, 1)
+                  for k, v in _split(bufs, "raft").items()}
+        new_bufs = mixed.MixedBufs(
+            raft=_fields(raft.RaftBufs, raft.BUF_FIELDS, ref_bufs.raft, r_bufs, device,
+                         "raft"),
+            pbft=_fields(pbft.PbftBufs, pbft.BUF_FIELDS, ref_bufs.pbft,
+                         _split(bufs, "pbft"), device, "pbft"))
+    new_state = mixed.MixedState(
+        raft=_fields(raft.RaftState, raft.STATE_FIELDS, ref_state.raft,
+                     _split(state, "raft"), device, "raft"),
+        pbft=_fields(pbft.PbftState, pbft.STATE_FIELDS, ref_state.pbft,
+                     _split(state, "pbft"), device, "pbft"))
+    return new_state, new_bufs
+
+
+def _fields(cls, names, ref, leaves: dict, device, part: str = ""):
+    """``cls`` from numpy leaves, each checked against ``ref``'s shape and
+    dtype."""
+    fields = {}
+    for name in names:
+        label = f"{part}.{name}" if part else name
+        t = _to_tensor(label, leaves[name], device)
+        want = getattr(ref, name)
+        if t.shape != want.shape or t.dtype != want.dtype:
+            raise ValueError(f"field {label!r}: got {tuple(t.shape)} {t.dtype}, "
+                             f"config needs {tuple(want.shape)} {want.dtype}")
+        fields[name] = t
+    return cls(**fields)
+
+
 def state_to_numpy(state, bufs=None):
-    """Numpy leaves keyed by field name (either engine's state): ``state``
-    alone, or ``(state, bufs)`` when ``bufs`` is given."""
+    """Numpy leaves keyed by field name (any engine's state): ``state``
+    alone, or ``(state, bufs)`` when ``bufs`` is given.  A mixed state's
+    leaves are keyed ``"raft.<field>"`` / ``"pbft.<field>"``, its Raft rings
+    in JAX's ``[S, D, m, ...]`` layout."""
     def leaves(obj):
         return {f.name: getattr(obj, f.name).detach().cpu().numpy()
                 for f in dataclasses.fields(obj)}
 
+    if isinstance(state, mixed.MixedState):
+        s = {f"{part}.{k}": v for part in ("raft", "pbft")
+             for k, v in leaves(getattr(state, part)).items()}
+        if bufs is None:
+            return s
+        b = {f"raft.{k}": np.swapaxes(v, 0, 1) for k, v in leaves(bufs.raft).items()}
+        b.update({f"pbft.{k}": v for k, v in leaves(bufs.pbft).items()})
+        return s, b
     s = leaves(state)
     return s if bufs is None else (s, leaves(bufs))
 

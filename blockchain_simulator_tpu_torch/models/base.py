@@ -17,7 +17,8 @@ import torch
 
 
 def get_protocol(name: str):
-    """Runtime protocol selection.  The port runs PBFT, Raft and Paxos."""
+    """Runtime protocol selection.  The port runs PBFT, Raft, Paxos and
+    the mixed shard sim."""
     if name == "pbft":
         from blockchain_simulator_tpu_torch.models import pbft as m
 
@@ -31,11 +32,9 @@ def get_protocol(name: str):
 
         return m
     if name == "mixed":
-        raise NotImplementedError(
-            "protocol 'mixed' is not ported yet: the mixed shard sim comes with "
-            "slice 3 of the port, item 10 (it runs the [S] heartbeat scan over "
-            "its shards and needs a Raft step batched over them)"
-        )
+        from blockchain_simulator_tpu_torch.models import mixed as m
+
+        return m
     raise ValueError(f"unknown protocol {name!r}")
 
 

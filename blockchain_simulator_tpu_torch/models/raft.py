@@ -22,6 +22,19 @@ down on seeing a newer election than its own, ``my_base``).
 ``"kregular"`` raises ``NotImplementedError`` naming slice 5, and
 ``mesh_axis`` slice 6.
 
+*Shards.*  ``init`` given lane keys ``[S, 2]`` builds ``S`` independent
+instances side by side, ``jax.vmap(raft.init)`` over the keys (the mixed
+shard sim, models/mixed.py): every state field gets a leading shard axis
+``[S, N, ...]``, and the rings are laid out slot-major, ``[D, S, N]``
+(``[D, S, N, N]`` for the edge ``vreq``), so each channel stays ONE ring
+and the tick's push group keeps one member a channel, of length ``S·N``.
+``step`` then takes the tick's lane keys ``[S, 2]`` and is ``jax.vmap`` of
+the JAX step: every gate is one host read of "any shard live", and under
+it a shard whose own gate is shut keeps exactly what the JAX shut branch
+returns (``vmap`` lowers ``lax.cond`` to a select), by an explicit
+``where``.  The host reads a tick stay the single instance's.  The shard
+form runs the full mesh without queued links (what the mixed sim allows).
+
 PyTorch idiom, as in models/pbft.py: state and rings are mutable tensors, the
 rings are updated in place, and ``t`` is a one-element int32 tensor on the
 device.  JAX's ``lax.cond`` gates become host branches; a step reads the host
@@ -122,21 +135,34 @@ def require_ported(cfg) -> None:
 def init(cfg, key=None, *, device):
     """``(RaftState, RaftBufs)`` on ``device``.  The initial election
     timeouts U[election_lo, election_hi) are drawn from ``key``
-    (``threefry.key(cfg.seed)`` when None); crashed nodes never start one."""
+    (``threefry.key(cfg.seed)`` when None); crashed nodes never start one.
+    Lane keys ``[S, 2]`` give ``S`` shards (module docstring): state
+    ``[S, N, ...]``, rings ``[D, S, N, ...]``."""
     require_ported(cfg)
+    k = threefry.key(cfg.seed) if key is None else np.asarray(key, np.int64)
+    sh = (len(k),) if k.ndim == 2 else ()
+    if sh and (cfg.topology != "full" or cfg.queued_links):
+        raise NotImplementedError(
+            "the Raft step over a shard axis runs the full mesh without queued "
+            "links (the mixed shard sim's arms); gossip and queued links run "
+            "one instance"
+        )
     n, d, b = cfg.n, cfg.ring_depth, cfg.raft_max_blocks
-    alive, honest = fault_masks(cfg, n, device)
+    alive, honest = (m.expand(sh + (n,)).contiguous()
+                     for m in fault_masks(cfg, n, device))
 
-    def zi(*sh):
-        return torch.zeros(sh, dtype=_I32, device=device)
+    def zi(*dims):  # every state field gets the shard axis first
+        return torch.zeros(sh + dims, dtype=_I32, device=device)
 
-    def full(sh, val):
-        return torch.full(sh, val, dtype=_I32, device=device)
+    def full(dims, val):
+        return torch.full(sh + dims, val, dtype=_I32, device=device)
 
-    def zb(*sh):
-        return torch.zeros(sh, dtype=torch.bool, device=device)
+    def zb(*dims):
+        return torch.zeros(sh + dims, dtype=torch.bool, device=device)
 
-    k = threefry.key(cfg.seed) if key is None else key
+    def ring(*dims):  # slot-major: the shard axis after the slots
+        return torch.zeros((d,) + sh + dims, dtype=_I32, device=device)
+
     deadline = threefry.randint(threefry.fold_in(k, Channel.ELECTION), (n,),
                                 cfg.raft_election_lo_ms, cfg.raft_election_hi_ms, device)
     state = RaftState(
@@ -166,13 +192,13 @@ def init(cfg, key=None, *, device):
         link_busy=zi(n),
     )
     bufs = RaftBufs(
-        vreq=zi(d, n) if cfg.delivery == "stat" else zi(d, n, n),
-        vres_ok=zi(d, n),
-        vres_no=zi(d, n),
-        hb_plain=zi(d, n),
-        hb_prop=zi(d, n),
-        hb_ok=zi(d, n),
-        hb_bad=zi(d, n),
+        vreq=ring(n) if cfg.delivery == "stat" else ring(n, n),
+        vres_ok=ring(n),
+        vres_no=ring(n),
+        hb_plain=ring(n),
+        hb_prop=ring(n),
+        hb_ok=ring(n),
+        hb_bad=ring(n),
     )
     return state, bufs
 
@@ -211,19 +237,36 @@ def _rearm(cfg, tkey, channel: int, t, n: int, device):
 
 
 def _reply_counts(grant_to, wire, has_req, n: int):
-    """Per-candidate reply counts: ``zeros(n).at[grant_to].add(wire)``.
-    Rows with no request carry no wire, so they scatter into one extra slot
-    that is cut off."""
+    """Per-candidate reply counts: ``zeros(n).at[grant_to].add(wire)``, in
+    each shard.  Rows with no request carry no wire, so they scatter into
+    one extra slot that is cut off."""
     idx = torch.where(has_req, grant_to, n).to(torch.int64)
-    c = torch.zeros((n + 1,), dtype=_I32, device=wire.device)
-    return c.scatter_add_(0, idx, wire.to(_I32))[:n]
+    c = torch.zeros(wire.shape[:-1] + (n + 1,), dtype=_I32, device=wire.device)
+    return c.scatter_add_(-1, idx, wire.to(_I32))[..., :n]
+
+
+def _shut(gate, contrib):
+    """The contribution of a gated draw in a shard form: shards whose own
+    gate is shut (``gate [S]`` false) push 0, which leaves their ring as
+    JAX's shut branch does (adding 0, or max-combining 0 into values >= 0).
+    One instance passes through: its gate was the host read."""
+    if gate is None:
+        return contrib
+    return torch.where(gate.view((1, -1) + (1,) * (contrib.ndim - 2)), contrib, 0)
 
 
 def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
     """One tick.  ``t``: 0-d int32 tensor on the state's device; ``tkey``:
-    the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
-    that the config is ported."""
+    the tick's threefry key (utils/prng.tick_key), or one key a shard
+    ``[S, 2]`` for a state with a shard axis (module docstring).  ``init``
+    has checked that the config is ported."""
     n = cfg.n
+    # shard form: the per-shard gate masks of _shut (None: one instance)
+    sharded = state.is_leader.ndim == 2
+
+    def gate(mask):
+        return mask.any(-1) if sharded else None
+
     lo, hi = cfg.one_way_range()
     rt_lo, _ = cfg.roundtrip_range()
     drop = cfg.faults.drop_prob
@@ -258,7 +301,7 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
     plain_t, prop_t = plain_t * am, prop_t * am
     hbok_t, hbbad_t = hbok_t * am, hbbad_t * am
     hbtot_t = hbok_t + hbbad_t
-    vreq_t = vreq_t * am if stat else vreq_t * am[:, None]
+    vreq_t = vreq_t * am if stat else vreq_t * am[..., None]
 
     # ---- gossip decode: the three broadcast channels flood with a hop TTL
     # (value * H + hops_left, H = gossip_hops + 1) over time-monotone bases:
@@ -353,28 +396,30 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
                 kd = threefry.fold_in(k_vr, 0x0D17)
                 mok = dv._thinned(kd, mok, 1.0 - drop, smode)
                 mno = dv._thinned(threefry.fold_in(kd, 1), mno, 1.0 - drop, smode)
-            pushes.append((vres_ok, lo, dv.push_bucket_counts(
-                threefry.fold_in(k_vr, 7), mok, ow_probs, smode), "add"))
-            pushes.append((vres_no, lo, dv.push_bucket_counts(
-                threefry.fold_in(k_vr, 8), mno, ow_probs, smode), "add"))
+            g = gate(has_req)
+            pushes.append((vres_ok, lo, _shut(g, dv.push_bucket_counts(
+                threefry.fold_in(k_vr, 7), mok, ow_probs, smode)), "add"))
+            pushes.append((vres_no, lo, _shut(g, dv.push_bucket_counts(
+                threefry.fold_in(k_vr, 8), mno, ow_probs, smode)), "add"))
     else:
         # vreq_t[i, j] = 1 iff candidate j's request reaches i this tick;
         # concurrent same-tick requests: the vote goes to the lowest id
         has_req = vreq_t > 0
-        any_req = has_req.any(1)
+        any_req = has_req.any(-1)
         if bool(any_req.any()):
-            first = has_req.to(torch.uint8).argmax(1)  # lowest j with a request
+            first = has_req.to(torch.uint8).argmax(-1)  # lowest j with a request
             granting = any_req & can_grant
-            grant_mask = ((ids[None, :] == first[:, None]) & granting[:, None]).to(_I32)
+            grant_mask = ((ids == first[..., None]) & granting[..., None]).to(_I32)
             deny_mask = has_req.to(_I32) - grant_mask
             has_voted = has_voted | granting
-            hn = honest.to(_I32)[:, None]
+            hn = honest.to(_I32)[..., None]
             ok_wire = grant_mask * hn + deny_mask * (1 - hn)
             no_wire = deny_mask * hn + grant_mask * (1 - hn)
-            pushes.append((vres_ok, lo, dv.unicast_reply_counts_dense(
-                threefry.fold_in(k_vr, 7), ok_wire, lo, hi, drop, impl=eimpl), "add"))
-            pushes.append((vres_no, lo, dv.unicast_reply_counts_dense(
-                threefry.fold_in(k_vr, 8), no_wire, lo, hi, drop, impl=eimpl), "add"))
+            g = gate(any_req)
+            pushes.append((vres_ok, lo, _shut(g, dv.unicast_reply_counts_dense(
+                threefry.fold_in(k_vr, 7), ok_wire, lo, hi, drop, impl=eimpl)), "add"))
+            pushes.append((vres_no, lo, _shut(g, dv.unicast_reply_counts_dense(
+                threefry.fold_in(k_vr, 8), no_wire, lo, hi, drop, impl=eimpl)), "add"))
 
     # ---- vote responses (candidate side) ------------------------------------
     follower = ~state.is_leader
@@ -437,8 +482,8 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
     blk = torch.clamp(state.block_num, 0, b_max - 1)
     slots = torch.arange(b_max, device=dev)
     block_tick = torch.where(
-        (slots[None, :] == blk[:, None]) & commit[:, None]
-        & (state.block_num < b_max)[:, None],
+        (slots == blk[..., None]) & commit[..., None]
+        & (state.block_num < b_max)[..., None],
         t, state.block_tick)
     block_num = state.block_num + commit
     # blockNum >= max cancels the heartbeat.  Gossip keeps its 4-byte control
@@ -476,7 +521,7 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
                           if stat else
                           dv.bcast_matrix_dense(k_vq, fire, fire_i, lo, hi, drop,
                                                 impl=eimpl))
-            pushes.append((vreq, lo, vq_contrib, "max"))
+            pushes.append((vreq, lo, _shut(gate(fire), vq_contrib), "max"))
     if gossip:
         floods.append((vreq, lo, k_vq, vreq_fwd))
 
@@ -538,18 +583,19 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
         if any_plain:
             plain_contrib = (
                 # mode stays exact: this channel has O(1) senders (the leader)
-                dv.bcast_counts_stat(k_hb, plain_send.sum(dtype=_I32), plain_send,
-                                     ow_probs, drop, mode="exact")
+                dv.bcast_counts_stat(k_hb, plain_send.sum(-1, keepdim=True, dtype=_I32),
+                                     plain_send, ow_probs, drop, mode="exact")
                 if stat else
                 dv.bcast_counts_dense(k_hb, plain_send, lo, hi, drop, impl=eimpl))
-            pushes.append((hb_plain, lo, plain_contrib, "add"))
+            pushes.append((hb_plain, lo, _shut(gate(plain_send), plain_contrib), "add"))
         if any_prop:
+            g = gate(prop_send)
             k_p = threefry.fold_in(k_hb, 1)
             value = (ids + 1) * prop_send.to(_I32)
             prop_contrib = (
                 dv.bcast_value_max_stat(k_p, value, ow_probs, drop) if stat else
                 dv.bcast_value_max_dense(k_p, prop_send, value, lo, hi, drop, impl=eimpl))
-            pushes.append((hb_prop, lo + ser, prop_contrib, "max"))
+            pushes.append((hb_prop, lo + ser, _shut(g, prop_contrib), "max"))
             # proposal acks: follower state never affects the SUCCESS reply, so
             # the round trip is short-circuited; Byzantine followers flip to
             # FAILED.  The two channels cover disjoint peer sets.
@@ -557,20 +603,20 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
             if stat:
                 voters_i, liars_i = voters.to(_I32), liars.to(_I32)
                 ok_counts = dv.push_roundtrip_reply_counts_stat(
-                    k_rt, prop_send, voters_i.sum(dtype=_I32) - voters_i, rt_probs, drop,
-                    mode=smode)
+                    k_rt, prop_send, voters_i.sum(-1, keepdim=True, dtype=_I32) - voters_i,
+                    rt_probs, drop, mode=smode)
                 bad_counts = (dv.push_roundtrip_reply_counts_stat(
-                    k_bad, prop_send, liars_i.sum(dtype=_I32) - liars_i, rt_probs, drop,
-                    mode=smode) if liars_exist else None)
+                    k_bad, prop_send, liars_i.sum(-1, keepdim=True, dtype=_I32) - liars_i,
+                    rt_probs, drop, mode=smode) if liars_exist else None)
             else:
                 ok_counts = dv.roundtrip_reply_counts_dense(
                     k_rt, prop_send, lo, hi, drop, peer_mask=voters, impl=eimpl)
                 bad_counts = (dv.roundtrip_reply_counts_dense(
                     k_bad, prop_send, lo, hi, drop, peer_mask=liars, impl=eimpl)
                     if liars_exist else None)
-            pushes.append((hb_ok, rt_lo + ser, ok_counts, "add"))
+            pushes.append((hb_ok, rt_lo + ser, _shut(g, ok_counts), "add"))
             if bad_counts is not None:
-                pushes.append((hb_bad, rt_lo + ser, bad_counts, "add"))
+                pushes.append((hb_bad, rt_lo + ser, _shut(g, bad_counts), "add"))
     ring_push_group(pushes, t)  # in place; no launch when nothing is pushed
 
     state = dataclasses.replace(

@@ -20,15 +20,16 @@ engine continues from the prefix's (state, bufs) through the rest of the
 window: tick keys derive from the absolute tick, so that equals one
 uninterrupted tick run.
 
-The scan runs on the state's device over a leading shard axis ``[S]``:
-:func:`steady_scan` is ``jax.vmap`` of the JAX scan over per-shard keys and
-``Handoff``s (the mixed shard sim runs S of them side by side; the single
-Raft path calls it with S = 1).  Its carry is ``[S]`` tensors, its ack
-waves are drawn for every step and shard up front
-(``ops/delay.sample_bucket_counts_vmapped``), and each step's bins go
-through the ack window in one vectorised pass (:func:`_cross`), so the step
-loop reads nothing back.  ``materialize`` writes the leader's row back into
-the state.
+The handoff, the scan and the write-back run on the state's device over a
+leading shard axis ``[S]``: each is ``jax.vmap`` of its JAX function over
+the shards (the mixed shard sim, models/mixed.py, runs S of them side by
+side on ``[S, m, ...]`` states; the single Raft path calls them with
+S = 1).  :func:`handoff` reads its ``[S, 8]`` check values to the host in
+one copy.  The scan's carry is ``[S]`` tensors, its ack waves are drawn for
+every step and shard up front (``ops/delay.sample_bucket_counts_vmapped``),
+and each step's bins go through the ack window in one vectorised pass
+(:func:`_cross`), so the step loop reads nothing back.  :func:`materialize`
+writes each shard's leader row back into the state.
 
 The prefix and the scan each add their host seconds to a module counter
 (``prefix_s``, ``scan_s``), and each handoff adds one to ``handoffs_taken``
@@ -119,10 +120,23 @@ class Handoff(NamedTuple):
     ok_cnt: torch.Tensor   # honest alive followers (SUCCESS acks), float32
 
 
+def _shard_view(state):
+    """A one-instance ``[N]`` state as one shard, ``[1, N]`` (views)."""
+    return dataclasses.replace(state, **{f: getattr(state, f)[None]
+                                         for f in raft_tick.STATE_FIELDS})
+
+
+def _unshard(state):
+    """The one shard of a ``[1, N]`` state, as ``[N]`` (views)."""
+    return dataclasses.replace(state, **{f: getattr(state, f)[0]
+                                         for f in raft_tick.STATE_FIELDS})
+
+
 def handoff(cfg, state):
-    """The checked handoff on the post-prefix tick-engine state, as a
-    one-shard ``Handoff``; the check's scalars are read to the host in one
-    copy.  Returns ``(ok, Handoff)``."""
+    """The checked handoff in every shard of a post-prefix ``[S, m]``
+    tick-engine state: ``jax.vmap`` of the JAX check.  The ``[S, 8]`` check
+    values are read to the host in one copy.  Returns ``(ok, Handoff)``,
+    ``ok`` a host bool array ``[S]``."""
     t_e = prefix_ticks(cfg)
     hb = cfg.raft_heartbeat_ms
     rt_hi = cfg.roundtrip_range()[1]
@@ -132,33 +146,32 @@ def handoff(cfg, state):
 
     def lval(x, fill):
         """Leader-row value (max over the leader set, a singleton when ok)."""
-        return torch.where(lead_mask, x.to(_I32), fill).amax()
+        return torch.where(lead_mask, x.to(_I32), fill).amax(-1)
 
-    scalars = torch.stack([
-        lead_mask.sum(dtype=_I32),
-        torch.where(lead_mask, ids, -1).amax(),
+    vals = torch.stack([
+        lead_mask.sum(-1, dtype=_I32),
+        torch.where(lead_mask, ids, -1).amax(-1),
         lval(state.next_hb, -1),
         lval(state.proposal_tick, -1),
         lval(state.block_num, 0),
         lval(state.round, 0),
         lval(state.leader_tick, -1),
-        voters.sum(dtype=_I32) - lval(voters, 0),
-    ])
-    host = scalars.tolist()  # the run's one host read
-    n_leaders, _, hb0, p_start, _, _, lead_tick, _ = host
+        voters.sum(-1, dtype=_I32) - lval(voters, 0),
+    ], dim=1)
+    host = vals.cpu().numpy().astype(np.int64)  # the run's one host read
+    n_leaders, hb0, p_start, lead_tick = host[:, 0], host[:, 2], host[:, 3], host[:, 6]
     ok = (
-        n_leaders == 1
+        (n_leaders == 1)
         # the election wave has fully drained
-        and lead_tick + rt_hi <= t_e
-        and p_start > t_e + hb  # not yet proposing
+        & (lead_tick + rt_hi <= t_e)
+        & (p_start > t_e + hb)  # not yet proposing
         # DISARM: setProposal already fired inside the prefix, so proposal
         # waves may be in flight in the rings the scan would discard
-        and p_start != DISARM
+        & (p_start != DISARM)
     )
-    row = torch.where(lead_mask[:, None], state.block_tick, -1).amax(0)
-    return ok, Handoff(lead=scalars[1:2], hb0=np.array([hb0], np.int64),
-                       p_start=scalars[3:4], bn0=scalars[4:5], rnd0=scalars[5:6],
-                       bt0=row[None], ok_cnt=scalars[7:8].to(torch.float32))
+    row = torch.where(lead_mask[..., None], state.block_tick, -1).amax(-2)
+    return ok, Handoff(lead=vals[:, 1], hb0=hb0, p_start=vals[:, 3], bn0=vals[:, 4],
+                       rnd0=vals[:, 5], bt0=row, ok_cnt=vals[:, 7].to(torch.float32))
 
 
 def _cross(hs, open_, bn, bt, cnt, tick, need: int, b_max: int):
@@ -267,17 +280,17 @@ def steady_scan(cfg, keys, h: Handoff, with_probe: bool = False):
 
 
 def materialize(cfg, state, h: Handoff, scan_out):
-    """Fold a one-shard steady scan's values back into the [N] state the
-    metrics read: the leader's row, and every alive follower's stored
-    value.  Tensor ops on the state's device (no host read)."""
-    hs, open_, bn, rnd, add_on, stopped, bt = (x[0] for x in scan_out)
-    lead = h.lead[0]
+    """Fold the steady scan's ``[S]`` values back into the ``[S, m]`` state
+    the metrics read: each shard's leader row, and every alive follower's
+    stored value.  Tensor ops on the state's device (no host read)."""
+    hs, open_, bn, rnd, add_on, stopped, bt = (x[:, None] for x in scan_out)
+    lead = h.lead[:, None]
     onehot = raft_tick._ids(cfg.n, state.is_leader.device) == lead
     return dataclasses.replace(
         state,
         block_num=torch.where(onehot, bn, state.block_num),
         round=torch.where(onehot, rnd, state.round),
-        block_tick=torch.where(onehot[:, None], bt[None, :], state.block_tick),
+        block_tick=torch.where(onehot[..., None], bt, state.block_tick),
         hb_succ=torch.where(onehot, hs, state.hb_succ),
         hb_open=torch.where(onehot, open_, state.hb_open),
         add_change_value=torch.where(onehot, add_on, state.add_change_value),
@@ -310,13 +323,13 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     t0 = time.perf_counter()
     t_e = prefix_ticks(cfg)
     state, bufs = tick_range(cfg, state, bufs, key, 0, t_e)
-    ok, h = handoff(cfg, state)
+    ok, h = handoff(cfg, _shard_view(state))
     t1 = time.perf_counter()
     prefix_s += t1 - t0
-    if ok:
+    if ok[0]:
         handoffs_taken += 1
         out = steady_scan(cfg, np.asarray(key, np.int64)[None], h)
-        state = materialize(cfg, state, h, out)
+        state = _unshard(materialize(cfg, _shard_view(state), h, out))
         scan_s += time.perf_counter() - t1
         return state
     handoffs_refused += 1

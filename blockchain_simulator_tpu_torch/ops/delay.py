@@ -15,6 +15,15 @@ Every draw is bit-equal to the JAX function on the same key: float32 steps
 follow XLA:CPU's arithmetic (utils/xla_math.py), and the Python floats the
 JAX code multiplies by are rounded to float32 as JAX's weak typing rounds
 them.
+
+*Lane keys.*  Every sampler also takes a stack of keys ``[L, 2]`` with
+tensors of a leading axis ``L``: that is ``jax.vmap`` of the sampler over
+the keys (the mixed shard sim's Raft step vmapped over its shards).  The
+threefry draws are per lane, and so are the exact binomial's rejection
+loops.  The Philox draws (the ``"normal"`` stat sampler and the ``"rbg"``
+edge sampler) follow the batching rule of ``rng_bit_generator`` instead:
+the first lane's key draws for all lanes at shape ``(L, *shape)``, row
+``l`` to lane ``l`` (:func:`_fast_normal_vmapped`).
 """
 
 from __future__ import annotations
@@ -40,11 +49,22 @@ def roundtrip_probs(lo: int, hi: int) -> np.ndarray:
     return np.convolve(p, p)
 
 
+def _lanes(key) -> bool:
+    """Whether ``key`` is a stack of lane keys ``[L, 2]`` (one threefry key a
+    lane) rather than one key ``[2]``."""
+    return np.ndim(key) == 2
+
+
 def _half_words(key, shape, device):
     """Philox words for a leading axis of ``r`` draws, two 16-bit fields a
     word: ``(words & 0xFFFF, words >> 16)`` stacked and cut to ``r``, as
-    the JAX samplers slice them."""
+    the JAX samplers slice them.  Lane keys give ``[L, *shape]`` by the
+    first-lane rule (module docstring)."""
     r = shape[0]
+    if _lanes(key):
+        words = philox.bits(philox.rbg_key(np.asarray(key)[0]),
+                            (len(key), (r + 1) // 2) + tuple(shape[1:]), device)
+        return torch.cat([words & 0xFFFF, words >> 16], dim=1)[:, :r]
     words = philox.bits(philox.rbg_key(key), ((r + 1) // 2,) + tuple(shape[1:]),
                         device)
     return torch.cat([words & 0xFFFF, words >> 16], dim=0)[:r]
@@ -55,7 +75,7 @@ def sample_edge_delays(key, shape, lo: int, hi: int, device,
     """One delay per edge, in [lo, hi), as int32 on ``device``.
     ``"threefry"`` is ``jax.random.randint``; ``"rbg"`` maps Philox words
     to integers: 16-bit fields masked to a power-of-two span, else whole
-    words modulo the span."""
+    words modulo the span.  Lane keys ``[L, 2]`` give ``[L, *shape]``."""
     shape = tuple(int(s) for s in shape)
     if impl == "threefry":
         return threefry.randint(key, shape, lo, hi, device)
@@ -64,10 +84,14 @@ def sample_edge_delays(key, shape, lo: int, hi: int, device,
     span = hi - lo
     if span & (span - 1) == 0 and span <= (1 << 16):
         if not shape:
-            return sample_edge_delays(key, (1,), lo, hi, device, impl)[0]
+            return sample_edge_delays(key, (1,), lo, hi, device, impl)[..., 0]
         fields = _half_words(key, shape, device)
         return (lo + (fields & (span - 1))).to(torch.int32)
-    words = philox.bits(philox.rbg_key(key), shape, device)
+    if _lanes(key):
+        words = philox.bits(philox.rbg_key(np.asarray(key)[0]), (len(key),) + shape,
+                            device)
+    else:
+        words = philox.bits(philox.rbg_key(key), shape, device)
     return (lo + words % span).to(torch.int32)
 
 
@@ -81,20 +105,23 @@ def _popcount16(x):
 
 def _fast_normal(key, shape, device) -> torch.Tensor:
     """CLT normal draws: ``(popcount(u16) - 8) / 2`` over the two 16-bit
-    halves of each Philox word (mean 0, variance 1, float32)."""
+    halves of each Philox word (mean 0, variance 1, float32).  Lane keys
+    give ``[L, *shape]`` by the first-lane rule."""
     shape = tuple(int(s) for s in shape)
     if not shape:
-        return _fast_normal(key, (1,), device)[0]
+        return _fast_normal(key, (1,), device)[..., 0]
     z = _popcount16(_half_words(key, shape, device))
     return (z.to(_F32) - 8.0) * 0.5
 
 
 def binom(key, n, p: float, mode: str = "exact") -> torch.Tensor:
     """Binomial(n, p) draw (float32, shape of ``n``); ``"normal"`` is the
-    Gaussian approximation ``clip(round(mu + sigma*z), 0, n)``."""
+    Gaussian approximation ``clip(round(mu + sigma*z), 0, n)``.  Lane keys
+    ``[L, 2]`` take an ``n`` of ``[L, ...]``."""
     n = n.to(_F32)
     if mode == "normal":
-        return _round_normal(n, p, _fast_normal(key, n.shape, n.device))
+        shape = n.shape[1:] if _lanes(key) else n.shape
+        return _round_normal(n, p, _fast_normal(key, shape, n.device))
     return threefry.binomial(key, n, p, n.device)
 
 
@@ -142,7 +169,11 @@ def sample_bucket_counts(key, n, probs: np.ndarray, mode: str = "exact"):
     """Split ``n`` (int tensor, any shape) into bucket counts ~
     Multinomial(n, probs): int32 of shape ``(len(probs),) + n.shape``.
     ``"normal"``: one Philox draw for all buckets; ``"exact"``: bucket ``b``
-    draws on ``fold_in(key, b)``."""
+    draws on ``fold_in(key, b)``.  Lane keys ``[L, 2]`` take an ``n`` of
+    ``[L, ...]`` (:func:`sample_bucket_counts_vmapped`, one vmap)."""
+    if _lanes(key):
+        return sample_bucket_counts_vmapped(np.asarray(key)[None], n[None], probs,
+                                            mode)[:, 0]
     n = n.to(_F32)
     nb = len(probs)
     if mode == "normal":

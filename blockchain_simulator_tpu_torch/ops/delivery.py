@@ -17,6 +17,12 @@ The JAX package's ``push_*`` functions sample and combine each bucket straight
 into its ring slice; here they return the stacked contribution instead, which
 the caller hands to the tick's one grouped ring push (ops/ring.py).  That is
 what the JAX functions themselves do when its ring kernel is armed.
+
+*Lane keys* (the functions the Raft step draws with): given a stack of keys
+``[S, 2]`` and sender tensors with a leading shard axis ``[S, N, ...]``, a
+function returns ``[B, S, ...]``, shard ``s`` what ``jax.vmap`` of the JAX
+function gives it (ops/delay.py says how each stream batches).  Reductions
+run over the trailing node axes, so one code serves both forms.
 """
 
 from __future__ import annotations
@@ -68,12 +74,12 @@ def _edge_hits(key, send, lo: int, hi: int, drop_prob: float = 0.0, axis=None,
     mask; ``impl`` selects the per-edge bit source."""
     _unsharded(axis)
     dev = send.device
-    n = send.shape[0]
+    n = send.shape[-1]
     send_g = send if send_global is None else send_global
     d = sample_edge_delays(key, (n, n), lo, hi, dev, impl)
     ids = torch.arange(n, device=dev)
     notself = ids[:, None] != ids[None, :]
-    mask = send_g.to(_I32)[:, None] * notself.to(_I32)
+    mask = send_g.to(_I32)[..., :, None] * notself.to(_I32)
     if drop_prob > 0.0:
         keep = threefry.bernoulli(threefry.fold_in(key, 0x0D0D),
                                   1.0 - drop_prob, (n, n), dev)
@@ -84,7 +90,7 @@ def _edge_hits(key, send, lo: int, hi: int, drop_prob: float = 0.0, axis=None,
 def bcast_counts_dense(key, send, lo, hi, drop_prob=0.0, axis=None,
                        impl="threefry"):
     """Broadcast → per-receiver arrival counts.  Returns [B, N]."""
-    return _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl).sum(1, dtype=_I32)
+    return _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl).sum(-2, dtype=_I32)
 
 
 def bcast_value_max_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
@@ -92,7 +98,7 @@ def bcast_value_max_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
     """Broadcast of a per-sender value (>0; 0 = empty), max-combined at the
     receiver.  Returns [B, N]."""
     hits = _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl)
-    return (hits * value.to(_I32)[None, :, None]).amax(1)
+    return (hits * value.to(_I32)[None, ..., None]).amax(-2)
 
 
 def bcast_slots_dense(key, slot_mat, lo, hi, drop_prob=0.0, axis=None,
@@ -143,14 +149,15 @@ def roundtrip_reply_counts_dense(key, send, lo, hi, drop_prob=0.0, peer_mask=Non
     [B2, N], offset 2*lo, B2 = 2*(hi-lo)-1."""
     _unsharded(axis)
     dev = send.device
-    n = send.shape[0]
+    n = send.shape[-1]
     peers = torch.ones((n,), dtype=torch.bool, device=dev) if peer_mask is None else peer_mask
     d1 = sample_edge_delays(threefry.fold_in(key, 1), (n, n), lo, hi, dev, impl)
     d2 = sample_edge_delays(threefry.fold_in(key, 2), (n, n), lo, hi, dev, impl)
     total = d1 + d2  # delay until the reply reaches the sender
     ids = torch.arange(n, device=dev)
     notself = ids[:, None] != ids[None, :]
-    mask = send.to(_I32)[:, None] * notself.to(_I32) * peers.to(_I32)[None, :]
+    mask = (send.to(_I32)[..., :, None] * notself.to(_I32)
+            * peers.to(_I32)[..., None, :])
     if drop_prob > 0.0:
         # either leg can drop
         keep = threefry.bernoulli(threefry.fold_in(key, 0x0D0E),
@@ -159,7 +166,7 @@ def roundtrip_reply_counts_dense(key, send, lo, hi, drop_prob=0.0, peer_mask=Non
     lo2 = 2 * lo
     nb = 2 * (hi - lo) - 1
     hit = (total[None] == _bucket_iota(lo2, lo2 + nb, total.ndim, dev)).to(_I32)
-    return (hit * mask[None]).sum(2, dtype=_I32)
+    return (hit * mask[None]).sum(-1, dtype=_I32)
 
 
 def unicast_reply_counts_dense(key, reply, lo, hi, drop_prob=0.0, axis=None,
@@ -170,7 +177,7 @@ def unicast_reply_counts_dense(key, reply, lo, hi, drop_prob=0.0, axis=None,
     ``[B, N, N]`` bucket mask, summed: exact."""
     _unsharded(axis)
     dev = reply.device
-    n_loc, n_glob = reply.shape
+    n_loc, n_glob = reply.shape[-2:]
     d = sample_edge_delays(key, (n_loc, n_glob), lo, hi, dev, impl)
     notself = torch.arange(n_loc, device=dev)[:, None] != torch.arange(n_glob, device=dev)[None, :]
     mask = notself.to(_I32)
@@ -180,7 +187,7 @@ def unicast_reply_counts_dense(key, reply, lo, hi, drop_prob=0.0, axis=None,
         mask = mask * keep.to(_I32)
     r = reply.to(_I32) * mask
     hit = (d[None] == _bucket_iota(lo, hi, d.ndim, dev)).to(_I32)
-    return (r[None] * hit).sum(1, dtype=_I32)
+    return (r[None] * hit).sum(-2, dtype=_I32)
 
 
 def bcast_matrix_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
@@ -191,7 +198,7 @@ def bcast_matrix_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
     contiguous (the JAX function's ``swapaxes`` view, materialised once, as
     the ring push takes contiguous contributions)."""
     hits = _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl)  # [B, send, recv]
-    return (hits * value.to(_I32)[None, :, None]).transpose(1, 2).contiguous()
+    return (hits * value.to(_I32)[None, ..., None]).transpose(-1, -2).contiguous()
 
 
 # --------------------------------------------------------------------------- #
@@ -209,7 +216,7 @@ def bcast_counts_stat(key, n_senders, is_sender, probs: np.ndarray, drop_prob=0.
                       axis=None, mode="exact"):
     """Full-mesh broadcast arrival counts: receiver j hears ``n_senders -
     is_sender[j]`` peers, spread multinomially over the delay buckets.
-    Returns [B, N]."""
+    Returns [B, N].  With lane keys, ``n_senders`` is ``[S, 1]``."""
     k = _shard_key(key, axis)
     m = torch.as_tensor(n_senders, dtype=_I32, device=is_sender.device) - is_sender.to(_I32)
     if drop_prob > 0.0:
@@ -248,8 +255,8 @@ def bcast_value_max_stat(key, value, probs: np.ndarray, drop_prob=0.0, axis=None
     per-receiver categorical delay.  Returns [B, N]."""
     k = _shard_key(key, axis)
     dev = value.device
-    n = value.shape[0]
-    vmax = value.to(_I32).amax()
+    n = value.shape[-1]
+    vmax = value.to(_I32).amax(-1, keepdim=True)
     nb = len(probs)
     d = threefry.categorical(k, _delay_logits(probs, dev), (n,), dev)
     sent = (vmax > 0).to(_I32)

@@ -8,7 +8,9 @@ ticks at once (utils/prng.tick_key takes an array of ticks).  PBFT configs
 that ``use_round_schedule`` resolves to the round-blocked fast path loop over
 block intervals instead (models/pbft_round.scan_rounds); Raft configs it
 resolves to the heartbeat-blocked path run models/raft_hb.run (the election
-prefix on the tick engine, then one step a heartbeat).
+prefix on the tick engine, then one step a heartbeat), and mixed configs
+models/mixed.scan_fast (the same in every Raft shard, beside the per-tick
+PBFT layer).
 
 Entry points run on the CUDA card unless the caller asks for another device
 (``device="cpu"``, as the tests do); without CUDA they raise instead of
@@ -40,8 +42,8 @@ def resolve_device(device=None) -> torch.device:
 def use_round_schedule(cfg: SimConfig) -> bool:
     """Resolve cfg.schedule as the JAX package does: does this config run a
     phase-blocked fast path (PBFT: one step a block interval,
-    models/pbft_round.py; Raft: one step a heartbeat, models/raft_hb.py)?
-    The mixed shard sim raises (slice 3 of the port)."""
+    models/pbft_round.py; Raft: one step a heartbeat, models/raft_hb.py;
+    mixed: the heartbeat scan in every Raft shard, models/mixed.py)?"""
     if cfg.schedule == "tick":
         return False
     if cfg.topology in ("kregular", "committee"):
@@ -67,7 +69,21 @@ def use_round_schedule(cfg: SimConfig) -> bool:
             return True
         return ok and cfg.n >= 4096  # "auto"
     if cfg.protocol == "mixed":
-        get_protocol(cfg.protocol)  # raises NotImplementedError (slice 3)
+        from blockchain_simulator_tpu_torch.models import mixed
+
+        ok = mixed.fast_eligible(cfg)
+        if cfg.schedule == "round":
+            if not ok:
+                raise ValueError(
+                    "schedule='round' for the mixed sim requires its raft "
+                    "shards to be heartbeat-schedulable: clean fidelity + "
+                    "stat delivery with no drops/queued links and a window "
+                    "longer than the election prefix (models/raft_hb.eligible "
+                    "on the shard sub-config)"
+                )
+            return True
+        # "auto": no n threshold; a failed handoff continues the tick engine
+        return ok
     if cfg.protocol != "pbft":
         return False
     from blockchain_simulator_tpu_torch.models import pbft_round
@@ -129,7 +145,7 @@ def _reject_cpp_only(cfg: SimConfig) -> None:
 
 
 def make_sim_fn(cfg: SimConfig):
-    """``sim(seed, device) -> final state``: the round-blocked fast path
+    """``sim(seed, device) -> final state``: the phase-blocked fast path
     when ``use_round_schedule`` picks it, else the tick engine, ``cfg.ticks``
     ticks from ``proto.init``."""
     _reject_cpp_only(cfg)
@@ -145,6 +161,15 @@ def make_sim_fn(cfg: SimConfig):
             return raft_hb.run(cfg, threefry.key(seed), device)
 
         return sim_hb
+    if use_round_schedule(cfg) and cfg.protocol == "mixed":
+        from blockchain_simulator_tpu_torch.models import mixed
+
+        def sim_mixed(seed: int, device):
+            key = threefry.key(seed)
+            state, bufs = mixed.init(cfg, threefry.fold_in(key, _INIT_FOLD), device=device)
+            return mixed.scan_fast(cfg, state, bufs, key)
+
+        return sim_mixed
     if use_round_schedule(cfg):
         from blockchain_simulator_tpu_torch.models import pbft_round
 

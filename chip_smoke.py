@@ -76,6 +76,27 @@ Phases (any failure raises, and the script exits non-zero):
 13. pbft-gossip, 14. raft-gossip — PBFT (1,700 ms) and Raft (2,000 ms) at
               n = 1000 over degree-16 gossip, stat delivery, each held to its
               JAX golden, table first.
+15. mixed-kernel — the grouped kernel at the mixed sim's Raft group for
+              BASELINE config 5 (S = 256 shards of m = 1000, D = 12): its
+              rings slot-major, [D, S, m], so each channel is ONE member of
+              S·m = 256,000 lanes: five of 3 buckets and hb_ok's 5 (no
+              Byzantine nodes, so no hb_bad).  Bit for bit against its plain
+              version (the group, a heartbeat, a proposal, an election, at
+              ticks that wrap D; graph replay); device time from HBM (the
+              group's 134 MB exceed the 50 MB L2) and L2-warm against its
+              bound, the plain version and six library calls.
+16. mixed-config5 — BASELINE config 5 as tools/run_config5.py builds it
+              (256 Raft shards x 1000 nodes, cross-shard PBFT, 3,000 ms,
+              stat, serialization off), at seed 0 on one card (the artifact
+              shards it over 8 devices), through runner.final_state: metrics
+              and every state digest equal the JAX golden, all 256 handoffs
+              taken, 256 shards with leaders, 40/40 global.  The counts are
+              set to 0 just before the run and read just after: one launch a
+              tick for the PBFT layer, one a pushing tick for the Raft
+              shards.  The wall split into init, the prefix (to the
+              handoff's host read), the [S] heartbeat scan at S = 256 and the
+              PBFT layer, each ended by a synchronize in this script; then
+              the 322 prefix ticks again for host syncs and launches a tick.
 
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
@@ -102,6 +123,7 @@ QUEUED_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_queue
 PAXOS_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "paxos_gossip_n10k_s0.json"
 PBFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_gossip_n1000_s0.json"
 RAFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_gossip_n1000_s0.json"
+MIXED_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "mixed_n256k_s0.json"
 GOSSIP_WINDOW_TICKS = 300
 SYNC_COUNT_TICKS = 2000
 SAMPLER_N = 1_000_000
@@ -865,6 +887,243 @@ def phase_gossip(dev, card: str, golden: pathlib.Path, entry_name: str, what: st
     return out
 
 
+def _mixed_group(cfg, dev, seed=0):
+    """``(name, (ring, lo, contrib, op))`` of the mixed sim's Raft group on a
+    tick whose gates all fire, at ``cfg``'s slot-major ring shapes
+    (``hb_bad`` only with Byzantine nodes); values >= 0."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import mixed, raft
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rcfg, _ = mixed.sub_configs(cfg)
+    bufs = mixed.init(cfg, device="meta")[1].raft
+    out = []
+    for name, op, b, lo in raft.push_members(rcfg):
+        if name == "hb_bad" and rcfg.faults.n_byzantine == 0:
+            continue
+        shape = getattr(bufs, name).shape
+        ring = torch.randint(0, 1 << 20, shape, generator=gen, device=dev, dtype=torch.int32)
+        contrib = torch.randint(0, 1 << 20, (b, *shape[1:]), generator=gen, device=dev,
+                                dtype=torch.int32)
+        out.append((name, (ring, lo, contrib, op)))
+    return out
+
+
+def phase_kernel_mixed(dev, card: str):
+    """The grouped kernel at config 5's Raft group (slot-major rings, one
+    member a channel of S·m lanes) against its plain version, bit for bit;
+    its device time from HBM and L2-warm against the bound, the plain
+    version and six library calls."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import mixed
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(MIXED_GOLDEN.read_text())["entries"]["config5"]
+    cfg = SimConfig(**entry["config"])
+    rcfg, _ = mixed.sub_configs(cfg)
+    d = rcfg.ring_depth
+    named = _mixed_group(cfg, dev)
+    items = [it for _, it in named]
+    lanes = cfg.n
+    if [c[0].numel() for _, _, c, _ in items] != [lanes] * len(items):
+        raise AssertionError("the mixed Raft group should be one member a channel of S*m lanes")
+    if rk.plan_group(items).vec != (True,) * len(items):
+        raise AssertionError("the mixed Raft group should take the int4 path")
+    by_name = dict(named)
+    groups = {"mixed raft group": items,
+              "heartbeat": [by_name["hb_plain"]],
+              "proposal": [by_name[k] for k in ("hb_prop", "hb_ok")],
+              "election": [by_name[k] for k in ("vres_ok", "vres_no", "vreq")]}
+    max_err = 0
+    for name, grp in groups.items():
+        for tick in (0, 7, d - 1, 2999):
+            max_err = max(max_err, _check_group_run(rk, name, grp, tick, dev))
+    t = torch.tensor(2999, dtype=torch.int32, device=dev)
+    eager = [(r.clone(), off, c, op) for r, off, c, op in items]
+    rk.fused_push_group(eager, t)
+    replayed = [(r.clone(), off, c, op) for r, off, c, op in items]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rk.fused_push_group(replayed, t)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a[0], b[0]) for a, b in zip(eager, replayed)):
+        raise AssertionError("mixed Raft group: graph replay != eager launch")
+    shapes = ", ".join(f"{k} {tuple(it[2].shape)}" for k, it in named)
+    print(f"kernel ring_push, the mixed sim's Raft group at config 5 (S = {cfg.mixed_shards}, "
+          f"m = {rcfg.n}, D = {d}; {shapes}): bit-equal to the plain version for the group, "
+          f"a heartbeat, a proposal and an election at t in (0, 7, {d - 1}, 2999); graph "
+          f"replay == eager", flush=True)
+
+    # From HBM: t steps 5 slots a call and the calls rotate over 4 sets of
+    # contributions (74 MB of rings, 4 x 61 MB of contributions, 50 MB L2).
+    # L2-warm: the same t and contributions every call
+    reps, n_sets = 100, 4
+    bufs = [r.clone() for r, *_ in items]
+    work = [(bufs[k], off, c, op) for k, (_, off, c, op) in enumerate(items)]
+    sets = [[(bufs[k], off, c if j == 0 else c.clone(), op)
+             for k, (_, off, c, op) in enumerate(items)] for j in range(n_sets)]
+    t_of = [torch.tensor(2999 + 5 * i, dtype=torch.int32, device=dev) for i in range(reps)]
+    lib = [_library(op) for *_, op in items]
+
+    def slots(tick):
+        return [torch.remainder(tick + off + torch.arange(c.shape[0], device=dev), d)
+                for _, off, c, _ in items]
+
+    idx = slots(2999)
+    idx_cold = [slots(2999 + 5 * i) for i in range(reps)]
+    for k, (r, off, c, op) in enumerate(items):
+        if not torch.equal(lib[k](r.clone(), idx[k], c), rk.push_plain(r.clone(), t, off, c, op)):
+            raise AssertionError(f"library call disagrees with the plain version ({named[k][0]})")
+
+    def library(members, where):
+        for k, (r, _, c, _) in enumerate(members):
+            lib[k](r, where[k], c)
+
+    fns = {"group": lambda i: rk.fused_push_group(work, t),
+           "library": lambda i: library(work, idx),
+           "plain": lambda i: rk.push_group_plain(work, t)}
+    cold_fns = {"group": lambda i: rk.fused_push_group(sets[i % n_sets], t_of[i]),
+                "library": lambda i: library(sets[i % n_sets], idx_cold[i]),
+                "plain": lambda i: rk.push_group_plain(sets[i % n_sets], t_of[i])}
+    cold_ms = {k: _time_device_ms(f, reps) for k, f in cold_fns.items()}
+    warm_ms = {k: _time_device_ms(f, reps) for k, f in fns.items()}
+    eager_ms = {k: _time_eager_ms(lambda f=f: f(0), reps) for k, f in fns.items()}
+    bound = sum(_bound_ms(c.shape[0], c[0].numel()) for _, _, c, _ in items)
+    print(f"kernel ring_push mixed Raft group ({len(items)} pushes of {lanes} lanes, 1 launch) "
+          f"on {card}: device time per tick (graph replay), rings' slots and contributions "
+          f"from HBM: group {cold_ms['group'] * 1e3:.3f} us against a {bound * 1e3:.3f} us "
+          f"bound ({100 * bound / cold_ms['group']:.1f}% of it), {len(items)} library calls "
+          f"{cold_ms['library'] * 1e3:.3f} us, plain {cold_ms['plain'] * 1e3:.3f} us",
+          flush=True)
+    print(f"kernel ring_push mixed Raft group, L2-warm (same t and contributions): group "
+          f"{warm_ms['group'] * 1e3:.3f} us, library {warm_ms['library'] * 1e3:.3f} us, plain "
+          f"{warm_ms['plain'] * 1e3:.3f} us", flush=True)
+    print("kernel ring_push mixed Raft group, eager per tick (host launch cost included): "
+          + ", ".join(f"{k} {v * 1e3:.3f} us" for k, v in eager_ms.items()), flush=True)
+    return dict(ms=cold_ms["group"], plain_ms=cold_ms["plain"], bound_ms=bound,
+                bound_by="bytes", library_ms=cold_ms["library"], warm_ms=warm_ms,
+                eager_ms=eager_ms, members=len(items), lanes=lanes), max_err
+
+
+class _Marks:
+    """Wraps module functions so that each call ends with a synchronize and
+    a time mark (``marks[name]``, the last call's); restores them on exit.
+    The phase boundaries of a run are read this way, from this script: the
+    models carry no timers."""
+
+    def __init__(self, *targets):
+        self.targets = targets  # (module, attribute, mark name)
+        self.marks, self.results = {}, {}
+
+    def _wrap(self, fn, name):
+        import torch
+
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.marks[name] = time.perf_counter()
+            self.results[name] = out
+            return out
+        return wrapped
+
+    def __enter__(self):
+        self.real = [getattr(m, a) for m, a, _ in self.targets]
+        for (m, a, name), fn in zip(self.targets, self.real):
+            setattr(m, a, self._wrap(fn, name))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a, _), fn in zip(self.targets, self.real):
+            setattr(m, a, fn)
+
+
+def phase_mixed_config5(dev, card: str):
+    """BASELINE config 5 through ``runner.final_state`` on one card, held to
+    its JAX golden; every handoff taken; the wall split; then the prefix's
+    host syncs and launches a tick."""
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.models import mixed, pbft, raft, raft_hb
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils import threefry
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(MIXED_GOLDEN.read_text())["entries"]["config5"]
+    cfg = SimConfig(**entry["config"])
+    seed = entry["seed"]
+    if not runner.use_round_schedule(cfg):
+        raise AssertionError("config 5: schedule 'auto' should resolve to mixed.scan_fast")
+    rcfg, _ = mixed.sub_configs(cfg)
+    t_e = raft_hb.prefix_ticks(rcfg)
+    marks = _Marks((mixed, "init", "init"), (mixed, "prefix_handoff", "prefix"),
+                   (raft_hb, "materialize", "scan"), (raft_hb, "handoff", "handoff"))
+    with _GroupCalls(raft) as r_calls, _GroupCalls(pbft) as p_calls, marks:
+        rk.launches = rk.pushes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = runner.final_state(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches, pushes = rk.launches, rk.pushes
+    wall = t_end - t0
+    metrics = runner.sim_metrics(cfg, final)
+    _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)),
+                  "config 5")
+    ok_s = marks.results["handoff"][0]
+    if len(ok_s) != cfg.mixed_shards or not ok_s.all():
+        raise AssertionError(f"config 5: {int(ok_s.sum())} of {len(ok_s)} handoffs taken")
+    if "scan" not in marks.marks:
+        raise AssertionError("config 5: the heartbeat scan did not run")
+    want = (cfg.mixed_shards, 40, 40, True)
+    got = (metrics["shards_with_leader"], metrics["global_blocks_final"],
+           metrics["global_rounds_sent"], metrics["agreement_ok"])
+    if got != want:
+        raise AssertionError(f"config 5: (shards with leaders, global blocks, rounds, "
+                             f"agreement) = {got}, want {want}")
+    if (launches, pushes) != (r_calls.ticks + p_calls.ticks, r_calls.members + p_calls.members):
+        raise AssertionError(f"config 5: ring_push made {launches} launches and {pushes} "
+                             f"pushes; the Raft and PBFT ticks that push were "
+                             f"{r_calls.ticks} + {p_calls.ticks} with {r_calls.members} + "
+                             f"{p_calls.members} members (one launch each)")
+    if r_calls.ticks == 0 or p_calls.ticks != cfg.ticks:
+        raise AssertionError(f"config 5: {r_calls.ticks} Raft group launches, "
+                             f"{p_calls.ticks} PBFT launches over {cfg.ticks} ticks")
+    split = {"init_s": marks.marks["init"] - t0,
+             "prefix_s": marks.marks["prefix"] - marks.marks["init"],
+             "scan_s": marks.marks["scan"] - marks.marks["prefix"],
+             "pbft_layer_s": t_end - marks.marks["scan"]}
+    print(f"mixed config 5: mixed n={cfg.n} shards={cfg.mixed_shards} sim_ms={cfg.sim_ms} "
+          f"stat/{rcfg.eff_stat_sampler} (shards) schedule auto: {metrics}", flush=True)
+    print(f"mixed config 5 on {card}: wall {wall:.3f} s, {cfg.mixed_shards} of "
+          f"{cfg.mixed_shards} handoffs taken (prefix {t_e} ticks, then "
+          f"{raft_hb.n_hb_steps(rcfg)} heartbeat steps): "
+          + ", ".join(f"{k[:-2]} {v:.3f} s ({v / wall:.1%})" for k, v in split.items())
+          + f"; ring_push launches {launches} and pushes {pushes} (the Raft group "
+          f"{r_calls.ticks} / {r_calls.members}, the PBFT layer {p_calls.ticks} / "
+          f"{p_calls.members}); metrics + all state digests equal the JAX golden", flush=True)
+
+    def prefix():
+        key = threefry.key(seed)
+        state, bufs = mixed.init(cfg, threefry.fold_in(key, 0x1217), device=dev)
+        mixed.prefix_handoff(cfg, state, bufs, key)
+
+    syncs = _count_syncs(prefix)
+    prof = _profile_window(prefix, t_e)
+    print(f"mixed config 5, the {t_e} prefix ticks (init and the handoff's read included): "
+          f"{syncs / t_e:.3f} host syncs a tick (sync debug mode); under torch.profiler: "
+          f"{json.dumps(prof)}", flush=True)
+    return dict(wall_s=wall, ticks=cfg.ticks, launches=launches, pushes=pushes,
+                raft_launches=r_calls.ticks, raft_pushes=r_calls.members,
+                pbft_launches=p_calls.ticks, pbft_pushes=p_calls.members,
+                handoffs_taken=int(ok_s.sum()), prefix_syncs_per_tick=syncs / t_e,
+                prefix_window=prof, **split)
+
+
 def _mismatches(got, want) -> int:
     """Elements that differ (NaN equals NaN)."""
     got, want = got.cpu(), want.cpu()
@@ -1049,6 +1308,8 @@ def main() -> int:
         "pbft_gossip": phase_gossip(dev, card, PBFT_GOSSIP_GOLDEN, "n1000", "pbft gossip"),
         "raft_gossip": phase_gossip(dev, card, RAFT_GOSSIP_GOLDEN, "n1000", "raft gossip"),
     }
+    mixed_group, mixed_err = phase_kernel_mixed(dev, card)
+    config5 = phase_mixed_config5(dev, card)
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -1060,7 +1321,7 @@ def main() -> int:
         "pushes": pushes,
         "launches_tick_stat": stat_launches,  # the tick-stat path's run
         "pushes_tick_stat": stat_pushes,
-        "max_abs_err": max(max_err, raft_err, paxos_err),
+        "max_abs_err": max(max_err, raft_err, paxos_err, mixed_err),
         "ms": group["ms"],
         "plain_ms": group["plain_ms"],
         "bound_ms": group["bound_ms"],
@@ -1077,19 +1338,25 @@ def main() -> int:
         # BASELINE config 3: one Paxos tick's six pushes of 50 buckets
         "paxos_group": dict(paxos_group, launches=gossip["paxos_gossip"]["launches"],
                             pushes=gossip["paxos_gossip"]["pushes"]),
+        # BASELINE config 5: the Raft shards' group, one member a channel of
+        # S*m lanes; its launches and pushes in the config-5 run
+        "mixed_group": dict(mixed_group, launches=config5["raft_launches"],
+                            pushes=config5["raft_pushes"]),
         "launches_by_path": {"pbft_edge": launches, "pbft_tick_stat": stat_launches,
                              "raft_edge": raft_edge["launches"],
                              "raft_hb": raft_hb["launches"], "pbft_queued": q_launches,
-                             **{k: v["launches"] for k, v in gossip.items()}},
+                             **{k: v["launches"] for k, v in gossip.items()},
+                             "mixed_config5": config5["launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
-                           **{k: v["pushes"] for k, v in gossip.items()}},
+                           **{k: v["pushes"] for k, v in gossip.items()},
+                           "mixed_config5": config5["pushes"]},
     }]
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
                                 "pbft_queued_wall_s": q_wall, "samplers": samplers,
-                                **gossip}}),
+                                **gossip, "mixed_config5": config5}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

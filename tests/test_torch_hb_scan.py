@@ -38,6 +38,14 @@ SHARDS = [
 ]
 
 
+@pytest.fixture(scope="module")
+def shards():
+    """The four shards' keys (JAX keys and their host words) and
+    ``Handoff``s in both packages, built once for every case of the file."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(7), i))(jnp.arange(4))
+    return (keys, np.asarray(jax.random.key_data(keys), np.int64)) + _handoffs()
+
+
 def _handoffs():
     hb0, p_start, bn0, rnd0, ok_cnt = (np.array(c) for c in zip(*SHARDS))
     bt0 = np.full((len(SHARDS), B), -1, np.int32)
@@ -57,14 +65,13 @@ def _handoffs():
 
 @pytest.mark.parametrize("serialization", [True, False])
 @pytest.mark.parametrize("sampler", ["exact", "normal"])
-def test_scan_over_shards_equals_jax_vmap(sampler, serialization):
+def test_scan_over_shards_equals_jax_vmap(shards, sampler, serialization):
     kw = dict(BASE, stat_sampler=sampler, model_serialization=serialization)
     jcfg, tcfg = jconfig.SimConfig(**kw), tconfig.SimConfig(**kw)
     assert thb.eligible(tcfg) and tcfg.eff_stat_sampler == sampler
-    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(7), i))(jnp.arange(4))
-    jh, th = _handoffs()
+    keys, key_words, jh, th = shards
     want = jax.jit(jax.vmap(lambda k, h: jhb.steady_scan(jcfg, k, h)))(keys, jh)
-    got = thb.steady_scan(tcfg, np.asarray(jax.random.key_data(keys), np.int64), th)
+    got = thb.steady_scan(tcfg, key_words, th)
     names = ("hs", "open_", "bn", "rnd", "add_on", "stopped", "bt")
     for name, w, g in zip(names, want, got):
         w = np.asarray(w)
@@ -77,12 +84,11 @@ def test_scan_over_shards_equals_jax_vmap(sampler, serialization):
     assert not bool(np.asarray(want[4])[3])  # add_change_value cleared
 
 
-def test_vmapped_normal_draws_come_from_the_first_lane():
+def test_vmapped_normal_draws_come_from_the_first_lane(shards):
     """What the lane-0 rule means: under vmap, lane w of the "normal"
     sampler is NOT what lane w's key gives alone (W > 1); lane 0 is."""
     probs = tdelay.roundtrip_probs(3, 53)
-    kd = np.asarray(jax.random.key_data(
-        jax.vmap(lambda i: jax.random.fold_in(jax.random.key(3), i))(jnp.arange(3))))
+    kd = shards[1][:3]
     n = torch.full((1, 3), 60.0)
     got = tdelay.sample_bucket_counts_vmapped(kd[None], n, probs, "normal")[:, 0]
     alone = [tdelay.sample_bucket_counts(kd[w], torch.tensor(60.0), probs, "normal")

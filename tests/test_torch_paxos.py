@@ -48,15 +48,30 @@ RUNS = {
 }
 
 
+@pytest.fixture(scope="module")
+def runs():
+    """``runs(name)``: the JAX package's and the port's results of one run
+    (metrics and leaves), computed once a process and shared by the tests
+    that read them."""
+    memo = {}
+
+    def get(name):
+        if name not in memo:
+            kw = dict(RUNS[name])
+            jcfg, tcfg = _cfgs(protocol="paxos", faults=kw.pop("faults", None), **kw)
+            jfinal = jrunner.final_state(jcfg)
+            tfinal = trunner.final_state(tcfg, device="cpu")
+            memo[name] = (jrunner.base_model.sim_metrics(jcfg, jfinal), _jax_leaves(jfinal),
+                          trunner.sim_metrics(tcfg, tfinal), convert.state_to_numpy(tfinal))
+        return memo[name]
+    return get
+
+
 @pytest.mark.parametrize("name", sorted(RUNS))
-def test_run_equals_jax(name):
-    kw = dict(RUNS[name])
-    jcfg, tcfg = _cfgs(protocol="paxos", faults=kw.pop("faults", None), **kw)
-    jfinal = jrunner.final_state(jcfg)
-    tfinal = trunner.final_state(tcfg, device="cpu")
-    m = trunner.sim_metrics(tcfg, tfinal)
-    assert m == jrunner.base_model.sim_metrics(jcfg, jfinal)
-    _assert_leaves_equal(_jax_leaves(jfinal), convert.state_to_numpy(tfinal))
+def test_run_equals_jax(runs, name):
+    jm, jl, m, tl = runs(name)
+    assert m == jm
+    _assert_leaves_equal(jl, tl)
     assert m["agreement_ok"]
     if name.startswith("n8"):  # the reference milestone: a proposer commits
         assert m["n_committed_proposers"] >= 1

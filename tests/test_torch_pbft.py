@@ -301,7 +301,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(protocol="mixed", mixed_shards=2),
+    dict(protocol="mixed", mixed_shards=2, mesh_axis="nodes"),  # the mixed sim runs now
     dict(protocol="paxos", topology="kregular", degree=4),  # gossip runs now
     dict(topology="kregular", degree=4),
     dict(topology="committee", committees=2),
@@ -311,7 +311,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     dict(echo_back=True),
     dict(protocol="raft", topology="kregular", degree=4),
     dict(protocol="raft", mesh_axis="nodes"),
-    dict(protocol="mixed", mixed_shards=2, delivery="stat", schedule="round"),
+    dict(protocol="mixed", mixed_shards=2, delivery="stat", schedule="round", sim_ms=500,
+         mesh_axis="nodes"),
 ])
 def test_unported_configs_raise(kw):
     cfg = tconfig.SimConfig(**dict(dict(protocol="pbft", n=8, sim_ms=50), **kw))

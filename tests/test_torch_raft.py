@@ -218,8 +218,8 @@ def test_step_pushes_one_group_of_the_members_that_fire(monkeypatch, delivery):
 
 
 @pytest.mark.parametrize("kw, slice_no", [
-    # raft gossip runs now; the mixed sim's Raft shards are still slice 3
-    (dict(protocol="mixed", mixed_shards=2), "slice 3"),
+    # raft gossip and the mixed sim's Raft shards run now; sharded shards do not
+    (dict(protocol="mixed", mixed_shards=2, mesh_axis="nodes"), "slice 6"),
     (dict(topology="kregular", degree=4), "slice 5"),
     (dict(mesh_axis="nodes"), "slice 6"),
 ])

@@ -20,6 +20,7 @@ from blockchain_simulator_tpu import runner as jrunner
 from blockchain_simulator_tpu.models import pbft_round as jround
 from blockchain_simulator_tpu_torch import convert
 from blockchain_simulator_tpu_torch import runner as trunner
+from blockchain_simulator_tpu_torch.models import mixed as tmixed
 from blockchain_simulator_tpu_torch.models import pbft_round as tround
 from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
@@ -137,7 +138,9 @@ def test_probe_and_raft_refused():
     state, _ = tround.init(tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
         tround.scan_rounds(tcfg, state, threefry.key(0), with_probe=True)
-    # Raft's heartbeat path is ported now; the mixed shard sim still raises
-    _, rcfg = _cfgs(protocol="mixed", n=16, mixed_shards=2, sim_ms=200, delivery="stat")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        trunner.use_round_schedule(rcfg)
+    # Raft's heartbeat path and the mixed shard sim are ported now: the mixed
+    # sim resolves its schedule as JAX does, and its probed runs raise
+    jcfg, rcfg = _cfgs(protocol="mixed", n=16, mixed_shards=2, sim_ms=200, delivery="stat")
+    assert trunner.use_round_schedule(rcfg) == jrunner.use_round_schedule(jcfg)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tmixed.fast_finish(rcfg, None, None, threefry.key(0), with_probe=True)
