@@ -12,20 +12,23 @@ topology (the tick engines, with edge or stat delivery), PBFT's
 round-blocked fast path and Raft's heartbeat-blocked path (``schedule=
 "auto"`` picks them at n >= 4096), the mixed shard sim (BASELINE config 5:
 Raft shards under a cross-shard PBFT layer, on the tick engine and on the
-heartbeat path; the Raft step runs over a leading shard axis), and the C++
-reference engine's wrapper.
+heartbeat path; the Raft step runs over a leading shard axis), fault
+sweeps with the fault counts as run-time operands (BASELINE config 4: one
+batch of lanes), multi-seed runs, checkpoints in the JAX package's archive
+format, and the C++ reference engine's wrapper.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 
 Subpackages
 -----------
-- ``utils``  — config and the wire codec (copies of the JAX package's), the
-  threefry and Philox streams, the binomial and categorical draws, XLA:CPU's
-  float32 math.
+- ``utils``  — config and the wire codec (copies of the JAX package's),
+  checkpoints (``checkpoint.py``), the threefry and Philox streams, the
+  binomial and categorical draws, XLA:CPU's float32 math.
 - ``ops``    — delay samplers, ring buffers and the ring-push kernel, edge,
   stat and gossip delivery, the gossip topology.
 - ``models`` — the PBFT, Raft and Paxos tick engines, PBFT's round-blocked
   fast path, Raft's heartbeat-blocked path and the mixed shard sim.
+- ``parallel`` — fault and seed sweeps on one device (``sweep.py``).
 """
 
 from blockchain_simulator_tpu_torch.utils.config import SimConfig  # noqa: F401

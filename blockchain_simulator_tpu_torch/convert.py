@@ -11,6 +11,12 @@ arrays keyed by field name, into the port's dataclasses on a device, and
 mid-run state.  :func:`state_digests` fingerprints every field, so two runs
 can be compared without shipping the arrays.
 
+Lane-stacked states (a sweep's finals, every field with a leading lane axis
+``[B, ...]``, the form ``jax.vmap`` returns): :func:`lanes_from_numpy` builds
+one from such leaves, ``state_to_numpy`` reads one back, and
+:func:`lane_leaves` takes one lane's leaves out of either package's, for
+per-lane digests.
+
 The mixed sim's leaves are keyed ``"raft.<field>"`` and ``"pbft.<field>"``,
 as its two sub-states nest them.  Its Raft rings are laid out as the JAX
 package's ``jax.vmap`` leaves them, ``[S, D, m, ...]``; the port keeps them
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from blockchain_simulator_tpu_torch.models import mixed, paxos, pbft, pbft_round, raft
+from blockchain_simulator_tpu_torch.models.base import stack_lanes
 from blockchain_simulator_tpu_torch.runner import use_round_schedule
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
@@ -142,6 +149,20 @@ def state_to_numpy(state, bufs=None):
         return s, b
     s = leaves(state)
     return s if bufs is None else (s, leaves(bufs))
+
+
+def lane_leaves(leaves: dict, i: int) -> dict:
+    """Lane ``i`` of lane-stacked numpy leaves (either package's)."""
+    return {k: np.asarray(v)[i] for k, v in leaves.items()}
+
+
+def lanes_from_numpy(cfg, leaves: dict, device):
+    """A lane-stacked final state on ``device`` from numpy leaves ``[B,
+    ...]`` (JAX's vmapped finals): each lane checked as
+    :func:`state_from_numpy` checks one state, then stacked."""
+    n_lanes = len(next(iter(leaves.values())))
+    return stack_lanes([state_from_numpy(cfg, lane_leaves(leaves, i), None, device)[0]
+                        for i in range(n_lanes)])
 
 
 def digest(arr) -> str:

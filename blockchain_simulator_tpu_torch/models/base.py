@@ -12,6 +12,8 @@ name:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -75,3 +77,90 @@ def fault_masks(cfg, n: int, device):
     honest = ids < (n - nc - f.n_byzantine)
     return (torch.as_tensor(alive, device=device),
             torch.as_tensor(honest, device=device))
+
+
+def dyn_fault_masks(n: int, n_crashed, n_byzantine, device):
+    """:func:`fault_masks` with the counts as run-time operands: ints give
+    ``[N]`` masks, ``[B]`` count tensors (one count a lane) give ``[B, N]``.
+    Same id layout and the same int comparisons, so equal counts give the
+    static masks (JAX's ``dyn_fault_masks``)."""
+    ids = torch.arange(n, dtype=torch.int32, device=device)
+    nc = torch.as_tensor(n_crashed, dtype=torch.int32, device=device)
+    nb = torch.as_tensor(n_byzantine, dtype=torch.int32, device=device)
+    nc, nb = torch.broadcast_tensors(nc, nb)
+    if nc.ndim:  # one count a lane
+        nc, nb = nc[:, None], nb[:, None]
+    return ids < (n - nc), ids < (n - nc - nb)
+
+
+def canonical_fault_cfg(cfg):
+    """The one static config whose dynamic-operand program serves every
+    (n_crashed, n_byzantine) point of a count sweep: the counts and the
+    seed zeroed, so every sweep over the same fault *structure* (drop_prob,
+    byz_forge, byz_copies) shares it.  ``byz_forge`` keeps a static
+    ``n_byzantine = 1`` sentinel: ``pbft.step`` includes the forge wave only
+    when the static count is positive, and the wave is driven by the
+    ``alive & ~honest`` forger mask, all false at a run-time f = 0 (JAX's
+    ``canonical_fault_cfg``)."""
+    f = cfg.faults
+    return cfg.with_(seed=0, faults=dataclasses.replace(
+        f, crash_frac=0.0, n_crashed=-1, n_byzantine=1 if f.byz_forge else 0))
+
+
+def apply_fault_masks(cfg, state, alive, honest):
+    """Install run-time fault masks into a state freshly built at the
+    canonical (fault-free) config: equal to ``init`` at the static config
+    with those counts.  Raft also re-disarms the election deadlines of the
+    crashed nodes (models/raft.init: a crashed node never starts an
+    election).  Masks ``[B, N]`` go with a lane-stacked state."""
+    state = dataclasses.replace(state, alive=alive, honest=honest)
+    if cfg.protocol == "raft":
+        from blockchain_simulator_tpu_torch.models.raft import DISARM
+
+        state = dataclasses.replace(state, election_deadline=torch.where(
+            alive, state.election_deadline, DISARM))
+    return state
+
+
+def tick_loop(cfg, state, bufs, key, start: int, stop: int):
+    """``proto.step`` over ticks ``[start, stop)`` on the state's device, the
+    tick a one-element int32 tensor there and the tick keys computed on the
+    host up front; lane keys ``[B, 2]`` step a lane-stacked Raft state
+    (models/raft.py).  Tick keys derive from the absolute tick, so loops
+    chained end to end equal one.  Returns ``(state, bufs)``."""
+    from blockchain_simulator_tpu_torch.utils import prng
+
+    proto = get_protocol(cfg.protocol)
+    ticks = torch.arange(start, stop, dtype=torch.int32, device=state_device(state))
+    tkeys = prng.tick_key(np.asarray(key)[None],
+                          np.arange(start, stop).reshape((-1,) + (1,) * (np.ndim(key) - 1)))
+    for i in range(stop - start):
+        state, bufs = proto.step(cfg, state, bufs, ticks[i], tkeys[i])
+    return state, bufs
+
+
+def state_device(state) -> torch.device:
+    """The device of a state's tensors (a nested state's first one)."""
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        return v.device if isinstance(v, torch.Tensor) else state_device(v)
+    raise ValueError("a state without fields")
+
+
+def lane_state(state, i: int):
+    """Lane ``i`` of a lane-stacked state (every field's leading axis),
+    as views."""
+    return dataclasses.replace(state, **{
+        f.name: (v[i] if isinstance(v, torch.Tensor) else lane_state(v, i))
+        for f in dataclasses.fields(state) for v in (getattr(state, f.name),)})
+
+
+def stack_lanes(states: list):
+    """One lane-stacked state from per-lane states of one shape: the form
+    ``jax.vmap`` returns, every field stacked on a new leading axis."""
+    first = states[0]
+    return dataclasses.replace(first, **{
+        f.name: (torch.stack([getattr(s, f.name) for s in states])
+                 if isinstance(getattr(first, f.name), torch.Tensor)
+                 else stack_lanes([getattr(s, f.name) for s in states]))
+        for f in dataclasses.fields(first)})

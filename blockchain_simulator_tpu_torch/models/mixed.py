@@ -22,7 +22,7 @@ tick engine from the prefix carry.
 
 Kept out, each raising ``NotImplementedError`` naming its slice: the
 sharded arms (``mesh_axis``: the all-gather of the has-leader mask and the
-psum'd handoff verdict; slice 6) and probed runs (slice 4).
+psum'd handoff verdict; slice 6) and probed runs (the traces slice).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from blockchain_simulator_tpu_torch.models import pbft, raft, raft_hb
+from blockchain_simulator_tpu_torch.models.base import tick_loop
 from blockchain_simulator_tpu_torch.utils import prng, threefry
 from blockchain_simulator_tpu_torch.utils.config import FaultConfig
 
@@ -124,22 +125,12 @@ def fast_eligible(cfg) -> bool:
     return raft_hb.eligible(sub_configs(cfg)[0])
 
 
-def _ticks(cfg, state, bufs, key, start: int, stop: int):
-    """:func:`step` over ticks ``[start, stop)``."""
-    dev = state.pbft.alive.device
-    ticks = torch.arange(start, stop, dtype=torch.int32, device=dev)
-    tkeys = prng.tick_key(key, range(start, stop))
-    for i in range(stop - start):
-        state, bufs = step(cfg, state, bufs, ticks[i], tkeys[i])
-    return state, bufs
-
-
 def prefix_handoff(cfg, state, bufs, key):
     """The per-tick engine through the Raft election prefix, then the
     checked handoff in every shard (one host read).  Returns ``((state,
     bufs), ok_all, Handoff)``."""
     rcfg, _ = sub_configs(cfg)
-    carry = _ticks(cfg, state, bufs, key, 0, raft_hb.prefix_ticks(rcfg))
+    carry = tick_loop(cfg, state, bufs, key, 0, raft_hb.prefix_ticks(rcfg))
     ok_s, h = raft_hb.handoff(rcfg, carry[0].raft)
     return carry, bool(ok_s.all()), h
 
@@ -150,8 +141,8 @@ def fast_finish(cfg, carry, h, key, with_probe: bool = False):
     ``alive`` pinned true.  Returns the final ``MixedState``."""
     if with_probe:
         raise NotImplementedError(
-            "probed runs come with slice 4 of the port (fault operands, sweeps, "
-            "checkpoints and traces)"
+            "probed runs come with the traces slice of the port (utils/trace.py "
+            "and obsim; ROADMAP.md queue A)"
         )
     rcfg, pcfg = sub_configs(cfg)
     t_e = raft_hb.prefix_ticks(rcfg)
@@ -182,7 +173,7 @@ def scan_fast(cfg, state: MixedState, bufs: MixedBufs, key):
     carry, ok_all, h = prefix_handoff(cfg, state, bufs, key)
     if ok_all:
         return fast_finish(cfg, carry, h, key)
-    st, _ = _ticks(cfg, *carry, key, t_e, max(cfg.ticks, t_e))
+    st, _ = tick_loop(cfg, *carry, key, t_e, max(cfg.ticks, t_e))
     return st
 
 

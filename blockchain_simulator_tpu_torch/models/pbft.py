@@ -192,13 +192,15 @@ def init(cfg, key=None, *, device):
 
 
 def _scatter_drop(acc, idx, vals, reduce: str, ident: int):
-    """``acc.at[idx].<reduce>(vals, mode="drop")``: torch's scatters raise on
-    an out-of-bounds index instead of dropping it, so scatter into one extra
-    identity slot at index ``len(acc)`` and cut it off."""
-    s = acc.shape[0]
-    ext = torch.cat([acc, acc.new_full((1,), ident)])
-    ext.scatter_reduce_(0, idx, vals, reduce, include_self=True)
-    return ext[:s]
+    """``acc.at[idx].<reduce>(vals, mode="drop")`` along the last axis:
+    torch's scatters raise on an out-of-bounds index instead of dropping it,
+    so scatter into one extra identity slot at index ``acc.shape[-1]`` and
+    cut it off.  A leading lane axis scatters each lane's row on its own
+    (``jax.vmap`` of the JAX update)."""
+    s = acc.shape[-1]
+    ext = torch.cat([acc, acc.new_full(acc.shape[:-1] + (1,), ident)], -1)
+    ext.scatter_reduce_(-1, idx, vals, reduce, include_self=True)
+    return ext[..., :s]
 
 
 def _scatter_window_events(acc_add, acc_max, acc_min, events, eff_sid, t, s):

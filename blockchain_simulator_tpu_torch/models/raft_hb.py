@@ -32,10 +32,10 @@ and each step's bins go through the ack window in one vectorised pass
 writes each shard's leader row back into the state.
 
 The prefix and the scan each add their host seconds to a module counter
-(``prefix_s``, ``scan_s``), and each handoff adds one to ``handoffs_taken``
-or ``handoffs_refused``; ``chip_smoke.py`` sets them to 0 before a run and
-reads them after it.  The prefix's time ends at the handoff's read, which
-waits for the device.  The scan's ends when its calls return: on the CPU
+(``prefix_s``, ``scan_s``), and each handoff (each lane's, in a lane batch)
+adds one to ``handoffs_taken`` or ``handoffs_refused``; ``chip_smoke.py``
+sets them to 0 before a run and reads them after it.  The prefix's time
+ends at the handoff's read, which waits for the device.  The scan's ends when its calls return: on the CPU
 that is its whole time, on the card the device may still be working, and
 the caller's next sync (``runner.final_state``'s) waits for it.  Neither
 counter adds a sync of its own.
@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from blockchain_simulator_tpu_torch.models import raft as raft_tick
+from blockchain_simulator_tpu_torch.models.base import tick_loop
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.utils import prng, threefry
 from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
@@ -205,8 +206,8 @@ def steady_scan(cfg, keys, h: Handoff, with_probe: bool = False):
     both samplers.  The step loop then makes no host read."""
     if with_probe:
         raise NotImplementedError(
-            "probed runs (per-heartbeat probe series) come with slice 4 of the "
-            "port (fault operands, sweeps, checkpoints and traces)"
+            "probed runs (per-heartbeat probe series) come with the traces "
+            "slice of the port (utils/trace.py and obsim; ROADMAP.md queue A)"
         )
     keys = np.asarray(keys, np.int64)
     dev = h.bt0.device
@@ -299,43 +300,61 @@ def materialize(cfg, state, h: Handoff, scan_out):
     )
 
 
-def tick_range(cfg, state, bufs, key, start: int, stop: int):
-    """Step the tick engine over ticks ``[start, stop)``."""
-    dev = state.is_leader.device
-    ticks = torch.arange(start, stop, dtype=_I32, device=dev)
-    tkeys = prng.tick_key(key, range(start, stop))
-    for i in range(stop - start):
-        state, bufs = raft_tick.step(cfg, state, bufs, ticks[i], tkeys[i])
-    return state, bufs
+def _select(ok, fast, slow):
+    """Per lane, ``fast``'s fields where the handoff was taken, else
+    ``slow``'s: the select ``jax.vmap`` makes of the handoff's
+    ``lax.cond``."""
+    def pick(a, b):
+        return torch.where(ok.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+    return dataclasses.replace(fast, **{f: pick(getattr(fast, f), getattr(slow, f))
+                                        for f in raft_tick.STATE_FIELDS})
 
 
 def scan_from_init(cfg, state, bufs, key, probe=None):
     """The heartbeat-path simulation from an initial (state, bufs): the
     election prefix on the tick engine, the checked handoff (one host read),
     then the heartbeat scan, or the tick engine continued from the prefix
-    carry."""
+    carry.
+
+    Lane keys ``[B, 2]`` run ``B`` lanes side by side (state ``[B, N]``,
+    rings ``[D, B, N]``): ``jax.vmap`` of the JAX function, whose ``lax.cond``
+    on the handoff becomes a select.  The ``[S]`` scan runs over every lane,
+    and when some lane's handoff is refused the tick engine continues every
+    lane from the prefix carry (its ``"normal"`` draws follow the first
+    lane's key, as the vmapped branch's do); each lane then keeps the branch
+    its own handoff picked.  A branch no lane picks is not run."""
     global handoffs_taken, handoffs_refused, prefix_s, scan_s
     if probe is not None:
         raise NotImplementedError(
-            "probed runs come with slice 4 of the port (fault operands, sweeps, "
-            "checkpoints and traces)"
+            "probed runs come with the traces slice of the port (utils/trace.py "
+            "and obsim; ROADMAP.md queue A)"
         )
+    lanes = np.ndim(key) == 2
+    keys = np.asarray(key, np.int64).reshape(-1, 2)
     t0 = time.perf_counter()
     t_e = prefix_ticks(cfg)
-    state, bufs = tick_range(cfg, state, bufs, key, 0, t_e)
-    ok, h = handoff(cfg, _shard_view(state))
+    state, bufs = tick_loop(cfg, state, bufs, key, 0, t_e)
+    view = state if lanes else _shard_view(state)
+    ok, h = handoff(cfg, view)
     t1 = time.perf_counter()
     prefix_s += t1 - t0
-    if ok[0]:
-        handoffs_taken += 1
-        out = steady_scan(cfg, np.asarray(key, np.int64)[None], h)
-        state = _unshard(materialize(cfg, _shard_view(state), h, out))
+    handoffs_taken += int(ok.sum())
+    handoffs_refused += int((~ok).sum())
+    fast = None
+    if ok.any():
+        out = steady_scan(cfg, keys, h)
+        fast = materialize(cfg, view, h, out)
+        if not lanes:
+            fast = _unshard(fast)
         scan_s += time.perf_counter() - t1
-        return state
-    handoffs_refused += 1
+        if ok.all():
+            return fast
     # the prefix did not reach the quiet window: the tick engine takes over
-    state, _ = tick_range(cfg, state, bufs, key, t_e, max(cfg.ticks, t_e))
-    return state
+    slow, _ = tick_loop(cfg, state, bufs, key, t_e, max(cfg.ticks, t_e))
+    if fast is None:
+        return slow
+    return _select(torch.as_tensor(ok, device=slow.alive.device), fast, slow)
 
 
 def run(cfg, key, device):

@@ -12,6 +12,16 @@ prefix on the tick engine, then one step a heartbeat), and mixed configs
 models/mixed.scan_fast (the same in every Raft shard, beside the per-tick
 PBFT layer).
 
+Dynamic fault operands (JAX's ``make_dyn_sim_fn``): the fault COUNTS are
+run-time operands of a program built once a fault *structure*
+(models/base.canonical_fault_cfg), so a sweep over fault levels needs one
+program (parallel/sweep.py).  Checkpoints: ``make_segment_fn`` steps the tick
+engine from any tick, and ``run_checkpointed`` / ``run_dyn_checkpointed``
+write the JAX package's archive (utils/checkpoint.py) every ``every_ms``;
+``resume_simulation`` / ``resume_dyn_simulation`` finish a run from one.
+Tick keys derive from the absolute tick, so a segmented or resumed run
+equals the uninterrupted one.
+
 Entry points run on the CUDA card unless the caller asks for another device
 (``device="cpu"``, as the tests do); without CUDA they raise instead of
 carrying on on the CPU.
@@ -19,13 +29,37 @@ carrying on on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
+import pathlib
+
+import numpy as np
 import torch
 
+from blockchain_simulator_tpu_torch.models import base as base_model
 from blockchain_simulator_tpu_torch.models.base import get_protocol, sim_metrics
-from blockchain_simulator_tpu_torch.utils import prng, threefry
+from blockchain_simulator_tpu_torch.utils import threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
 _INIT_FOLD = 0x1217  # proto.init's key, as in the JAX package
+
+
+class UnbatchableConfigError(NotImplementedError):
+    """A config whose faults cannot become run-time operands: it has no
+    dynamic-fault-operand program (:func:`make_dyn_sim_fn`), so it joins no
+    sweep group (parallel/sweep.py).  A ``NotImplementedError``, as in the
+    JAX package."""
+
+
+def check_batchable(cfg: SimConfig) -> None:
+    """Raise :class:`UnbatchableConfigError` when ``cfg`` has no
+    dynamic-fault-operand program: the mixed shard sim, whose faults are
+    per-shard init structure, not maskable state."""
+    if cfg.protocol == "mixed":
+        raise UnbatchableConfigError(
+            "dynamic fault operands are not implemented for the mixed shard "
+            "sim (faults live at the raft-shard level, models/mixed.py); "
+            "sweep it with one static program per fault config"
+        )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -185,11 +219,69 @@ def make_sim_fn(cfg: SimConfig):
     def sim(seed: int, device):
         key = threefry.key(seed)
         state, bufs = proto.init(cfg, threefry.fold_in(key, _INIT_FOLD), device=device)
-        ticks = torch.arange(cfg.ticks, dtype=torch.int32, device=device)
-        tkeys = prng.tick_key(key, range(cfg.ticks))
-        for t in range(cfg.ticks):
-            state, bufs = proto.step(cfg, state, bufs, ticks[t], tkeys[t])
-        return state
+        return base_model.tick_loop(cfg, state, bufs, key, 0, cfg.ticks)[0]
+
+    return sim
+
+
+def dyn_step_cfg(canon: SimConfig, n_byzantine) -> SimConfig:
+    """The config a dynamic-fault run steps at: ``canon``, with a positive
+    Byzantine count when some lane has Byzantine nodes.  models/raft.step
+    leaves the FAILED-ack channel out when the config has none (a static
+    fact there, whose draws and pushes would all be zero), and no other
+    step reads the count."""
+    if np.max(np.asarray(n_byzantine)) > 0 and canon.faults.n_byzantine == 0:
+        return canon.with_(faults=dataclasses.replace(canon.faults, n_byzantine=1))
+    return canon
+
+
+def _dyn_run(canon: SimConfig, key, n_crashed, n_byzantine, device):
+    """One run from the canonical config with the fault counts as operands:
+    ``proto.init`` at ``canon``, the masks installed
+    (models/base.apply_fault_masks), then the engine ``use_round_schedule``
+    picks.  Lane keys ``[B, 2]`` with ``[B]`` counts run ``B`` lanes side by
+    side (the round path, the heartbeat path and the Raft tick engine; see
+    parallel/sweep.lane_axis)."""
+    masks = base_model.dyn_fault_masks(canon.n, n_crashed, n_byzantine, device)
+    init_key = threefry.fold_in(key, _INIT_FOLD)
+    cfg = dyn_step_cfg(canon, n_byzantine)
+    if use_round_schedule(canon):
+        if canon.protocol == "raft":
+            from blockchain_simulator_tpu_torch.models import raft, raft_hb
+
+            state, bufs = raft.init(canon, init_key, device=device)
+            state = base_model.apply_fault_masks(canon, state, *masks)
+            return raft_hb.scan_from_init(cfg, state, bufs, key)
+        from blockchain_simulator_tpu_torch.models import pbft_round
+
+        state, _ = pbft_round.init(canon, init_key, device=device)
+        state = base_model.apply_fault_masks(canon, state, *masks)
+        return pbft_round.scan_rounds(cfg, state, key)
+    state, bufs = get_protocol(canon.protocol).init(canon, init_key, device=device)
+    state = base_model.apply_fault_masks(canon, state, *masks)
+    return base_model.tick_loop(cfg, state, bufs, key, 0, canon.ticks)[0]
+
+
+def make_dyn_sim_fn(cfg: SimConfig):
+    """``sim(key, n_crashed, n_byzantine, device) -> final state`` for one
+    run, with the fault COUNTS as run-time operands: the program is built
+    at the canonical config (models/base.canonical_fault_cfg), so one
+    serves every fault level of a structure, and at equal counts it equals
+    :func:`make_sim_fn` at the static config.  ``key`` is a threefry key
+    (``threefry.key(seed)``).  The mixed shard sim is refused with
+    :class:`UnbatchableConfigError` (JAX's ``make_dyn_sim_fn``)."""
+    canon = base_model.canonical_fault_cfg(cfg)
+    check_batchable(canon)
+    _reject_cpp_only(canon)
+    if canon.topology == "committee":
+        raise NotImplementedError(
+            "committee topology comes with slice 5 of the port (sparse "
+            "topologies)"
+        )
+
+    def sim(key, n_crashed, n_byzantine, device):
+        return _dyn_run(canon, np.asarray(key, np.int64), int(n_crashed),
+                        int(n_byzantine), device)
 
     return sim
 
@@ -207,3 +299,188 @@ def run_simulation(cfg: SimConfig, seed: int | None = None, device=None) -> dict
     """Run one simulation; returns the protocol's structured metrics dict,
     the same dict the JAX package's ``run_simulation`` returns."""
     return sim_metrics(cfg, final_state(cfg, seed, device))
+
+
+def run_multi_seed(cfg: SimConfig, seeds, record: bool = True, device=None):
+    """Multi-seed Monte Carlo: one metrics dict a seed, in order, each equal
+    to ``run_simulation(cfg, seed=s)``.  The JAX package maps the unvmapped
+    dyn program over the seeds (``lax.map``, solo semantics), so the lanes
+    run in turn (parallel/sweep.multi_seed_fn).  The mixed shard sim raises
+    :class:`UnbatchableConfigError`."""
+    from blockchain_simulator_tpu_torch.parallel import sweep
+
+    canon = base_model.canonical_fault_cfg(cfg)
+    points = [(cfg, int(s)) for s in seeds]
+    return sweep.run_dyn_points(canon, points, record=record, multi_seed=True,
+                                device=device)
+
+
+def make_segment_fn(cfg: SimConfig, n_ticks: int):
+    """``seg(key, state, bufs, t0) -> (state, bufs)``: the tick engine
+    ``n_ticks`` ticks on from tick ``t0``, on the state's device.  Tick keys
+    derive from the absolute tick, so segments chained end to end equal one
+    uninterrupted run (the checkpoint substrate)."""
+    _reject_cpp_only(cfg)
+    if cfg.topology == "committee":
+        raise ValueError(
+            "segmented/checkpointed execution steps the flat (state, bufs) "
+            "pair; the committee path's stacked state has no segment form "
+            "(topo/committee.py) — run it un-checkpointed"
+        )
+
+    def seg(key, state, bufs, t0: int):
+        t0 = int(t0)
+        return base_model.tick_loop(cfg, state, bufs, np.asarray(key, np.int64), t0,
+                                    t0 + n_ticks)
+
+    return seg
+
+
+def _tick_schedule(cfg: SimConfig) -> SimConfig:
+    """Pin the tick engine for checkpointed execution: the phase-blocked
+    fast paths have no tick-granular segments, and ``schedule="round"``
+    asks for one explicitly."""
+    if use_round_schedule(cfg):
+        if cfg.schedule == "round":
+            raise ValueError(
+                "schedule='round' does not support checkpointing (the round "
+                "fast path is not tick-segmentable); use schedule='tick'"
+            )
+        cfg = cfg.with_(schedule="tick")
+    return cfg
+
+
+def _segments(cfg, seg_cfg, key, state, bufs, t: int, every_ms: int, ckpt_dir, keep_all,
+              last_path, dyn_counts=None):
+    """Step ``seg_cfg`` from tick ``t`` to the end, writing an archive of
+    ``cfg`` every ``every_ms`` ticks (only the newest kept unless
+    ``keep_all``).  Returns ``(state, last_path)``."""
+    from blockchain_simulator_tpu_torch.utils.checkpoint import save_checkpoint
+
+    while t < cfg.ticks:
+        n = min(every_ms, cfg.ticks - t)
+        state, bufs = make_segment_fn(seg_cfg, n)(key, state, bufs, t)
+        t += n
+        path = ckpt_dir / f"ckpt_{t:08d}.npz"
+        save_checkpoint(path, cfg, state, bufs, t, dyn_counts=dyn_counts)
+        if last_path is not None and not keep_all:
+            last_path.unlink()
+        last_path = path
+    return state, last_path
+
+
+def run_checkpointed(cfg: SimConfig, every_ms: int, ckpt_dir, seed: int | None = None,
+                     keep_all: bool = False, device=None):
+    """Run to completion, writing a checkpoint every ``every_ms`` virtual
+    ms (``ckpt_<tick>.npz``, the JAX package's archive); only the latest
+    survives unless ``keep_all``.  The effective seed is stored in the
+    archive's config.  Returns ``(metrics, last_checkpoint_path)``."""
+    if every_ms < 1:
+        raise ValueError(f"every_ms must be >= 1, got {every_ms}")
+    cfg = _tick_schedule(cfg)
+    dev = resolve_device(device)
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    if seed is not None:
+        cfg = cfg.with_(seed=seed)
+    proto = get_protocol(cfg.protocol)
+    key = threefry.key(cfg.seed)
+    state, bufs = proto.init(cfg, threefry.fold_in(key, _INIT_FOLD), device=dev)
+    state, last_path = _segments(cfg, cfg, key, state, bufs, 0, every_ms, ckpt_dir,
+                                 keep_all, None)
+    return proto.metrics(cfg, state), last_path
+
+
+def _dyn_checkpoint_cfg(cfg: SimConfig, seed: int | None) -> SimConfig:
+    """Validate and normalize a config for dynamic-fault checkpointed
+    execution: batchable, no C++-only modes, the tick schedule pinned, the
+    effective seed stored."""
+    check_batchable(cfg)
+    _reject_cpp_only(cfg)
+    cfg = _tick_schedule(cfg)
+    if seed is not None:
+        cfg = cfg.with_(seed=seed)
+    return cfg
+
+
+def run_dyn_checkpointed(cfg: SimConfig, every_ms: int, ckpt_dir, seed: int | None = None,
+                         keep_all: bool = False, resume: bool = True, device=None):
+    """The dynamic-fault-operand form of :func:`run_checkpointed`: init at the
+    canonical fault structure, the masks installed from ``cfg.faults``'
+    counts, segments stepped at the canonical config, and the ``(n_crashed,
+    n_byzantine)`` operands stored in every archive (``__dyn__``).  With
+    ``resume`` a directory that already holds archives of the SAME config
+    continues from the newest; one of another config, or a static archive,
+    raises.  Equal to the un-checkpointed dyn run.  Returns ``(metrics,
+    last_checkpoint_path)``."""
+    from blockchain_simulator_tpu_torch.utils.checkpoint import load_checkpoint, load_dyn_counts
+
+    if every_ms < 1:
+        raise ValueError(f"every_ms must be >= 1, got {every_ms}")
+    cfg = _dyn_checkpoint_cfg(cfg, seed)
+    dev = resolve_device(device)
+    canon = base_model.canonical_fault_cfg(cfg)
+    nc = cfg.faults.resolved_n_crashed(cfg.n)
+    nb = cfg.faults.n_byzantine
+    proto = get_protocol(cfg.protocol)
+    key = threefry.key(cfg.seed)
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    existing = sorted(ckpt_dir.glob("ckpt_*.npz")) if resume else []
+    if existing:
+        stored_cfg, state, bufs, t = load_checkpoint(existing[-1], device=dev)
+        if stored_cfg != cfg:
+            raise ValueError(
+                f"checkpoint {existing[-1]} belongs to a different config "
+                f"(stored hash != requested); refusing to blend runs"
+            )
+        stored_dyn = load_dyn_counts(existing[-1])
+        if stored_dyn != (nc, nb):
+            raise ValueError(
+                f"checkpoint {existing[-1]} stores dyn operands "
+                f"{stored_dyn}, requested ({nc}, {nb})"
+            )
+        last_path = existing[-1]
+    else:
+        state, bufs = proto.init(canon, threefry.fold_in(key, _INIT_FOLD), device=dev)
+        state = base_model.apply_fault_masks(
+            cfg, state, *base_model.dyn_fault_masks(cfg.n, nc, nb, dev))
+        t, last_path = 0, None
+    state, last_path = _segments(cfg, dyn_step_cfg(canon, nb), key, state, bufs, t,
+                                 every_ms, ckpt_dir, keep_all, last_path, (nc, nb))
+    return proto.metrics(cfg, state), last_path
+
+
+def resume_dyn_simulation(ckpt_path, device=None):
+    """Load a dynamic-fault checkpoint and run the remaining ticks at the
+    canonical config; returns metrics equal to the uninterrupted dyn run.
+    A static archive (no stored operands) raises: use
+    :func:`resume_simulation`."""
+    from blockchain_simulator_tpu_torch.utils.checkpoint import load_checkpoint, load_dyn_counts
+
+    dyn = load_dyn_counts(ckpt_path)
+    if dyn is None:
+        raise ValueError(
+            f"{ckpt_path} is a static-path checkpoint (no __dyn__ operands);"
+            " use resume_simulation"
+        )
+    cfg, state, bufs, t = load_checkpoint(ckpt_path, device=device)
+    canon = dyn_step_cfg(base_model.canonical_fault_cfg(cfg), dyn[1])
+    return _finish(cfg, canon, state, bufs, t, threefry.key(cfg.seed))
+
+
+def _finish(cfg, seg_cfg, state, bufs, t: int, key) -> dict:
+    """The ticks from ``t`` to the end, then the metrics."""
+    if t < cfg.ticks:
+        state, bufs = make_segment_fn(seg_cfg, cfg.ticks - t)(key, state, bufs, t)
+    return get_protocol(cfg.protocol).metrics(cfg, state)
+
+
+def resume_simulation(ckpt_path, seed: int | None = None, device=None):
+    """Load a checkpoint (written by either package) and run the remaining
+    ticks; returns metrics.  ``seed`` must match the original run's (it
+    defaults to the seed stored in the archive's config)."""
+    from blockchain_simulator_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg, state, bufs, t = load_checkpoint(ckpt_path, device=device)
+    return _finish(cfg, cfg, state, bufs, t, threefry.key(cfg.seed if seed is None else seed))

@@ -98,6 +98,29 @@ Phases (any failure raises, and the script exits non-zero):
               PBFT layer, each ended by a synchronize in this script; then
               the 322 prefix ticks again for host syncs and launches a tick.
 
+17. config4 — BASELINE config 4 as tools/run_config4.py builds it (PBFT,
+              n = 100,000, 200 rounds, window 8, stat, serialization off):
+              run_byzantine_sweep over f in {0, 8333, 16666, 25000, 33333,
+              50001} x seeds (0, 1), forge off — ONE batch of 12 lanes on the
+              round path (state [12, 100000], lane keys [12, 2]).  Its rows
+              and every lane's state digests equal the JAX golden (200 of 200
+              blocks for f <= 33,333, none at 50,001); then the lane loop again
+              under torch.cuda.set_sync_debug_mode("error"), equal again; then
+              kernel launches a round over its first rounds (raw profiler
+              events), which must stay within 1.25x the headline's: the lanes
+              run as one batch, not one after another.
+18. drop-sweep — the drop sweep as tools/run_drop_sweep.py builds it (PBFT,
+              n = 10,000, 40 rounds, view changes off, schedule "round"):
+              run_fault_sweep over eight drop_prob structures at seed 0; rows
+              and digests equal the JAX golden (40 blocks through p = 0.2,
+              none from 0.3).
+19. checkpoint — the edge tick config of phase 3 through run_checkpointed
+              (every 1,250 ms, into a temporary directory): metrics equal the
+              golden and the final archive's state its digests; then
+              resume_simulation from the 1,250 ms archive equals the golden
+              again.  One ring-push launch of four pushes a tick across the
+              segment boundary, in both runs.
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -124,6 +147,10 @@ PAXOS_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "paxo
 PBFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_gossip_n1000_s0.json"
 RAFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_gossip_n1000_s0.json"
 MIXED_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "mixed_n256k_s0.json"
+CONFIG4_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_config4_n100k_s01.json"
+DROP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_drop_n10k_s0.json"
+CHECKPOINT_EVERY_MS = 1250
+LANE_ROUNDS_MAX = 1.25  # a lane batch's launches a round, at most, over the headline's
 GOSSIP_WINDOW_TICKS = 300
 SYNC_COUNT_TICKS = 2000
 SAMPLER_N = 1_000_000
@@ -1124,6 +1151,253 @@ def phase_mixed_config5(dev, card: str):
                 prefix_window=prof, **split)
 
 
+class _Recorded:
+    """Digests of every lane that the sweep's batched programs return
+    (``parallel/sweep.dyn_batched_fn`` wrapped while the ``with`` lasts)."""
+
+    def __init__(self):
+        from blockchain_simulator_tpu_torch.parallel import sweep
+
+        self.sweep, self.digests = sweep, []
+
+    def __enter__(self):
+        from blockchain_simulator_tpu_torch import convert
+
+        real = self.real = self.sweep.dyn_batched_fn
+
+        def wrapped(cfg):
+            batched = real(cfg)
+
+            def run(*args):
+                finals = batched(*args)
+                leaves = convert.state_to_numpy(finals)
+                self.digests += [convert.state_digests(convert.lane_leaves(leaves, i))
+                                 for i in range(len(args[0]))]
+                return finals
+            return run
+
+        self.sweep.dyn_batched_fn = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.sweep.dyn_batched_fn = self.real
+
+
+def _check_sweep(entry, rows, digests, what: str):
+    if rows != entry["rows"]:
+        bad = [i for i, (a, b) in enumerate(zip(rows, entry["rows"])) if a != b]
+        raise AssertionError(f"{what}: rows {bad} differ from the JAX golden:\n"
+                             f"{[rows[i] for i in bad]}\n{[entry['rows'][i] for i in bad]}")
+    bad = [i for i, (a, b) in enumerate(zip(digests, entry["lane_sha256"])) if a != b]
+    if bad or len(digests) != len(entry["lane_sha256"]):
+        raise AssertionError(f"{what}: the final states of lanes {bad} differ from the JAX "
+                             f"golden ({len(digests)} lanes)")
+
+
+def _lane_round_launches(cfg, state, keys, rounds) -> float:
+    """Kernel launches a round of the lane loop over ``rounds`` (raw
+    profiler events, as the tick windows count them)."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import pbft_round
+    from blockchain_simulator_tpu_torch.utils import prng
+
+    import numpy as np
+
+    bt = cfg.pbft_block_interval_ms
+    tkeys = prng.tick_key(np.asarray(keys)[None],
+                          np.asarray([r * bt for r in rounds], np.int64)[:, None])
+    pbft_round.step_round(cfg, state, rounds[0], tkeys[0])  # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i, r in enumerate(rounds):
+            state = pbft_round.step_round(cfg, state, r, tkeys[i])
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return sum(not n.startswith(("Memcpy", "Memset")) for n in names) / len(rounds)
+
+
+def phase_config4(dev, card: str, headline_launches: float):
+    """BASELINE config 4: one 12-lane run_byzantine_sweep batch on the round
+    path, held to its JAX golden; the lane loop again with host syncs an
+    error; launches a round against the headline's."""
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.models import base, pbft_round
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.parallel import sweep
+    from blockchain_simulator_tpu_torch.utils import threefry
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(CONFIG4_GOLDEN.read_text())["entries"]["config4"]
+    cfg = SimConfig(**entry["config"])
+    f_values, seeds = entry["args"]["f_values"], entry["args"]["seeds"]
+    canon = base.canonical_fault_cfg(cfg)
+    if not (sweep.lane_axis(canon) and runner.use_round_schedule(canon)
+            and cfg.eff_stat_sampler == "normal"):
+        raise AssertionError("config 4 should batch its lanes on the round path with the "
+                             "'normal' sampler")
+    lanes = len(f_values) * len(seeds)
+    with _Recorded() as rec:
+        rk.launches = rk.pushes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = sweep.run_byzantine_sweep(cfg, f_values=f_values, seeds=seeds, forge=False,
+                                         device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rk.launches
+    _check_sweep(entry, rows, rec.digests, "config 4")
+    if launches != 0:
+        raise AssertionError(f"config 4: the round path pushed rings ({launches} launches)")
+    blocks = [r["blocks_final_all_nodes"] for r in rows]
+    want = [cfg.pbft_max_rounds if r["f"] <= (cfg.n - 1) // 3 else 0 for r in rows]
+    if blocks != want:
+        raise AssertionError(f"config 4: blocks {blocks}, want {want}")
+
+    # the lane loop alone, any host sync inside it an error
+    keys = sweep._keys([s for _ in f_values for s in seeds])
+    nb = [f for f in f_values for _ in seeds]
+    step_cfg = runner.dyn_step_cfg(canon, nb)
+
+    def lane_state():
+        state, _ = pbft_round.init(canon, threefry.fold_in(keys, runner._INIT_FOLD),
+                                   device=dev)
+        return base.apply_fault_masks(canon, state,
+                                      *base.dyn_fault_masks(cfg.n, [0] * lanes, nb, dev))
+
+    state = lane_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = pbft_round.scan_rounds(step_cfg, state, keys)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    leaves = convert.state_to_numpy(state)
+    if [convert.state_digests(convert.lane_leaves(leaves, i)) for i in range(lanes)] \
+            != entry["lane_sha256"]:
+        raise AssertionError("config 4: the sync-checked lane loop differs from the golden")
+    n_rounds = len(pbft_round.round_range(cfg))
+    per_round = _lane_round_launches(step_cfg, lane_state(), keys,
+                                     pbft_round.round_range(cfg)[:PROFILED_ROUNDS])
+    if per_round > LANE_ROUNDS_MAX * headline_launches:
+        raise AssertionError(f"config 4: {per_round:.1f} launches a round, over "
+                             f"{LANE_ROUNDS_MAX} x the headline's {headline_launches:.1f}")
+    sent = sum(r["rounds_sent"] for r in rows)
+    print(f"config 4: pbft n={cfg.n} rounds={cfg.pbft_max_rounds} window {cfg.pbft_window} "
+          f"stat/{cfg.eff_stat_sampler}, run_byzantine_sweep f={f_values} x seeds={seeds}: "
+          f"blocks {blocks}", flush=True)
+    print(f"config 4 on {card}: wall {wall:.3f} s for one batch of {lanes} lanes x "
+          f"{n_rounds} round steps (run_byzantine_sweep, metrics included; the lane loop "
+          f"alone {loop_wall:.3f} s), {sent / wall:.2f} rounds/s ({sent} rounds sent), "
+          f"{per_round:.1f} kernel launches a round (first {PROFILED_ROUNDS} rounds, raw "
+          f"profiler events; the headline {headline_launches:.1f}), 0 host syncs in the lane "
+          f"loop (sync debug mode 'error'), rows + every lane's state digests equal the JAX "
+          f"golden", flush=True)
+    return {"wall_s": wall, "loop_wall_s": loop_wall, "lanes": lanes,
+            "round_steps": n_rounds, "rounds_sent": sent, "rounds_per_s": sent / wall,
+            "launches_per_round": per_round, "headline_launches_per_round": headline_launches,
+            "ring_push_launches": launches}
+
+
+def phase_drop_sweep(dev, card: str):
+    """The drop sweep: run_fault_sweep over eight drop structures at seed 0
+    on the round path, held to its JAX golden."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import pbft_round
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.parallel import sweep
+    from blockchain_simulator_tpu_torch.utils.config import FaultConfig, SimConfig
+
+    entry = json.loads(DROP_GOLDEN.read_text())["entries"]["drop"]
+    cfg = SimConfig(**entry["config"])
+    fcs = [FaultConfig(**fc) for fc in entry["args"]["fcs"]]
+    seeds = entry["args"]["seeds"]
+    with _Recorded() as rec:
+        rk.launches = rk.pushes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep.run_fault_sweep(cfg, fcs, seeds, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rk.launches
+    rows = [m for fc in fcs for m in res[fc]]
+    _check_sweep(entry, rows, rec.digests, "drop sweep")
+    if launches != 0:
+        raise AssertionError(f"drop sweep: the round path pushed rings ({launches} launches)")
+    blocks = {fc.drop_prob: m["blocks_final_all_nodes"] for fc, m in zip(fcs, rows)}
+    if any((b == cfg.pbft_max_rounds) != (p <= 0.2) or (p > 0.2 and b) for p, b in blocks.items()):
+        raise AssertionError(f"drop sweep: blocks by drop_prob {blocks}")
+    steps = len(fcs) * len(seeds) * len(pbft_round.round_range(cfg))
+    sent = sum(r["rounds_sent"] for r in rows)
+    print(f"drop sweep: pbft n={cfg.n} rounds={cfg.pbft_max_rounds} stat/"
+          f"{cfg.eff_stat_sampler} schedule round, run_fault_sweep over drop_prob "
+          f"{list(blocks)}: blocks {list(blocks.values())}", flush=True)
+    print(f"drop sweep on {card}: wall {wall:.3f} s for {len(fcs)} structure groups "
+          f"({steps} round steps), {sent / wall:.2f} rounds/s ({sent} rounds sent), rows + "
+          f"every lane's state digests equal the JAX golden", flush=True)
+    return {"wall_s": wall, "groups": len(fcs), "round_steps": steps, "rounds_sent": sent,
+            "rounds_per_s": sent / wall, "ring_push_launches": launches}
+
+
+def phase_checkpoint(dev, card: str):
+    """The edge tick config through run_checkpointed and resume_simulation,
+    each held to the edge golden, with the ring-push counters set to 0 just
+    before each run and read just after."""
+    import tempfile
+
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils import checkpoint
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(GOLDEN.read_text())["entries"]["n1000"]
+    cfg = SimConfig(**entry["config"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        rk.launches = rk.pushes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, last = runner.run_checkpointed(cfg, every_ms=CHECKPOINT_EVERY_MS, ckpt_dir=d,
+                                                seed=entry["seed"], keep_all=True, device=dev)
+        wall = time.perf_counter() - t0
+        counts = (rk.launches, rk.pushes)
+        _, state, _, tick = checkpoint.load_checkpoint(last, device=dev)
+        _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(state)),
+                      "checkpointed run")
+        mids = sorted(pathlib.Path(d).glob("ckpt_*.npz"))
+        if tick != cfg.ticks or [int(p.stem[5:]) for p in mids] != \
+                list(range(CHECKPOINT_EVERY_MS, cfg.ticks + 1, CHECKPOINT_EVERY_MS)):
+            raise AssertionError(f"checkpoint: archives {[p.name for p in mids]}")
+        rk.launches = rk.pushes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = runner.resume_simulation(mids[0], device=dev)
+        resume_wall = time.perf_counter() - t0
+        resume_counts = (rk.launches, rk.pushes)
+    if resumed != entry["metrics"]:
+        raise AssertionError(f"resumed run: metrics differ from the JAX golden:\n{resumed}")
+    rest = cfg.ticks - CHECKPOINT_EVERY_MS
+    if counts != (cfg.ticks, 4 * cfg.ticks) or resume_counts != (rest, 4 * rest):
+        raise AssertionError(f"checkpoint: ring_push launches/pushes {counts} and "
+                             f"{resume_counts}, want one launch of four pushes a tick")
+    print(f"checkpoint on {card}: run_checkpointed every {CHECKPOINT_EVERY_MS} ms, wall "
+          f"{wall:.3f} s ({len(mids)} archives), ring_push launches {counts[0]} and pushes "
+          f"{counts[1]}; resume_simulation from {mids[0].name}: wall {resume_wall:.3f} s, "
+          f"launches {resume_counts[0]} and pushes {resume_counts[1]}; metrics (and the "
+          f"final archive's state digests) equal the JAX golden", flush=True)
+    return {"wall_s": wall, "resume_wall_s": resume_wall, "launches": counts[0],
+            "pushes": counts[1], "resume_launches": resume_counts[0],
+            "resume_pushes": resume_counts[1]}
+
+
 def _mismatches(got, want) -> int:
     """Elements that differ (NaN equals NaN)."""
     got, want = got.cpu(), want.cpu()
@@ -1310,6 +1584,12 @@ def main() -> int:
     }
     mixed_group, mixed_err = phase_kernel_mixed(dev, card)
     config5 = phase_mixed_config5(dev, card)
+    t_new = time.perf_counter()
+    config4 = phase_config4(dev, card, round_path["launches_per_round"])
+    drop = phase_drop_sweep(dev, card)
+    ckpt = phase_checkpoint(dev, card)
+    print(f"sweep and checkpoint phases (config4, drop-sweep, checkpoint): "
+          f"{time.perf_counter() - t_new:.3f} s", flush=True)
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -1346,17 +1626,24 @@ def main() -> int:
                              "raft_edge": raft_edge["launches"],
                              "raft_hb": raft_hb["launches"], "pbft_queued": q_launches,
                              **{k: v["launches"] for k, v in gossip.items()},
-                             "mixed_config5": config5["launches"]},
+                             "mixed_config5": config5["launches"],
+                             "checkpoint": ckpt["launches"],
+                             "checkpoint_resume": ckpt["resume_launches"],
+                             "config4": config4["ring_push_launches"],
+                             "drop_sweep": drop["ring_push_launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
                            **{k: v["pushes"] for k, v in gossip.items()},
-                           "mixed_config5": config5["pushes"]},
+                           "mixed_config5": config5["pushes"],
+                           "checkpoint": ckpt["pushes"],
+                           "checkpoint_resume": ckpt["resume_pushes"]},
     }]
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
                                 "pbft_queued_wall_s": q_wall, "samplers": samplers,
-                                **gossip, "mixed_config5": config5}}),
+                                **gossip, "mixed_config5": config5, "config4": config4,
+                                "drop_sweep": drop, "checkpoint": ckpt}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -349,7 +349,7 @@ def test_refusals_match_jax(kw, exc, match):
 
 def test_probed_mixed_run_raises():
     _, tcfg = _cfgs(**CASES["fast"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="traces slice"):
         tmixed.fast_finish(tcfg, None, None, threefry.key(0), with_probe=True)
 
 

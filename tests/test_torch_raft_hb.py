@@ -99,5 +99,5 @@ def test_schedule_resolution_matches_jax(n, schedule):
 
 def test_probed_runs_raise():
     _, tcfg = _cfgs(**dict(BASE, sim_ms=2000))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="traces slice"):
         thb.steady_scan(tcfg, threefry.key(0), None, with_probe=True)

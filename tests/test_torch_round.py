@@ -136,11 +136,11 @@ def test_headline_config_resolves_to_the_round_path():
 def test_probe_and_raft_refused():
     _, tcfg = _cfgs(**BASE, n=16, sim_ms=200, schedule="round")
     state, _ = tround.init(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="traces slice"):
         tround.scan_rounds(tcfg, state, threefry.key(0), with_probe=True)
     # Raft's heartbeat path and the mixed shard sim are ported now: the mixed
     # sim resolves its schedule as JAX does, and its probed runs raise
     jcfg, rcfg = _cfgs(protocol="mixed", n=16, mixed_shards=2, sim_ms=200, delivery="stat")
     assert trunner.use_round_schedule(rcfg) == jrunner.use_round_schedule(jcfg)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="traces slice"):
         tmixed.fast_finish(rcfg, None, None, threefry.key(0), with_probe=True)
