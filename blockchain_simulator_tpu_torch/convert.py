@@ -17,6 +17,12 @@ one from such leaves, ``state_to_numpy`` reads one back, and
 :func:`lane_leaves` takes one lane's leaves out of either package's, for
 per-lane digests.
 
+A committee run's final state (topology "committee") is stacked ``[C, ...]``,
+as JAX's ``lax.map`` stacks it: ``state_from_numpy`` builds each committee's
+state at the inner config from its slice and stacks them, and
+``state_to_numpy`` reads the stack back as ``[C, ...]`` leaves.  The
+kregular Raft edge ring ``vreq`` is ``[D, N, K]`` in both packages.
+
 The mixed sim's leaves are keyed ``"raft.<field>"`` and ``"pbft.<field>"``,
 as its two sub-states nest them.  Its Raft rings are laid out as the JAX
 package's ``jax.vmap`` leaves them, ``[S, D, m, ...]``; the port keeps them
@@ -55,8 +61,11 @@ def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
     rings), ``(PbftRoundState, ())``
     when a PBFT config resolves to the round-blocked fast path (which has no
     rings: ``bufs`` must be ``None``), ``(MixedState, MixedBufs)`` for the
-    mixed sim (either schedule).  Shapes are checked against the engine's
-    ``init``."""
+    mixed sim (either schedule), ``(stacked state, ())`` for a committee
+    run's final state (``bufs`` must be ``None``).  Shapes are checked
+    against the engine's ``init``."""
+    if cfg.topology == "committee":
+        return _committee_from_numpy(cfg, state, bufs, device)
     if cfg.protocol == "mixed":
         return _mixed_from_numpy(cfg, state, bufs, device)
     if cfg.protocol == "raft":
@@ -84,6 +93,19 @@ def state_from_numpy(cfg, state: dict, bufs: dict | None, device):
            else _fields(cls, names, ref, leaves, device)
            for cls, names, ref, leaves in groups]
     return tuple(out) if len(out) == 2 else (out[0], ())
+
+
+def _committee_from_numpy(cfg, state: dict, bufs, device):
+    """The stacked ``[C, ...]`` final state of a committee run, each
+    committee's slice checked as the inner tick engine's state."""
+    from blockchain_simulator_tpu_torch.topo import committee
+
+    if bufs:
+        raise ValueError("a committee run's final state carries no rings "
+                         "(topo/committee.py stacks the inner finals only)")
+    icfg = committee.inner_cfg(cfg).with_(schedule="tick")
+    return stack_lanes([state_from_numpy(icfg, lane_leaves(state, i), None, device)[0]
+                        for i in range(cfg.committees)]), ()
 
 
 def _split(leaves: dict, part: str) -> dict:

@@ -41,13 +41,14 @@ def get_protocol(name: str):
 
 
 def sim_metrics(cfg, final) -> dict:
-    """Host-side metrics for ONE final state (the committee topology's
-    stacked metrics come with the sparse-topology slice)."""
+    """Host-side metrics for ONE final state, topology-aware: a committee
+    run's final state is stacked ``[C, ...]`` and its metrics are the
+    two-level aggregate (topo/committee.py); every other topology reports
+    the flat protocol's own."""
     if cfg.topology == "committee":
-        raise NotImplementedError(
-            "committee topology metrics come with slice 5 of the port "
-            "(sparse topologies)"
-        )
+        from blockchain_simulator_tpu_torch.topo import committee
+
+        return committee.metrics(cfg, final)
     return get_protocol(cfg.protocol).metrics(cfg, final)
 
 
@@ -122,11 +123,12 @@ def apply_fault_masks(cfg, state, alive, honest):
     return state
 
 
-def tick_loop(cfg, state, bufs, key, start: int, stop: int):
+def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None):
     """``proto.step`` over ticks ``[start, stop)`` on the state's device, the
     tick a one-element int32 tensor there and the tick keys computed on the
     host up front; lane keys ``[B, 2]`` step a lane-stacked Raft state
-    (models/raft.py).  Tick keys derive from the absolute tick, so loops
+    (models/raft.py).  ``topo_tables`` hands the kregular overlay's device
+    tables to every step.  Tick keys derive from the absolute tick, so loops
     chained end to end equal one.  Returns ``(state, bufs)``."""
     from blockchain_simulator_tpu_torch.utils import prng
 
@@ -134,8 +136,9 @@ def tick_loop(cfg, state, bufs, key, start: int, stop: int):
     ticks = torch.arange(start, stop, dtype=torch.int32, device=state_device(state))
     tkeys = prng.tick_key(np.asarray(key)[None],
                           np.arange(start, stop).reshape((-1,) + (1,) * (np.ndim(key) - 1)))
+    kw = {} if topo_tables is None else {"topo_tables": topo_tables}
     for i in range(stop - start):
-        state, bufs = proto.step(cfg, state, bufs, ticks[i], tkeys[i])
+        state, bufs = proto.step(cfg, state, bufs, ticks[i], tkeys[i], **kw)
     return state, bufs
 
 

@@ -10,12 +10,15 @@ reference's iterator bug, shared cross-phase counters and N-2 reply windows,
 same threefry keys per (tick, channel): a run is bit-equal to the JAX
 package's.
 
-Ported arms: the full mesh and the gossip topology (requests flood over the
-random k-out digraph of ops/topology.py with a hop TTL; replies stay direct),
+Ported arms: the full mesh, the gossip topology (requests flood over the
+random k-out digraph of ops/topology.py with a hop TTL; replies stay direct)
+and the kregular overlay (requests reach only the receivers whose
+in-table, topo/spec.py, holds the proposer: a row-local ``[N, P]`` mask on
+the same draws, all true at degree k = N-1; replies stay point to point),
 both fidelities, crash, Byzantine and drop faults, and the
 ``paxos_client_node`` hook.  ``cfg.delivery`` is ignored, as in the JAX
-package: every channel is O(N·P).  The kregular overlay raises
-``NotImplementedError`` naming slice 5 of the port, ``mesh_axis`` slice 6.
+package: every channel is O(N·P).  ``mesh_axis`` raises
+``NotImplementedError`` naming slice 6.
 
 PyTorch idiom, as in models/pbft.py: state and rings are mutable tensors,
 the rings are updated in place, ``t`` is a 0-d int32 tensor on the device.
@@ -41,8 +44,10 @@ import torch
 from blockchain_simulator_tpu_torch.models.base import fault_masks
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.ops import delivery as dv
+from blockchain_simulator_tpu_torch.ops import gatherdeliv as gd
 from blockchain_simulator_tpu_torch.ops import topology
 from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
+from blockchain_simulator_tpu_torch.topo import spec as topo_spec
 from blockchain_simulator_tpu_torch.utils import threefry
 from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
 
@@ -96,11 +101,6 @@ BUF_FIELDS = tuple(f.name for f in dataclasses.fields(PaxosBufs))
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.topology in ("kregular", "committee"):
-        raise NotImplementedError(
-            f"paxos with topology={cfg.topology!r} (the overlay's topo_tables) "
-            "comes with slice 5 of the port (sparse topologies)"
-        )
     if cfg.mesh_axis is not None:
         raise NotImplementedError(
             "paxos with mesh_axis (node-sharded runs, the neighbour exchange) "
@@ -180,17 +180,21 @@ def _ids(n: int, device) -> torch.Tensor:
     return dv._global_ids(n, None, device)
 
 
-def _req_contrib(key, val, lo, hi, drop, ids, p, ref_skip, impl="threefry"):
+def _req_contrib(key, val, lo, hi, drop, ids, p, ref_skip, impl="threefry",
+                 inmask=None):
     """Broadcast contribution of one request channel: per-node request
     values (nonzero only at proposer rows) → ``[B, N, P]`` values for a max
     push.  ``ref_skip`` drops the sender's first peer (the reference's
-    iterator bug)."""
+    iterator bug); ``inmask`` (``[N, P]`` bool) keeps the receivers whose
+    kregular in-table holds the proposer."""
     dev = val.device
     n = val.shape[0]
     val_g = val[:p]
     d = delay_ops.sample_edge_delays(key, (n, p), lo, hi, dev, impl)
     prop_ids = torch.arange(p, dtype=_I32, device=dev)
     mask = (val_g[None, :] > 0) & (ids[:, None] != prop_ids[None, :])
+    if inmask is not None:
+        mask = mask & inmask
     if ref_skip:
         first_peer = torch.where(prop_ids == 0, 1, 0)
         mask = mask & (ids[:, None] != first_peer[None, :])
@@ -226,10 +230,25 @@ def _reply_contribs(key, ok_wire, no_wire, cmd_wire, lo, hi, drop, ids, p,
             cmd_b[:, take] * is_prop[None, :])
 
 
-def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey):
+@functools.lru_cache(maxsize=8)
+def _inmask(n: int, degree: int, seed: int, p: int, device) -> torch.Tensor:
+    """``[N, P]`` bool: does node j's in-table hold proposer p (the config's
+    tables, made once per config and device)."""
+    return _inmask_of(topo_spec.device_tables(n, degree, seed, device)[0], p)
+
+
+def _inmask_of(nbr_in, p: int) -> torch.Tensor:
+    props = torch.arange(p, device=nbr_in.device)
+    return (nbr_in[:, :, None] == props[None, None, :]).any(1)
+
+
+def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
+         exchange=None):
     """One tick.  ``t``: 0-d int32 tensor on the state's device; ``tkey``:
     the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
-    that the config is ported."""
+    that the config is ported.  ``topo_tables``: the kregular overlay's
+    ``(in, out)`` tables when the caller holds them, else the config's
+    own; ``exchange`` raises."""
     n, p = cfg.n, cfg.paxos_n_proposers
     lo, hi = cfg.one_way_range()
     drop = cfg.faults.drop_prob
@@ -251,6 +270,17 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey):
     rt_t, rp_t, rc_t = rt_t * am[:, None], rp_t * am[:, None], rc_t * am[:, None]
     ok_t, no_t = ok_t * am[:, None], no_t * am[:, None]
     cmd_t = cmd_t * am
+
+    # kregular overlay: requests reach only receivers whose in-table holds
+    # the proposer (a row-local [N, P] reachability mask over the same
+    # O(N·P) delivery); windows that cannot reach a majority time out and
+    # retry until gave_up
+    gd._unsharded(None, exchange)
+    inmask = None
+    if cfg.topology == "kregular":
+        inmask = (_inmask(n, cfg.degree, cfg.topo_seed, p, dev) if topo_tables is None
+                  else _inmask_of(gd.local_tables(cfg, None, tables=topo_tables,
+                                                  device=dev)[0], p))
 
     # ---- gossip decode: TTL values → new-request dedup + forward set --------
     gossip = cfg.topology == "gossip"
@@ -448,7 +478,7 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey):
                                     impl=eimpl)
         else:
             contrib = _req_contrib(chan_key(tkey, chan), val, lo, hi, drop, ids, p,
-                                   not clean, impl=eimpl)
+                                   not clean, impl=eimpl, inmask=inmask)
         pushes.append((ring, lo, contrib, "max"))
     ring_push_group(pushes, t)  # in place; no launch when nothing is pushed
 

@@ -16,8 +16,12 @@ windowed vote table (``pbft_window < pbft_max_slots``), queued links
 pre-prepare ring) and the gossip topology (PRE_PREPARE and VIEW_CHANGE
 flood over the random k-out digraph of ops/topology.py with a hop TTL,
 deduplicated by the ``seen_pp`` / ``seen_vc`` registers; votes stay direct;
-exact vote table only).  Everything else raises ``NotImplementedError``
-naming the slice of the port that brings it.
+exact vote table only), the kregular overlay (every channel delivers direct
+over the circulant in/out tables of topo/spec.py through the gather
+primitives of ops/gatherdeliv.py: O(N·K) a tick, equal to the full mesh at
+degree k = N-1) and the committee hierarchy's inner runs (the full mesh at
+the committee's size, topo/committee.py).  ``mesh_axis`` and the sharded
+overlay's neighbour exchange raise ``NotImplementedError`` naming slice 6.
 
 PyTorch idiom: state and rings are mutable tensors.  The rings are updated in
 place (ops/ring.py), and ``t`` is a one-element int32 tensor on the device.
@@ -39,6 +43,7 @@ import torch
 from blockchain_simulator_tpu_torch.models.base import fault_masks, gated
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.ops import delivery as dv
+from blockchain_simulator_tpu_torch.ops import gatherdeliv as gd
 from blockchain_simulator_tpu_torch.ops import topology
 from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
 from blockchain_simulator_tpu_torch.utils import threefry
@@ -107,11 +112,6 @@ def queue_len(cfg) -> int:
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.topology in ("kregular", "committee"):
-        raise NotImplementedError(
-            f"topology={cfg.topology!r} comes with slice 5 of the port "
-            "(sparse topologies)"
-        )
     if cfg.mesh_axis is not None:
         raise NotImplementedError(
             "mesh_axis (node-sharded runs) comes with slice 6 of the port "
@@ -191,6 +191,20 @@ def init(cfg, key=None, *, device):
     return state, bufs
 
 
+def push_members(cfg) -> tuple:
+    """``(ring, op, B, lo)`` of the ring pushes of one tick, in the order
+    ``step`` collects them: every tick launches this group (queued links
+    leave ``pp`` out, its blocks riding the FIFOs)."""
+    lo, hi = cfg.one_way_range()
+    rt_lo, rt_hi = cfg.roundtrip_range()
+    ser = cfg.serialization_ticks(cfg.pbft_block_bytes)
+    members = [("prep_rt", "add", rt_hi - rt_lo, rt_lo), ("commit", "add", hi - lo, lo),
+               ("pp", "max", hi - lo, lo + ser), ("vc", "max", hi - lo, lo)]
+    if cfg.queued_links and ser > 0:
+        members.pop(2)
+    return tuple(members)
+
+
 def _scatter_drop(acc, idx, vals, reduce: str, ident: int):
     """``acc.at[idx].<reduce>(vals, mode="drop")`` along the last axis:
     torch's scatters raise on an out-of-bounds index instead of dropping it,
@@ -250,10 +264,14 @@ def _tick_consts(cfg, device) -> _TickConsts:
     )
 
 
-def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
+def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
+         exchange=None):
     """One tick.  ``t``: 0-d int32 tensor on the state's device; ``tkey``:
     the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
-    that the config is ported."""
+    that the config is ported.  ``topo_tables``: the kregular overlay's
+    ``(in, out)`` tables when the caller holds them
+    (runner.make_topo_dyn_sim_fn), else the config's own; ``exchange`` (the
+    sharded overlay's neighbour exchange) raises."""
     n, s = cfg.n, cfg.pbft_max_slots
     w = eff_window(cfg)
     exact = w == s
@@ -318,6 +336,14 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
                   * (vbetter & (vc_hops > 0)))
         vc_t = vc_base * vnew
 
+    # kregular overlay: every channel delivers direct over the in/out tables
+    # (no relay, no dedup state); with k below the commit quorum a node can
+    # never hear enough votes, a stalling but valid scenario
+    kreg = cfg.topology == "kregular"
+    gd._unsharded(None, exchange)
+    if kreg:
+        nbr_in, nbr_out = gd.local_tables(cfg, None, tables=topo_tables, device=dev)
+
     # ---- VIEW_CHANGE arrivals: adopt (v, leader) ----------------------------
     has_vc = vc_t > 0
     v = torch.where(has_vc, (vc_t - 1) // n, state.v)
@@ -351,22 +377,25 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
     prep_active = got_pp.any(1)
     got_pp_i = got_pp.to(_I32)
     k_rt = chan_key(tkey, Channel.DELAY_ROUNDTRIP)
-    rt_contrib = gated(
-        prep_active.any(),
-        lambda: (
-            dv.push_roundtrip_reply_counts_stat(
-                k_rt, prep_active, voters.sum(dtype=_I32) - voters.to(_I32),
-                rt_probs, drop,
-                mode=smode,
+
+    def prep_replies():
+        if stat:
+            # the overlay swaps only the per-sender peer count: a gather
+            # over the out-table instead of total-minus-self
+            n_peers = (gd.out_counts(voters, nbr_out, ids) if kreg
+                       else voters.sum(dtype=_I32) - voters.to(_I32))
+            return dv.push_roundtrip_reply_counts_stat(
+                k_rt, prep_active, n_peers, rt_probs, drop, mode=smode,
                 # replies are per broadcast, i.e. per active (node, window)
-                expand=lambda c: c[:, None] * got_pp_i,
-            ) if stat else
-            dv.roundtrip_reply_counts_dense(
-                k_rt, prep_active, lo, hi, drop, peer_mask=voters, impl=eimpl,
-            )[:, :, None] * got_pp_i[None, :, :]
-        ),
-        consts.zeros_rt,
-    )
+                expand=lambda c: c[:, None] * got_pp_i)
+        rt = (gd.roundtrip_reply_counts_kreg(k_rt, prep_active, nbr_out, ids, lo, hi, drop,
+                                             peer_mask=voters, impl=eimpl)
+              if kreg else
+              dv.roundtrip_reply_counts_dense(k_rt, prep_active, lo, hi, drop,
+                                              peer_mask=voters, impl=eimpl))
+        return rt[:, :, None] * got_pp_i[None, :, :]
+
+    rt_contrib = gated(prep_active.any(), prep_replies, consts.zeros_rt)
     pushes = [(prep_rt, rt_lo, rt_contrib, "add")]
 
     # ---- PREPARE_RES arrivals → prepare_vote → COMMIT broadcast -------------
@@ -390,15 +419,19 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
         forgers = (state.alive & ~state.honest).to(_I32) * fire.to(_I32)
         commit_mat[:, w - 1] += forgers * copies
     k_cm = chan_key(tkey, Channel.DELAY_BCAST)
-    cm_contrib = gated(
-        (commit_mat > 0).any(),
-        lambda: (
-            dv.push_bcast_slots_stat(k_cm, commit_mat, ow_probs, drop, mode=smode)
-            if stat else
-            dv.bcast_slots_dense(k_cm, commit_mat, lo, hi, drop, impl=eimpl)
-        ),
-        zeros_w,
-    )
+
+    def commits():
+        if kreg:
+            return (gd.push_bcast_slots_stat_kreg(k_cm, commit_mat, nbr_in, ids, ow_probs,
+                                                  drop, mode=smode)
+                    if stat else
+                    gd.bcast_slots_kreg(k_cm, commit_mat, nbr_in, ids, lo, hi, drop,
+                                        impl=eimpl))
+        return (dv.push_bcast_slots_stat(k_cm, commit_mat, ow_probs, drop, mode=smode)
+                if stat else
+                dv.bcast_slots_dense(k_cm, commit_mat, lo, hi, drop, impl=eimpl))
+
+    cm_contrib = gated((commit_mat > 0).any(), commits, zeros_w)
     pushes.append((commit, lo, cm_contrib, "add"))
 
     # ---- COMMIT arrivals → commit_vote → finality ---------------------------
@@ -453,15 +486,19 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
         seen_pp = torch.maximum(seen_pp, origin_enc)
         pp_out = torch.maximum(origin_enc, pp_fwd)
     else:
-        pp_contrib = gated(
-            any_block,
-            lambda: (
-                dv.bcast_window_value_max_stat(k_pp, pp_val, ow_probs, drop)
-                if stat else
-                dv.bcast_window_value_max_dense(k_pp, pp_val, lo, hi, drop, impl=eimpl)
-            ),
-            zeros_w,
-        )
+        def blocks():
+            if kreg:
+                return (gd.bcast_window_value_max_stat_kreg(k_pp, pp_val, nbr_in, ow_probs,
+                                                            drop)
+                        if stat else
+                        gd.bcast_window_value_max_kreg(k_pp, pp_val, nbr_in, ids, lo, hi,
+                                                       drop, impl=eimpl))
+            return (dv.bcast_window_value_max_stat(k_pp, pp_val, ow_probs, drop)
+                    if stat else
+                    dv.bcast_window_value_max_dense(k_pp, pp_val, lo, hi, drop,
+                                                    impl=eimpl))
+
+        pp_contrib = gated(any_block, blocks, zeros_w)
         pushes.append((pp, lo + ser, pp_contrib, "max"))
     rounds_sent = state.rounds_sent + send_block
     (slot_propose_tick,) = _scatter_window_events(
@@ -506,15 +543,19 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey):
             consts.zeros_vc,
         )
     else:
-        vc_contrib = gated(
-            any_block and trigger.any(),
-            lambda: (
-                dv.bcast_value_max_stat(k_vc, enc, ow_probs, drop)
-                if stat else
-                dv.bcast_value_max_dense(k_vc, trigger, enc, lo, hi, drop, impl=eimpl)
-            ),
-            consts.zeros_vc,
-        )
+        def view_changes_sent():
+            if kreg:
+                return (gd.bcast_value_max_stat_kreg(k_vc, enc, nbr_in, ow_probs, drop)
+                        if stat else
+                        gd.bcast_value_max_kreg(k_vc, trigger, enc, nbr_in, ids, lo, hi,
+                                                drop, impl=eimpl))
+            return (dv.bcast_value_max_stat(k_vc, enc, ow_probs, drop)
+                    if stat else
+                    dv.bcast_value_max_dense(k_vc, trigger, enc, lo, hi, drop,
+                                             impl=eimpl))
+
+        vc_contrib = gated(any_block and trigger.any(), view_changes_sent,
+                           consts.zeros_vc)
     pushes.append((vc, lo, vc_contrib, "max"))
     ring_push_group(pushes, t)  # in place on all four rings
 

@@ -18,9 +18,13 @@ plain HEARTBEAT and proposal HEARTBEAT flood over the random k-out digraph
 of ops/topology.py with a hop TTL and per-channel ``seen`` registers; votes
 and proposal acks go direct to the decoded originator, acks generated at
 flood arrival; votes go to the newest election seen, and a leader steps
-down on seeing a newer election than its own, ``my_base``).
-``"kregular"`` raises ``NotImplementedError`` naming slice 5, and
-``mesh_axis`` slice 6.
+down on seeing a newer election than its own, ``my_base``), and the
+kregular overlay (every channel direct over the circulant tables of
+topo/spec.py through ops/gatherdeliv.py: broadcasts reach out-neighbours,
+replies gather back requester-side, the edge arm's ``vreq`` ring is
+``[D, N, K]`` with the sender identity in the in-slot; equal to the full
+mesh at degree k = N-1).  ``mesh_axis`` raises ``NotImplementedError``
+naming slice 6.
 
 *Shards.*  ``init`` given lane keys ``[S, 2]`` builds ``S`` independent
 instances side by side, ``jax.vmap(raft.init)`` over the keys (the mixed
@@ -63,6 +67,7 @@ import torch
 from blockchain_simulator_tpu_torch.models.base import fault_masks
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.ops import delivery as dv
+from blockchain_simulator_tpu_torch.ops import gatherdeliv as gd
 from blockchain_simulator_tpu_torch.ops import topology
 from blockchain_simulator_tpu_torch.ops.ring import ring_pop, ring_push_group
 from blockchain_simulator_tpu_torch.utils import threefry
@@ -104,7 +109,8 @@ class RaftState:
 
 @dataclasses.dataclass
 class RaftBufs:
-    vreq: torch.Tensor      # edge [D, N_recv, N_send] sender identity; stat [D, N]
+    vreq: torch.Tensor      # edge [D, N_recv, N_send] sender identity (kregular
+    # [D, N, K]: the sender is the in-slot); stat [D, N]
     # candidate id + 1, max-combined
     vres_ok: torch.Tensor   # [D, N] granted-vote arrivals at the candidate (add)
     vres_no: torch.Tensor   # [D, N] denial arrivals at the candidate (add)
@@ -120,11 +126,6 @@ BUF_FIELDS = tuple(f.name for f in dataclasses.fields(RaftBufs))
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.topology in ("kregular", "committee"):
-        raise NotImplementedError(
-            f"topology={cfg.topology!r} comes with slice 5 of the port "
-            "(sparse topologies)"
-        )
     if cfg.mesh_axis is not None:
         raise NotImplementedError(
             "mesh_axis (node-sharded runs) comes with slice 6 of the port "
@@ -191,8 +192,14 @@ def init(cfg, key=None, *, device):
         my_base=zi(n),
         link_busy=zi(n),
     )
+    if cfg.delivery == "stat":
+        vreq = ring(n)
+    elif cfg.topology == "kregular":
+        vreq = ring(n, cfg.degree + 1)  # the in-slot, not a global column
+    else:
+        vreq = ring(n, n)
     bufs = RaftBufs(
-        vreq=ring(n) if cfg.delivery == "stat" else ring(n, n),
+        vreq=vreq,
         vres_ok=ring(n),
         vres_no=ring(n),
         hb_plain=ring(n),
@@ -255,11 +262,15 @@ def _shut(gate, contrib):
     return torch.where(gate.view((1, -1) + (1,) * (contrib.ndim - 2)), contrib, 0)
 
 
-def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
+def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
+         exchange=None):
     """One tick.  ``t``: 0-d int32 tensor on the state's device; ``tkey``:
     the tick's threefry key (utils/prng.tick_key), or one key a shard
     ``[S, 2]`` for a state with a shard axis (module docstring).  ``init``
-    has checked that the config is ported."""
+    has checked that the config is ported.  ``topo_tables``: the kregular
+    overlay's ``(in, out, inslot)`` tables when the caller holds them, else
+    the config's own; ``exchange`` (the sharded overlay's neighbour
+    exchange) raises."""
     n = cfg.n
     # shard form: the per-shard gate masks of _shut (None: one instance)
     sharded = state.is_leader.ndim == 2
@@ -324,6 +335,15 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
         vreq_t, seen_vreq, vreq_fwd = _decode(vreq_t, seen_vreq)
         plain_t, seen_hb, hb_fwd = _decode(plain_t, seen_hb)
         prop_t, seen_prop, prop_fwd = _decode(prop_t, seen_prop)
+
+    # kregular overlay: broadcasts reach out-neighbours, replies gather back
+    # requester-side (the inslot cross-index); a candidate only hears its
+    # in-neighbours' votes, so elections need k >= majority_need - 1
+    kreg = cfg.topology == "kregular"
+    gd._unsharded(None, exchange)
+    if kreg:
+        nbr_in, nbr_out, inslot = gd.local_tables(cfg, None, inslot=True,
+                                                  tables=topo_tables, device=dev)
 
     # ---- heartbeat arrivals (follower side) ---------------------------------
     got_hb = (plain_t > 0) | (prop_t > 0)
@@ -390,8 +410,12 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
             # Byzantine receivers flip their replies (grant <-> deny on the wire)
             ok_wire = (grant & honest) | (deny & ~honest)
             no_wire = (deny & honest) | (grant & ~honest)
-            mok = _reply_counts(grant_to, ok_wire, has_req, n)
-            mno = _reply_counts(grant_to, no_wire, has_req, n)
+            if kreg:  # candidate c gathers the wires addressed to it
+                mok = gd.reply_counts_by_target_kreg(ok_wire, grant_to, nbr_out, ids)
+                mno = gd.reply_counts_by_target_kreg(no_wire, grant_to, nbr_out, ids)
+            else:
+                mok = _reply_counts(grant_to, ok_wire, has_req, n)
+                mno = _reply_counts(grant_to, no_wire, has_req, n)
             if drop > 0.0:
                 kd = threefry.fold_in(k_vr, 0x0D17)
                 mok = dv._thinned(kd, mok, 1.0 - drop, smode)
@@ -402,24 +426,33 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
             pushes.append((vres_no, lo, _shut(g, dv.push_bucket_counts(
                 threefry.fold_in(k_vr, 8), mno, ow_probs, smode)), "add"))
     else:
-        # vreq_t[i, j] = 1 iff candidate j's request reaches i this tick;
-        # concurrent same-tick requests: the vote goes to the lowest id
+        # vreq_t[i, j] = 1 iff candidate j's request reaches i this tick (the
+        # overlay: j is i's in-slot, rows sorted); concurrent same-tick
+        # requests: the vote goes to the lowest id
         has_req = vreq_t > 0
         any_req = has_req.any(-1)
         if bool(any_req.any()):
             first = has_req.to(torch.uint8).argmax(-1)  # lowest j with a request
             granting = any_req & can_grant
-            grant_mask = ((ids == first[..., None]) & granting[..., None]).to(_I32)
+            cols = _ids(vreq_t.shape[-1], dev)
+            grant_mask = ((cols == first[..., None]) & granting[..., None]).to(_I32)
             deny_mask = has_req.to(_I32) - grant_mask
             has_voted = has_voted | granting
             hn = honest.to(_I32)[..., None]
             ok_wire = grant_mask * hn + deny_mask * (1 - hn)
             no_wire = deny_mask * hn + grant_mask * (1 - hn)
             g = gate(any_req)
-            pushes.append((vres_ok, lo, _shut(g, dv.unicast_reply_counts_dense(
-                threefry.fold_in(k_vr, 7), ok_wire, lo, hi, drop, impl=eimpl)), "add"))
-            pushes.append((vres_no, lo, _shut(g, dv.unicast_reply_counts_dense(
-                threefry.fold_in(k_vr, 8), no_wire, lo, hi, drop, impl=eimpl)), "add"))
+
+            def unicast(kk, wire):
+                if kreg:  # slot-indexed wires gather back through inslot
+                    return gd.unicast_reply_counts_kreg(kk, wire, nbr_in, nbr_out, inslot,
+                                                        ids, lo, hi, drop, impl=eimpl)
+                return dv.unicast_reply_counts_dense(kk, wire, lo, hi, drop, impl=eimpl)
+
+            pushes.append((vres_ok, lo, _shut(g, unicast(threefry.fold_in(k_vr, 7),
+                                                         ok_wire)), "add"))
+            pushes.append((vres_no, lo, _shut(g, unicast(threefry.fold_in(k_vr, 8),
+                                                         no_wire)), "add"))
 
     # ---- vote responses (candidate side) ------------------------------------
     follower = ~state.is_leader
@@ -516,11 +549,18 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
             seen_vreq = torch.maximum(seen_vreq, origin_v)
             my_base = torch.maximum(my_base, base_v)
             vreq_fwd = torch.maximum(origin_v, vreq_fwd)
+        elif stat:
+            vq_contrib = (gd.bcast_value_max_stat_kreg(k_vq, (ids + 1) * fire_i, nbr_in,
+                                                       ow_probs, drop)
+                          if kreg else
+                          dv.bcast_value_max_stat(k_vq, (ids + 1) * fire_i, ow_probs, drop))
         else:
-            vq_contrib = (dv.bcast_value_max_stat(k_vq, (ids + 1) * fire_i, ow_probs, drop)
-                          if stat else
+            vq_contrib = (gd.bcast_matrix_kreg(k_vq, fire, fire_i, nbr_in, ids, lo, hi, drop,
+                                               impl=eimpl)
+                          if kreg else
                           dv.bcast_matrix_dense(k_vq, fire, fire_i, lo, hi, drop,
                                                 impl=eimpl))
+        if not gossip:
             pushes.append((vreq, lo, _shut(gate(fire), vq_contrib), "max"))
     if gossip:
         floods.append((vreq, lo, k_vq, vreq_fwd))
@@ -581,39 +621,66 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey):
                                       t, k_hb, k_rt)
     else:
         if any_plain:
-            plain_contrib = (
-                # mode stays exact: this channel has O(1) senders (the leader)
-                dv.bcast_counts_stat(k_hb, plain_send.sum(-1, keepdim=True, dtype=_I32),
-                                     plain_send, ow_probs, drop, mode="exact")
-                if stat else
-                dv.bcast_counts_dense(k_hb, plain_send, lo, hi, drop, impl=eimpl))
+            # the stat mode stays exact: this channel has O(1) senders (the leader)
+            if kreg:
+                plain_contrib = (
+                    gd.bcast_counts_stat_kreg(k_hb, plain_send, nbr_in, ids, ow_probs, drop,
+                                              mode="exact")
+                    if stat else
+                    gd.bcast_counts_kreg(k_hb, plain_send, nbr_in, ids, lo, hi, drop,
+                                         impl=eimpl))
+            else:
+                plain_contrib = (
+                    dv.bcast_counts_stat(k_hb, plain_send.sum(-1, keepdim=True, dtype=_I32),
+                                         plain_send, ow_probs, drop, mode="exact")
+                    if stat else
+                    dv.bcast_counts_dense(k_hb, plain_send, lo, hi, drop, impl=eimpl))
             pushes.append((hb_plain, lo, _shut(gate(plain_send), plain_contrib), "add"))
         if any_prop:
             g = gate(prop_send)
             k_p = threefry.fold_in(k_hb, 1)
             value = (ids + 1) * prop_send.to(_I32)
-            prop_contrib = (
-                dv.bcast_value_max_stat(k_p, value, ow_probs, drop) if stat else
-                dv.bcast_value_max_dense(k_p, prop_send, value, lo, hi, drop, impl=eimpl))
+            if kreg:
+                prop_contrib = (
+                    gd.bcast_value_max_stat_kreg(k_p, value, nbr_in, ow_probs, drop)
+                    if stat else
+                    gd.bcast_value_max_kreg(k_p, prop_send, value, nbr_in, ids, lo, hi, drop,
+                                            impl=eimpl))
+            else:
+                prop_contrib = (
+                    dv.bcast_value_max_stat(k_p, value, ow_probs, drop) if stat else
+                    dv.bcast_value_max_dense(k_p, prop_send, value, lo, hi, drop,
+                                             impl=eimpl))
             pushes.append((hb_prop, lo + ser, _shut(g, prop_contrib), "max"))
             # proposal acks: follower state never affects the SUCCESS reply, so
             # the round trip is short-circuited; Byzantine followers flip to
             # FAILED.  The two channels cover disjoint peer sets.
             k_bad = threefry.fold_in(k_rt, 1)
             if stat:
-                voters_i, liars_i = voters.to(_I32), liars.to(_I32)
+                # the overlay swaps only the per-sender peer counts for
+                # out-table gathers (equal at k = N-1, same keys and chain)
+                def peer_counts(peers):
+                    if kreg:
+                        return gd.out_counts(peers, nbr_out, ids)
+                    peers_i = peers.to(_I32)
+                    return peers_i.sum(-1, keepdim=True, dtype=_I32) - peers_i
+
                 ok_counts = dv.push_roundtrip_reply_counts_stat(
-                    k_rt, prop_send, voters_i.sum(-1, keepdim=True, dtype=_I32) - voters_i,
-                    rt_probs, drop, mode=smode)
+                    k_rt, prop_send, peer_counts(voters), rt_probs, drop, mode=smode)
                 bad_counts = (dv.push_roundtrip_reply_counts_stat(
-                    k_bad, prop_send, liars_i.sum(-1, keepdim=True, dtype=_I32) - liars_i,
-                    rt_probs, drop, mode=smode) if liars_exist else None)
-            else:
-                ok_counts = dv.roundtrip_reply_counts_dense(
-                    k_rt, prop_send, lo, hi, drop, peer_mask=voters, impl=eimpl)
-                bad_counts = (dv.roundtrip_reply_counts_dense(
-                    k_bad, prop_send, lo, hi, drop, peer_mask=liars, impl=eimpl)
+                    k_bad, prop_send, peer_counts(liars), rt_probs, drop, mode=smode)
                     if liars_exist else None)
+            else:
+                def acks(kk, peers):
+                    if kreg:
+                        return gd.roundtrip_reply_counts_kreg(
+                            kk, prop_send, nbr_out, ids, lo, hi, drop, peer_mask=peers,
+                            impl=eimpl)
+                    return dv.roundtrip_reply_counts_dense(
+                        kk, prop_send, lo, hi, drop, peer_mask=peers, impl=eimpl)
+
+                ok_counts = acks(k_rt, voters)
+                bad_counts = acks(k_bad, liars) if liars_exist else None
             pushes.append((hb_ok, rt_lo + ser, _shut(g, ok_counts), "add"))
             if bad_counts is not None:
                 pushes.append((hb_bad, rt_lo + ser, _shut(g, bad_counts), "add"))

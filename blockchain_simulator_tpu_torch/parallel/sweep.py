@@ -28,8 +28,14 @@ A batch of B > 1 lanes that would need a lane axis the port's engine lacks
 The multi-seed program (JAX's ``lax.map`` of the unvmapped dyn program) has
 solo semantics: its lanes run in turn.
 
-Kept out, each raising ``NotImplementedError`` naming its slice: durable
-and supervised sweeps (``journal=``, ``supervise=``, ``dyn_chunk_keys``),
+Sparse topologies ride the same doors: a kregular config's lanes and a
+committee config's lanes run in turn (neither engine has a lane axis; a
+committee run is itself a loop over committees, topo/committee.py), with
+the refusal of multi-lane ``"normal"`` / ``"rbg"`` batches above.
+
+Kept out, each raising ``NotImplementedError`` naming its slice: the
+node-sharded topology programs (``sharded_topo_sim_fn``,
+``run_sharded_topo``): slice 6; durable and supervised sweeps (``journal=``, ``supervise=``, ``dyn_chunk_keys``),
 the run log (``$BLOCKSIM_RUNS_JSONL``) and the health gate
 (``$BLOCKSIM_HEALTH_JSONL``): the services slice; ``probe=``: the traces
 slice; ``mesh=``: slice 6 (many GPUs).
@@ -154,6 +160,31 @@ def dyn_batched_fn(cfg: SimConfig):
         return stack_lanes([sim(k, c, b, device) for k, c, b in zip(keys, nc, nb)])
 
     return batched
+
+
+def sharded_topo_sim_fn(cfg: SimConfig, mesh, layout: str = "exchange"):
+    """The node-dim mesh-sharded topology program of a kregular or committee
+    config (JAX's ``sharded_topo_sim_fn``: the overlay tables or the
+    committee stack partitioned over a ``nodes`` axis).  Other topologies
+    raise ``ValueError`` as in the JAX package; the mesh arms come with the
+    many-GPU slice.  One card runs a kregular or committee config through
+    :func:`runner.make_dyn_sim_fn` / ``make_topo_dyn_sim_fn``."""
+    del layout
+    if cfg.topology not in ("kregular", "committee"):
+        raise ValueError(
+            f"sharded_topo_sim_fn shards the sparse/hierarchical overlays; "
+            f"topology={cfg.topology!r} has no node-dim topo structure "
+            "(dense configs ride parallel/shard.py, gossip is unsharded)"
+        )
+    _refuse(f"sharded_topo_sim_fn over a mesh ({mesh!r})", "slice 6 of the port (many GPUs)")
+
+
+def run_sharded_topo(cfg: SimConfig, mesh, seed: int | None = None):
+    """One kregular or committee run sharded over ``mesh`` (JAX's
+    ``run_sharded_topo``): refused with :func:`sharded_topo_sim_fn`; on one
+    card use ``runner.run_simulation``."""
+    del seed
+    sharded_topo_sim_fn(canonical_fault_cfg(cfg), mesh)
 
 
 def multi_seed_fn(cfg: SimConfig, n_seeds: int):

@@ -10,7 +10,11 @@ block intervals instead (models/pbft_round.scan_rounds); Raft configs it
 resolves to the heartbeat-blocked path run models/raft_hb.run (the election
 prefix on the tick engine, then one step a heartbeat), and mixed configs
 models/mixed.scan_fast (the same in every Raft shard, beside the per-tick
-PBFT layer).
+PBFT layer).  ``topology="kregular"`` runs the tick engine over the overlay
+tables (topo/spec.py; :func:`make_topo_dyn_sim_fn` takes them as
+arguments), and ``topology="committee"`` runs the flat tick engine in each
+committee in turn (topo/committee.py), whose stacked final state
+models/base.sim_metrics aggregates.
 
 Dynamic fault operands (JAX's ``make_dyn_sim_fn``): the fault COUNTS are
 run-time operands of a program built once a fault *structure*
@@ -184,10 +188,19 @@ def make_sim_fn(cfg: SimConfig):
     ticks from ``proto.init``."""
     _reject_cpp_only(cfg)
     if cfg.topology == "committee":
-        raise NotImplementedError(
-            "committee topology comes with slice 5 of the port (sparse "
-            "topologies)"
-        )
+        from blockchain_simulator_tpu_torch.topo import committee
+
+        use_round_schedule(cfg)  # validates schedule='round' (always the tick engine)
+        # the static arm: the config's own fault counts through the dyn body,
+        # as the JAX package does, so one body serves both doors
+        canon = base_model.canonical_fault_cfg(cfg)
+        nc = cfg.faults.resolved_n_crashed(cfg.n)
+        nb = cfg.faults.n_byzantine
+
+        def sim_committee(seed: int, device):
+            return committee.run_stacked(canon, threefry.key(seed), nc, nb, device=device)
+
+        return sim_committee
     if use_round_schedule(cfg) and cfg.protocol == "raft":
         from blockchain_simulator_tpu_torch.models import raft_hb
 
@@ -274,14 +287,73 @@ def make_dyn_sim_fn(cfg: SimConfig):
     check_batchable(canon)
     _reject_cpp_only(canon)
     if canon.topology == "committee":
-        raise NotImplementedError(
-            "committee topology comes with slice 5 of the port (sparse "
-            "topologies)"
-        )
+        from blockchain_simulator_tpu_torch.topo import committee
+
+        use_round_schedule(canon)  # validates schedule='round' (always the tick engine)
+
+        def sim_committee(key, n_crashed, n_byzantine, device):
+            return committee.run_stacked(canon, np.asarray(key, np.int64), int(n_crashed),
+                                         int(n_byzantine), device=device)
+
+        return sim_committee
 
     def sim(key, n_crashed, n_byzantine, device):
         return _dyn_run(canon, np.asarray(key, np.int64), int(n_crashed),
                         int(n_byzantine), device)
+
+    return sim
+
+
+def topo_tables_inslot(cfg: SimConfig) -> bool:
+    """Does this protocol's kregular arm read the ``inslot`` cross-index
+    (three tables) or just the in/out pair (two)?"""
+    return cfg.protocol == "raft"
+
+
+def make_topo_dyn_sim_fn(cfg: SimConfig, exchange_spec=None):
+    """The tables-as-arguments twin of :func:`make_dyn_sim_fn` for the
+    kregular overlay: ``sim(key, n_crashed, n_byzantine, *tables, device)
+    -> final state``, where ``tables`` are the full ``[N, K]`` overlay
+    tables (ops/gatherdeliv.table_operands: ``(in, out)``, plus ``inslot``
+    for Raft, :func:`topo_tables_inslot`), numpy or tensors.  They go to the
+    device once a run and every tick reads them there; at equal values the
+    run equals :func:`make_dyn_sim_fn`'s.  ``exchange_spec`` (the sharded
+    programs' owner-bucketed exchange plans) belongs to the many-GPU slice
+    and raises."""
+    from blockchain_simulator_tpu_torch.ops import gatherdeliv as gd
+
+    canon = base_model.canonical_fault_cfg(cfg)
+    check_batchable(canon)
+    _reject_cpp_only(canon)
+    if canon.topology != "kregular":
+        raise ValueError(
+            f"make_topo_dyn_sim_fn is the kregular tables-as-operands "
+            f"program; topology={canon.topology!r} has no overlay tables "
+            "(committee shards its stacked axis instead — parallel/sweep."
+            "sharded_topo_sim_fn routes it)"
+        )
+    if exchange_spec is not None:
+        raise NotImplementedError(
+            "exchange_spec (the owner-bucketed neighbour exchange of the "
+            "node-sharded overlay) comes with slice 6 of the port (many GPUs)")
+    use_round_schedule(canon)  # validates schedule='round' (kregular: tick)
+    inslot = topo_tables_inslot(canon)
+    n_tables = 3 if inslot else 2
+    proto = get_protocol(canon.protocol)
+
+    def sim(key, n_crashed, n_byzantine, *tables, device):
+        if len(tables) != n_tables:
+            raise ValueError(f"{canon.protocol} kregular sim takes {n_tables} overlay "
+                             f"tables, got {len(tables)}")
+        dev = torch.device(device)
+        tabs = gd.local_tables(canon, None, inslot=inslot, tables=tables, device=dev)
+        key = np.asarray(key, np.int64)
+        state, bufs = proto.init(canon, threefry.fold_in(key, _INIT_FOLD), device=dev)
+        state = base_model.apply_fault_masks(
+            canon, state, *base_model.dyn_fault_masks(canon.n, int(n_crashed),
+                                                      int(n_byzantine), dev))
+        return base_model.tick_loop(dyn_step_cfg(canon, n_byzantine), state, bufs, key, 0,
+                                    canon.ticks, topo_tables=tabs)[0]
 
     return sim
 
@@ -383,6 +455,7 @@ def run_checkpointed(cfg: SimConfig, every_ms: int, ckpt_dir, seed: int | None =
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     if seed is not None:
         cfg = cfg.with_(seed=seed)
+    make_segment_fn(cfg, every_ms)  # refuses the committee hierarchy before any init
     proto = get_protocol(cfg.protocol)
     key = threefry.key(cfg.seed)
     state, bufs = proto.init(cfg, threefry.fold_in(key, _INIT_FOLD), device=dev)
@@ -418,6 +491,7 @@ def run_dyn_checkpointed(cfg: SimConfig, every_ms: int, ckpt_dir, seed: int | No
     if every_ms < 1:
         raise ValueError(f"every_ms must be >= 1, got {every_ms}")
     cfg = _dyn_checkpoint_cfg(cfg, seed)
+    make_segment_fn(cfg, every_ms)  # refuses the committee hierarchy before any init
     dev = resolve_device(device)
     canon = base_model.canonical_fault_cfg(cfg)
     nc = cfg.faults.resolved_n_crashed(cfg.n)

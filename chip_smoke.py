@@ -49,7 +49,7 @@ Phases (any failure raises, and the script exits non-zero):
               serialization modelled; "auto" resolves to the tick engine):
               metrics and digests equal the JAX golden, one ring-push launch
               per tick that pushes; wall, ticks/s, launches and pushes.  Then
-              the first 2000 ticks again: host syncs a tick (sync debug mode
+              the first 1000 ticks again: host syncs a tick (sync debug mode
               "warn"), and kernel launches, device-to-host copies and the
               device's busy share a tick (torch.profiler).
 9. raft-hb  — the same config on stat delivery with schedule "round": the
@@ -73,7 +73,7 @@ Phases (any failure raises, and the script exits non-zero):
               against the JAX golden; wall, ticks/s, launches and pushes,
               and over the first 300 ticks (the ticket, propose and commit
               phases) host syncs and kernel launches a tick.
-13. pbft-gossip, 14. raft-gossip — PBFT (1,700 ms) and Raft (2,000 ms) at
+13. pbft-gossip, 14. raft-gossip — PBFT (600 ms) and Raft (2,000 ms) at
               n = 1000 over degree-16 gossip, stat delivery, each held to its
               JAX golden, table first.
 15. mixed-kernel — the grouped kernel at the mixed sim's Raft group for
@@ -121,6 +121,26 @@ Phases (any failure raises, and the script exits non-zero):
               again.  One ring-push launch of four pushes a tick across the
               segment boundary, in both runs.
 
+20. topo-kernel — the grouped kernel at the sparse paths' new member
+              shapes against its plain version, eager and under graph
+              replay: PBFT's four pushes at n = 1,000,000 (rings
+              [8, 10^6, 8]) and Raft kregular's group at n = 10,000 (vreq
+              [D, N, 17]); device time against the bound, the plain version
+              and one library call a push.
+21. kreg-1m — the artifact's largest kregular rung (tools/topo_bench.py:
+              PBFT, n = 1,000,000, degree 8, 150 ms, edge, rbg, window 8),
+              uncut: metrics and digests equal the JAX golden, one launch
+              of four pushes a tick; the wall split into tables, init and
+              loop, syncs and launches a tick, peak card memory.
+22. committee-100k — the artifact's committee row (PBFT, n = 100,000 in
+              200 committees of 500, 150 ms, stat, "normal"), uncut, the
+              committees in turn: 200 of 200 decided, outer commit 116.0
+              ms, every milestone and stacked digest equal the golden.
+23. kreg-raft-paxos — Raft (edge) and Paxos at n = 10,000 over a degree-16
+              overlay, 1,000 ms each, held to their JAX goldens.
+24. kreg-equal — PBFT (edge, threefry) and Raft (stat, exact) at n = 256:
+              the kregular run at k = 255 equals the dense run on the card.
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -149,10 +169,20 @@ RAFT_GOSSIP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "raft_
 MIXED_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "mixed_n256k_s0.json"
 CONFIG4_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_config4_n100k_s01.json"
 DROP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_drop_n10k_s0.json"
+KREG_1M_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_kreg_n1m_s0.json"
+COMMITTEE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_committee_n100k_s0.json"
+KREG_RP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "kreg_raft_paxos_n10k_s0.json"
+# kreg-equal: the port's kregular run at k = N-1 against its dense run
+KREG_EQUAL = {
+    "pbft_edge": dict(protocol="pbft", n=256, sim_ms=600, fidelity="clean",
+                      delivery="edge", edge_sampler="threefry", stat_sampler="exact"),
+    "raft_stat": dict(protocol="raft", n=256, sim_ms=800, fidelity="clean",
+                      delivery="stat", stat_sampler="exact", raft_proposal_delay_ms=300),
+}
 CHECKPOINT_EVERY_MS = 1250
 LANE_ROUNDS_MAX = 1.25  # a lane batch's launches a round, at most, over the headline's
 GOSSIP_WINDOW_TICKS = 300
-SYNC_COUNT_TICKS = 2000
+SYNC_COUNT_TICKS = 1000
 SAMPLER_N = 1_000_000
 PROFILED_ROUNDS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -1538,6 +1568,266 @@ def phase_round(dev, card: str):
             "launches_per_round": per_round, "d2h_copies_per_round": copies_d2h}
 
 
+def phase_kernel_topo(dev, card: str):
+    """The grouped kernel at the sparse-topology paths' new member shapes
+    against its plain version, bit for bit, eager and under a CUDA-graph
+    replay: PBFT's four pushes at n = 1,000,000 (the kreg-1m rung: rings
+    [8, 10^6, 8], L = N·W = 8,000,000) and Raft kregular's group at
+    n = 10,000, degree 16 (``vreq`` [D, N, K]).  Device time per call
+    (graph replay; the 1M group's ~1 GB of rings and contributions exceed
+    the L2, so they come from HBM) against the bound, the plain version and
+    one library call per push."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import pbft, raft
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    out, max_err = {}, 0
+    kreg1m = SimConfig(**json.loads(KREG_1M_GOLDEN.read_text())["entries"]["kreg1m"]["config"])
+    kraft = SimConfig(**json.loads(KREG_RP_GOLDEN.read_text())["entries"]["raft"]["config"])
+    for name, model, cfg, reps in (("pbft_1m_group", pbft, kreg1m, 10),
+                                   ("raft_kreg_group", raft, kraft, 50)):
+        named = _tick_group(model, cfg, dev)
+        items = [it for _, it in named]
+        d = items[0][0].shape[0]
+        for tick in (0, 7, d - 1, cfg.ticks - 1):
+            max_err = max(max_err, _check_group_run(rk, name, items, tick, dev))
+        t = torch.tensor(cfg.ticks - 1, dtype=torch.int32, device=dev)
+        eager = [(r.clone(), off, c, op) for r, off, c, op in items]
+        rk.fused_push_group(eager, t)
+        replayed = [(r.clone(), off, c, op) for r, off, c, op in items]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rk.fused_push_group(replayed, t)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a[0], b[0]) for a, b in zip(eager, replayed)):
+            raise AssertionError(f"{name}: graph replay != eager launch")
+        del eager, replayed, graph
+        lib = [_library(op) for *_, op in items]
+        idx = [torch.remainder(cfg.ticks - 1 + off + torch.arange(c.shape[0], device=dev), d)
+               for _, off, c, _ in items]
+        for k, (r, off, c, op) in enumerate(items):
+            if not torch.equal(lib[k](r.clone(), idx[k], c), rk.push_plain(r.clone(), t, off, c, op)):
+                raise AssertionError(f"{name}: library call disagrees with the plain version "
+                                     f"({named[k][0]})")
+
+        def library():
+            for k, (r, _, c, _) in enumerate(items):
+                lib[k](r, idx[k], c)
+
+        fns = {"group": lambda i: rk.fused_push_group(items, t),
+               "library": lambda i: library(),
+               "plain": lambda i: rk.push_group_plain(items, t)}
+        ms = {k: _time_device_ms(f, reps) for k, f in fns.items()}
+        bound = sum(_bound_ms(c.shape[0], c[0].numel()) for _, _, c, _ in items)
+        shapes = {nm: (it[2].shape[0], it[2][0].numel()) for nm, it in named}
+        out[name] = dict(ms=ms["group"], plain_ms=ms["plain"], library_ms=ms["library"],
+                         bound_ms=bound, bound_by="bytes", members={k: list(v) for k, v in
+                                                                    shapes.items()})
+        print(f"kernel ring_push {name} on {card}: {len(items)} pushes (B, L) {shapes}: "
+              f"bit-equal to the plain version at t in (0, 7, {d - 1}, {cfg.ticks - 1}), graph "
+              f"replay == eager; device time per call (graph replay) {ms['group'] * 1e3:.3f} us "
+              f"against a {bound * 1e3:.3f} us bound ({100 * bound / ms['group']:.1f}% of it), "
+              f"{len(items)} library calls {ms['library'] * 1e3:.3f} us, plain "
+              f"{ms['plain'] * 1e3:.3f} us", flush=True)
+        del items, named
+        torch.cuda.empty_cache()
+    return out, max_err
+
+
+def _golden_run(entry, dev, what: str, model=None):
+    """A run through ``runner.final_state`` held to its JAX golden, the
+    ring-push counters set to 0 just before it and read just after (with
+    ``model``, the ticks that push and their members are counted around its
+    ``ring_push_group``).  Returns ``(cfg, metrics, wall_s, launches,
+    pushes, calls)``."""
+    import contextlib
+
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    cfg = SimConfig(**entry["config"])
+    with (_GroupCalls(model) if model is not None else contextlib.nullcontext()) as calls:
+        torch.cuda.synchronize()
+        rk.launches = rk.pushes = 0
+        t0 = time.perf_counter()
+        final = runner.final_state(cfg, seed=entry["seed"], device=dev)
+        wall = time.perf_counter() - t0
+        launches, pushes = rk.launches, rk.pushes
+    metrics = runner.sim_metrics(cfg, final)
+    _check_golden(entry, metrics, convert.state_digests(convert.state_to_numpy(final)), what)
+    return cfg, metrics, wall, launches, pushes, calls
+
+
+def phase_kreg_1m(dev, card: str):
+    """The artifact's largest kregular rung, PBFT at n = 1,000,000 over a
+    degree-8 overlay, uncut, through ``runner.final_state``: metrics and
+    every state digest equal the JAX golden, one ring-push launch of four
+    pushes a tick.  Then the wall split (the overlay tables built on the
+    host and moved to the card, init, the tick loop), host syncs a tick
+    (sync debug mode), launches a tick (raw profiler events) and the peak
+    of allocated card memory."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.models import base, pbft
+    from blockchain_simulator_tpu_torch.topo import spec
+    from blockchain_simulator_tpu_torch.utils import threefry
+
+    entry = json.loads(KREG_1M_GOLDEN.read_text())["entries"]["kreg1m"]
+    spec._tables.cache_clear()
+    spec.device_tables.cache_clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, metrics, wall, launches, pushes, _ = _golden_run(entry, dev, "kreg-1m")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (launches, pushes) != (cfg.ticks, 4 * cfg.ticks):
+        raise AssertionError(f"kreg-1m: ring_push made {launches} launches and {pushes} "
+                             f"pushes, want one launch of four pushes a tick ({cfg.ticks})")
+    # the wall apart: tables (host build + copy to the card), init, the loop
+    spec._tables.cache_clear()
+    spec.device_tables.cache_clear()
+    t0 = time.perf_counter()
+    spec._tables(cfg.n, cfg.degree, cfg.topo_seed)
+    host_s = time.perf_counter() - t0
+    copy_s = _timed_ms(lambda: spec.device_tables(cfg.n, cfg.degree, cfg.topo_seed, dev),
+                       dev) / 1e3
+    key = threefry.key(entry["seed"])
+    init_key = threefry.fold_in(key, 0x1217)
+    init_s = _timed_ms(lambda: pbft.init(cfg, init_key, device=dev), dev) / 1e3
+
+    def loop():
+        state, bufs = pbft.init(cfg, init_key, device=dev)
+        base.tick_loop(cfg, state, bufs, key, 0, cfg.ticks)
+
+    loop_s = _timed_ms(loop, dev) / 1e3 - init_s
+    syncs = _count_syncs(loop)
+    prof = _profile_window(loop, cfg.ticks)
+    tables_mb = 3 * cfg.n * (cfg.degree + 1) * 8 / 2**20
+    print(f"kreg-1m: pbft n={cfg.n} kregular degree {cfg.degree} {cfg.delivery}/"
+          f"{cfg.eff_edge_sampler} sim_ms={cfg.sim_ms}: {metrics}", flush=True)
+    print(f"kreg-1m on {card}: wall {wall:.3f} s through runner.final_state, "
+          f"{cfg.ticks / wall:.2f} ticks/s; apart: tables {host_s:.3f} s on the host + "
+          f"{copy_s:.3f} s to the card ({tables_mb:.0f} MB int64), init {init_s:.3f} s, the "
+          f"tick loop {loop_s:.3f} s ({cfg.ticks / loop_s:.2f} ticks/s); "
+          f"{syncs / cfg.ticks:.3f} host syncs and {prof['launches_per_tick']:.1f} kernel "
+          f"launches a tick, device busy {prof['device_busy_share']:.1%}; peak allocated "
+          f"{peak / 2**30:.3f} GiB; ring_push launches {launches} and pushes {pushes}; "
+          f"metrics + all state digests equal the JAX golden", flush=True)
+    return dict(wall_s=wall, ticks=cfg.ticks, ticks_per_s=cfg.ticks / wall,
+                tables_host_s=host_s, tables_copy_s=copy_s, init_s=init_s, loop_s=loop_s,
+                loop_ticks_per_s=cfg.ticks / loop_s, syncs_per_tick=syncs / cfg.ticks,
+                window=prof, max_memory_allocated=int(peak), launches=launches,
+                pushes=pushes, rounds_sent=metrics["rounds_sent"])
+
+
+def phase_committee_100k(dev, card: str):
+    """The artifact's committee row, PBFT at n = 100,000 in 200 committees
+    of 500, uncut, through ``runner.final_state``: the committees run in
+    turn on the inner tick engine; metrics (200 of 200 decided,
+    ``outer_commit_ms`` 116.0, every inner milestone) and every stacked
+    state digest equal the JAX golden; one ring-push launch of four pushes
+    an inner tick."""
+    import torch
+
+    entry = json.loads(COMMITTEE_GOLDEN.read_text())["entries"]["committee100k"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, metrics, wall, launches, pushes, _ = _golden_run(entry, dev, "committee-100k")
+    peak = torch.cuda.max_memory_allocated(dev)
+    c = cfg.committees
+    inner_ticks = c * cfg.ticks
+    if (metrics["committees_decided"], metrics["outer_commit_ms"]) != (c, 116.0):
+        raise AssertionError(f"committee-100k: {metrics['committees_decided']} of {c} "
+                             f"decided, outer commit {metrics['outer_commit_ms']} ms")
+    if (launches, pushes) != (inner_ticks, 4 * inner_ticks):
+        raise AssertionError(f"committee-100k: ring_push made {launches} launches and "
+                             f"{pushes} pushes, want one launch of four pushes an inner tick "
+                             f"({inner_ticks})")
+    miles = metrics["inner_milestones_ms"]
+    print(f"committee-100k: pbft n={cfg.n} in {c} committees of {cfg.n // c}, "
+          f"{cfg.delivery}/{cfg.eff_stat_sampler} sim_ms={cfg.sim_ms}: decided "
+          f"{metrics['committees_decided']}/{c}, outer commit {metrics['outer_commit_ms']} ms "
+          f"(quorum {metrics['outer_quorum']}, round {metrics['outer_round_ms']} ms), inner "
+          f"milestones {min(miles)}..{max(miles)} ms", flush=True)
+    print(f"committee-100k on {card}: wall {wall:.3f} s, {wall / c:.4f} s a committee, "
+          f"{inner_ticks / wall:.1f} inner ticks/s; peak allocated {peak / 2**20:.1f} MiB; "
+          f"ring_push launches {launches} and pushes {pushes}; metrics, the {c} inner "
+          f"milestones and all stacked state digests equal the JAX golden", flush=True)
+    return dict(wall_s=wall, committees=c, s_per_committee=wall / c,
+                inner_ticks=inner_ticks, inner_ticks_per_s=inner_ticks / wall,
+                max_memory_allocated=int(peak), launches=launches, pushes=pushes,
+                committees_decided=metrics["committees_decided"],
+                outer_commit_ms=metrics["outer_commit_ms"])
+
+
+def phase_kreg_raft_paxos(dev, card: str):
+    """Raft (edge) and Paxos over a degree-16 kregular overlay at n = 10,000,
+    1,000 ms each, through ``runner.final_state``, each held to its JAX
+    golden; the Raft run pushes the ``vreq`` [D, N, K] member and routes its
+    votes back through the inslot cross-index on the card.  One ring-push
+    launch a tick that pushes."""
+    from blockchain_simulator_tpu_torch.models import paxos, raft
+
+    doc = json.loads(KREG_RP_GOLDEN.read_text())["entries"]
+    out = {}
+    for name, model in (("raft", raft), ("paxos", paxos)):
+        what = f"kreg-{name}"
+        cfg, metrics, wall, launches, pushes, calls = _golden_run(doc[name], dev, what, model)
+        if launches == 0 or (launches, pushes) != (calls.ticks, calls.members):
+            raise AssertionError(f"{what}: ring_push made {launches} launches and {pushes} "
+                                 f"pushes; the ticks that push were {calls.ticks} with "
+                                 f"{calls.members} members (one launch each)")
+        print(f"{what}: {name} n={cfg.n} kregular degree {cfg.degree} {cfg.delivery} "
+              f"sim_ms={cfg.sim_ms}: {metrics}", flush=True)
+        print(f"{what} on {card}: wall {wall:.3f} s, {cfg.ticks / wall:.1f} ticks/s, "
+              f"ring_push launches {launches} and pushes {pushes} over {cfg.ticks} ticks, "
+              f"metrics + all state digests equal the JAX golden", flush=True)
+        out[name] = dict(wall_s=wall, ticks=cfg.ticks, ticks_per_s=cfg.ticks / wall,
+                         launches=launches, pushes=pushes)
+    return out
+
+
+def phase_kreg_equal(dev, card: str):
+    """On the card, the port's kregular run at k = N-1 (n = 256, k = 255)
+    equals its dense run bit for bit, metrics and every state digest:
+    PBFT on edge delivery (threefry) and Raft on stat delivery (exact)."""
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    out = {}
+    for name, kw in KREG_EQUAL.items():
+        res = {}
+        for topo in ("full", "kregular"):
+            cfg = SimConfig(**kw, topology=topo, degree=kw["n"] - 1)
+            torch.cuda.synchronize()
+            rk.launches = rk.pushes = 0
+            t0 = time.perf_counter()
+            final = runner.final_state(cfg, device=dev)
+            wall = time.perf_counter() - t0
+            res[topo] = (runner.sim_metrics(cfg, final),
+                         convert.state_digests(convert.state_to_numpy(final)), wall,
+                         rk.launches, rk.pushes)
+        (dm, dd, dw, dl, dp), (km, kd, kw_, kl, kp) = res["full"], res["kregular"]
+        if km != dm or kd != dd:
+            bad = sorted(k for k in dd if kd.get(k) != dd[k])
+            raise AssertionError(f"kreg-equal {name}: the kregular run at k = N-1 differs "
+                                 f"from the dense run: metrics equal {km == dm}, fields {bad}")
+        if kl == 0 or (kl, kp) != (dl, dp):
+            raise AssertionError(f"kreg-equal {name}: ring_push launches/pushes kregular "
+                                 f"{(kl, kp)} vs dense {(dl, dp)}")
+        print(f"kreg-equal {name} on {card}: n={kw['n']} k={kw['n'] - 1} kregular == dense "
+              f"(metrics and all {len(dd)} state digests): {dm}; wall dense {dw:.3f} s, "
+              f"kregular {kw_:.3f} s; ring_push launches {kl}, pushes {kp} each", flush=True)
+        out[name] = dict(dense_wall_s=dw, kreg_wall_s=kw_, launches=kl, pushes=kp)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1590,6 +1880,14 @@ def main() -> int:
     ckpt = phase_checkpoint(dev, card)
     print(f"sweep and checkpoint phases (config4, drop-sweep, checkpoint): "
           f"{time.perf_counter() - t_new:.3f} s", flush=True)
+    t_topo = time.perf_counter()
+    topo_groups, topo_err = phase_kernel_topo(dev, card)
+    kreg_1m = phase_kreg_1m(dev, card)
+    committee = phase_committee_100k(dev, card)
+    kreg_rp = phase_kreg_raft_paxos(dev, card)
+    kreg_equal = phase_kreg_equal(dev, card)
+    print(f"sparse-topology phases (topo-kernel, kreg-1m, committee-100k, kreg-raft-paxos, "
+          f"kreg-equal): {time.perf_counter() - t_topo:.3f} s", flush=True)
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -1601,7 +1899,7 @@ def main() -> int:
         "pushes": pushes,
         "launches_tick_stat": stat_launches,  # the tick-stat path's run
         "pushes_tick_stat": stat_pushes,
-        "max_abs_err": max(max_err, raft_err, paxos_err, mixed_err),
+        "max_abs_err": max(max_err, raft_err, paxos_err, mixed_err, topo_err),
         "ms": group["ms"],
         "plain_ms": group["plain_ms"],
         "bound_ms": group["bound_ms"],
@@ -1622,6 +1920,13 @@ def main() -> int:
         # S*m lanes; its launches and pushes in the config-5 run
         "mixed_group": dict(mixed_group, launches=config5["raft_launches"],
                             pushes=config5["raft_pushes"]),
+        # the kreg-1m rung: PBFT's four pushes at n = 10^6 (L = N*W = 8e6)
+        "pbft_1m_group": dict(topo_groups["pbft_1m_group"], launches=kreg_1m["launches"],
+                              pushes=kreg_1m["pushes"]),
+        # Raft over a degree-16 overlay at n = 10^4: vreq [D, N, K]
+        "raft_kreg_group": dict(topo_groups["raft_kreg_group"],
+                                launches=kreg_rp["raft"]["launches"],
+                                pushes=kreg_rp["raft"]["pushes"]),
         "launches_by_path": {"pbft_edge": launches, "pbft_tick_stat": stat_launches,
                              "raft_edge": raft_edge["launches"],
                              "raft_hb": raft_hb["launches"], "pbft_queued": q_launches,
@@ -1630,20 +1935,31 @@ def main() -> int:
                              "checkpoint": ckpt["launches"],
                              "checkpoint_resume": ckpt["resume_launches"],
                              "config4": config4["ring_push_launches"],
-                             "drop_sweep": drop["ring_push_launches"]},
+                             "drop_sweep": drop["ring_push_launches"],
+                             "kreg_1m": kreg_1m["launches"],
+                             "committee_100k": committee["launches"],
+                             **{f"kreg_{k}": v["launches"] for k, v in kreg_rp.items()},
+                             **{f"kreg_equal_{k}": v["launches"]
+                                for k, v in kreg_equal.items()}},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
                            **{k: v["pushes"] for k, v in gossip.items()},
                            "mixed_config5": config5["pushes"],
                            "checkpoint": ckpt["pushes"],
-                           "checkpoint_resume": ckpt["resume_pushes"]},
+                           "checkpoint_resume": ckpt["resume_pushes"],
+                           "kreg_1m": kreg_1m["pushes"],
+                           "committee_100k": committee["pushes"],
+                           **{f"kreg_{k}": v["pushes"] for k, v in kreg_rp.items()},
+                           **{f"kreg_equal_{k}": v["pushes"] for k, v in kreg_equal.items()}},
     }]
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
                                 "pbft_queued_wall_s": q_wall, "samplers": samplers,
                                 **gossip, "mixed_config5": config5, "config4": config4,
-                                "drop_sweep": drop, "checkpoint": ckpt}}),
+                                "drop_sweep": drop, "checkpoint": ckpt,
+                                "kreg_1m": kreg_1m, "committee_100k": committee,
+                                "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

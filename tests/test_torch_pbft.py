@@ -302,14 +302,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("kw", [
     dict(protocol="mixed", mixed_shards=2, mesh_axis="nodes"),  # the mixed sim runs now
-    dict(protocol="paxos", topology="kregular", degree=4),  # gossip runs now
-    dict(topology="kregular", degree=4),
-    dict(topology="committee", committees=2),
+    # gossip, then the kregular overlay and the committee hierarchy run now
+    dict(protocol="paxos", topology="kregular", degree=4, mesh_axis="nodes"),
+    dict(topology="kregular", degree=4, mesh_axis="nodes"),
+    dict(topology="committee", committees=2, echo_back=True),
     dict(mesh_axis="nodes"),
     dict(protocol="paxos", mesh_axis="nodes"),  # raft gossip runs now
-    dict(protocol="paxos", topology="committee", committees=2),  # full-mesh paxos runs now
+    dict(protocol="paxos", topology="committee", committees=2, echo_back=True),
     dict(echo_back=True),
-    dict(protocol="raft", topology="kregular", degree=4),
+    dict(protocol="raft", topology="kregular", degree=4, mesh_axis="nodes"),
     dict(protocol="raft", mesh_axis="nodes"),
     dict(protocol="mixed", mixed_shards=2, delivery="stat", schedule="round", sim_ms=500,
          mesh_axis="nodes"),

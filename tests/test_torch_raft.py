@@ -56,9 +56,10 @@ GOLDENS = {
         "n1000": dict(protocol="raft", n=1000, sim_ms=10_000, delivery="stat",
                       schedule="round"),
     },
-    # ns-3's serial-pipe transport (queued links), PBFT at the milestone size
+    # ns-3's serial-pipe transport (queued links), PBFT at the milestone size;
+    # 6,000 ms holds all 40 blocks (the last at 5,515 ms), as 10,000 ms did
     "pbft_queued_n8_s0.json": {
-        "n8": dict(protocol="pbft", n=8, queued_links=True),
+        "n8": dict(protocol="pbft", n=8, sim_ms=6000, queued_links=True),
     },
 }
 
@@ -220,7 +221,8 @@ def test_step_pushes_one_group_of_the_members_that_fire(monkeypatch, delivery):
 @pytest.mark.parametrize("kw, slice_no", [
     # raft gossip and the mixed sim's Raft shards run now; sharded shards do not
     (dict(protocol="mixed", mixed_shards=2, mesh_axis="nodes"), "slice 6"),
-    (dict(topology="kregular", degree=4), "slice 5"),
+    # the kregular overlay runs now; node-sharding it does not
+    (dict(topology="kregular", degree=4, mesh_axis="nodes"), "slice 6"),
     (dict(mesh_axis="nodes"), "slice 6"),
 ])
 def test_unported_raft_arms_raise(kw, slice_no):
