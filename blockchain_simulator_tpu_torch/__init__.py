@@ -15,23 +15,32 @@ Raft shards under a cross-shard PBFT layer, on the tick engine and on the
 heartbeat path; the Raft step runs over a leading shard axis), fault
 sweeps with the fault counts as run-time operands (BASELINE config 4: one
 batch of lanes), multi-seed runs, checkpoints in the JAX package's archive
-format, and the C++ reference engine's wrapper.
+format, the sparse topologies (the kregular overlay and the committee
+hierarchy), probe traces of every schedule (``run_traced``, beside
+``run_simulation``), run manifests and the run log (``utils/obs.py``), the
+command line (``python -m blockchain_simulator_tpu_torch``, ``cli.py``), and
+the C++ reference engine's wrapper.
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.
+``device="cpu"`` (``--device cpu`` on the command line).
 
 Subpackages
 -----------
 - ``utils``  — config and the wire codec (copies of the JAX package's),
-  checkpoints (``checkpoint.py``), the threefry and Philox streams, the
-  binomial and categorical draws, XLA:CPU's float32 math.
+  checkpoints (``checkpoint.py``), probe traces and the Chrome-trace export
+  (``trace.py``), run manifests (``obs.py``), timing syncs (``sync.py``),
+  the threefry and Philox streams, the binomial and categorical draws,
+  XLA:CPU's float32 math.
 - ``ops``    — delay samplers, ring buffers and the ring-push kernel, edge,
   stat and gossip delivery, the gossip topology.
 - ``models`` — the PBFT, Raft and Paxos tick engines, PBFT's round-blocked
   fast path, Raft's heartbeat-blocked path and the mixed shard sim.
+- ``topo``   — the kregular overlay tables and the committee hierarchy.
 - ``parallel`` — fault and seed sweeps on one device (``sweep.py``).
+- ``cli``    — the command line.
 """
 
 from blockchain_simulator_tpu_torch.utils.config import SimConfig  # noqa: F401
 from blockchain_simulator_tpu_torch.runner import run_simulation  # noqa: F401
+from blockchain_simulator_tpu_torch.utils.trace import run_traced  # noqa: F401
 
 __version__ = "0.1.0"

@@ -123,13 +123,16 @@ def apply_fault_masks(cfg, state, alive, honest):
     return state
 
 
-def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None):
+def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None, probe=None):
     """``proto.step`` over ticks ``[start, stop)`` on the state's device, the
     tick a one-element int32 tensor there and the tick keys computed on the
     host up front; lane keys ``[B, 2]`` step a lane-stacked Raft state
     (models/raft.py).  ``topo_tables`` hands the kregular overlay's device
     tables to every step.  Tick keys derive from the absolute tick, so loops
-    chained end to end equal one.  Returns ``(state, bufs)``."""
+    chained end to end equal one.  Returns ``(state, bufs)``; with ``probe``
+    (``state -> {name: 0-d tensor}``, utils/trace.probe) ``(state, bufs,
+    ys)``, ``ys`` the samples after every tick stacked ``[stop - start]`` on
+    the device (:func:`stack_samples`: no host read)."""
     from blockchain_simulator_tpu_torch.utils import prng
 
     proto = get_protocol(cfg.protocol)
@@ -137,9 +140,25 @@ def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None):
     tkeys = prng.tick_key(np.asarray(key)[None],
                           np.arange(start, stop).reshape((-1,) + (1,) * (np.ndim(key) - 1)))
     kw = {} if topo_tables is None else {"topo_tables": topo_tables}
+    samples = []
     for i in range(stop - start):
         state, bufs = proto.step(cfg, state, bufs, ticks[i], tkeys[i], **kw)
-    return state, bufs
+        if probe is not None:
+            samples.append(probe(state))
+    if probe is None:
+        return state, bufs
+    return state, bufs, stack_samples(samples, lambda: probe(state))
+
+
+def stack_samples(samples: list, template=None) -> dict:
+    """Per-step probe samples (dicts of tensors) stacked on a new leading
+    step axis, on their device: the ``ys`` of a ``lax.scan``.  With no
+    samples, ``template()`` (one sample) gives each key's dtype and shape,
+    and the stack is empty, as a scan of length 0 gives."""
+    if not samples:
+        return {k: torch.zeros((0,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+                for k, v in template().items()}
+    return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 def state_device(state) -> torch.device:

@@ -20,9 +20,9 @@ then either finishes with the ``[S]`` heartbeat scan (models/raft_hb.py)
 and the per-tick PBFT layer with ``alive`` pinned true, or continues the
 tick engine from the prefix carry.
 
-Kept out, each raising ``NotImplementedError`` naming its slice: the
-sharded arms (``mesh_axis``: the all-gather of the has-leader mask and the
-psum'd handoff verdict; slice 6) and probed runs (the traces slice).
+Kept out, raising ``NotImplementedError`` naming its slice: the sharded
+arms (``mesh_axis``: the all-gather of the has-leader mask and the psum'd
+handoff verdict; slice 6).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from blockchain_simulator_tpu_torch.models import pbft, raft, raft_hb
-from blockchain_simulator_tpu_torch.models.base import tick_loop
+from blockchain_simulator_tpu_torch.models.base import stack_samples, tick_loop
 from blockchain_simulator_tpu_torch.utils import prng, threefry
 from blockchain_simulator_tpu_torch.utils.config import FaultConfig
 
@@ -138,17 +138,18 @@ def prefix_handoff(cfg, state, bufs, key):
 def fast_finish(cfg, carry, h, key, with_probe: bool = False):
     """The steady phase from a quiet handoff in every shard: the ``[S]``
     heartbeat scan and its write-back, then the PBFT layer every tick with
-    ``alive`` pinned true.  Returns the final ``MixedState``."""
-    if with_probe:
-        raise NotImplementedError(
-            "probed runs come with the traces slice of the port (utils/trace.py "
-            "and obsim; ROADMAP.md queue A)"
-        )
+    ``alive`` pinned true.  Returns the final ``MixedState``; with
+    ``with_probe`` (utils/trace.run_traced) ``(state, (raft_ys, pbft_ys))``:
+    the heartbeat scan's per-shard series ``[S, K]`` and the PBFT layer's
+    ``global_blocks`` / ``global_commit_events`` after every tick, ``[ticks
+    - t_e]``, all int32 on the device."""
     rcfg, pcfg = sub_configs(cfg)
     t_e = raft_hb.prefix_ticks(rcfg)
     s = cfg.mixed_shards
     st, bf = carry
-    res = raft_hb.steady_scan(rcfg, _shard_keys(key, _HB_SCAN, s), h)
+    res = raft_hb.steady_scan(rcfg, _shard_keys(key, _HB_SCAN, s), h, with_probe=with_probe)
+    if with_probe:
+        res, raft_ys = res
     raft_final = raft_hb.materialize(rcfg, st.raft, h, res)
     dev = st.pbft.alive.device
     # every shard keeps its leader from here on (pbft.step leaves alive as is)
@@ -157,9 +158,21 @@ def fast_finish(cfg, carry, h, key, with_probe: bool = False):
     stop = max(cfg.ticks, t_e)
     ticks = torch.arange(t_e, stop, dtype=torch.int32, device=dev)
     tkeys = threefry.fold_in(prng.tick_key(key, range(t_e, stop)), _PBFT_STEP)
+    samples = []
     for i in range(stop - t_e):
         ps, pb = pbft.step(pcfg, ps, pb, ticks[i], tkeys[i])
-    return MixedState(raft=raft_final, pbft=ps)
+        if with_probe:
+            samples.append(_layer_probe(ps))
+    final = MixedState(raft=raft_final, pbft=ps)
+    if not with_probe:
+        return final
+    return final, (raft_ys, stack_samples(samples, lambda: _layer_probe(ps)))
+
+
+def _layer_probe(ps) -> dict:
+    """The global PBFT layer's probe sample (int32 0-d tensors)."""
+    return {"global_blocks": ps.block_num.max(),
+            "global_commit_events": ps.slot_commits.sum(dtype=torch.int32)}
 
 
 def scan_fast(cfg, state: MixedState, bufs: MixedBufs, key):

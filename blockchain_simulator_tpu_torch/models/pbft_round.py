@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from blockchain_simulator_tpu_torch.models import pbft as pbft_tick
-from blockchain_simulator_tpu_torch.models.base import fault_masks
+from blockchain_simulator_tpu_torch.models.base import fault_masks, stack_samples
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.ops import delivery as dv
 from blockchain_simulator_tpu_torch.utils import prng, threefry
@@ -325,20 +325,41 @@ def round_range(cfg) -> range:
 def scan_rounds(cfg, state: PbftRoundState, key, with_probe=False):
     """Step every block interval inside the simulation window from
     ``state``; ``key`` is the run's base threefry key, or one a lane
-    (``[B, 2]``) for a lane-stacked state."""
-    if with_probe:
+    (``[B, 2]``) for a lane-stacked state.
+
+    ``with_probe=True`` (utils/trace.run_traced) also records the standard
+    PBFT probe (utils/trace.probe reads the field names this state shares
+    with the tick engine's) after every round, and returns ``(state, ys)``:
+    ``ys`` maps each probe name to a ``[rounds]`` tensor on the state's
+    device, stacked once at the end (no host read in the loop).  A callable
+    ``with_probe`` (``state -> {name: 0-d tensor}``) is used as the probe
+    instead.  The probe only reads, so the state is the unprobed run's.
+    Probed lane batches (the sweeps' ``probe=``, obsim) come with the
+    services slice of the port."""
+    if with_probe is True:
+        from blockchain_simulator_tpu_torch.utils import trace
+
+        probe_fn = functools.partial(trace.probe, cfg)
+    else:
+        probe_fn = with_probe or None
+    if probe_fn is not None and np.ndim(key) == 2:
         raise NotImplementedError(
-            "probed round runs (utils/trace, obsim) come with the traces slice "
-            "of the port (ROADMAP.md queue A)"
+            "probed lane batches (the sweeps' probe=, obsim) come with the services "
+            "slice of the port (ROADMAP.md queue A)"
         )
     rounds = round_range(cfg)
     bt = cfg.pbft_block_interval_ms
     ticks = np.asarray([r * bt for r in rounds], np.int64)
     # [R, 2], or [R, B, 2] for lane keys
     tkeys = prng.tick_key(np.asarray(key)[None], ticks.reshape((-1,) + (1,) * (np.ndim(key) - 1)))
+    samples = []
     for i, r in enumerate(rounds):
         state = step_round(cfg, state, r, tkeys[i])
-    return state
+        if probe_fn is not None:
+            samples.append(probe_fn(state))
+    if probe_fn is None:
+        return state
+    return state, stack_samples(samples, lambda: probe_fn(state))
 
 
 def metrics(cfg, state) -> dict:

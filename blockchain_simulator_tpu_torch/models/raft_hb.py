@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from blockchain_simulator_tpu_torch.models import raft as raft_tick
-from blockchain_simulator_tpu_torch.models.base import tick_loop
+from blockchain_simulator_tpu_torch.models.base import stack_samples, tick_loop
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
 from blockchain_simulator_tpu_torch.utils import prng, threefry
 from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
@@ -203,12 +203,13 @@ def steady_scan(cfg, keys, h: Handoff, with_probe: bool = False):
     Every step's ack-wave draw is made up front, for all steps and shards at
     once, with the count ``ok_cnt``: a step that proposes nothing takes its
     draw masked to 0, which is what JAX's draw of a count of 0 gives in
-    both samplers.  The step loop then makes no host read."""
-    if with_probe:
-        raise NotImplementedError(
-            "probed runs (per-heartbeat probe series) come with the traces "
-            "slice of the port (utils/trace.py and obsim; ROADMAP.md queue A)"
-        )
+    both samplers.  The step loop then makes no host read.
+
+    ``with_probe=True`` (utils/trace.run_traced) also records, after every
+    heartbeat step, ``{"blocks", "rounds", "acks_in_window", "stopped"}``
+    (the leader-global values, int32) and returns ``(out, ys)``, each ``ys``
+    value ``[S, K]`` on the device (the vmapped JAX scan's ``ys``).  The
+    probe only reads the carry."""
     keys = np.asarray(keys, np.int64)
     dev = h.bt0.device
     n_sh = len(h.hb0)
@@ -252,6 +253,7 @@ def steady_scan(cfg, keys, h: Handoff, with_probe: bool = False):
     add_on = torch.ones((n_sh,), dtype=torch.bool, device=dev)
     stopped = torch.zeros((n_sh,), dtype=torch.bool, device=dev)
     bn, rnd, bt = h.bn0.to(_I32), h.rnd0.to(_I32), h.bt0.to(_I32)
+    samples = []
     for k in range(steps):
         t_k = t_all[k]
         arrivals = pend[:, 0]
@@ -277,7 +279,13 @@ def steady_scan(cfg, keys, h: Handoff, with_probe: bool = False):
         pend = torch.cat([pend[:, 1:], torch.zeros_like(pend[:, :1])], 1)
         pend[:, later_rows, later] += cnts[:, later]
         stopped = stopped | (bn >= b_max)  # blockNum >= max cancels the heartbeat
-    return hs, open_, bn, rnd, add_on, stopped, bt
+        if with_probe:
+            samples.append({"blocks": bn, "rounds": rnd, "acks_in_window": hs,
+                            "stopped": stopped.to(_I32)})
+    out = (hs, open_, bn, rnd, add_on, stopped, bt)
+    if not with_probe:
+        return out
+    return out, {k: v.movedim(0, 1) for k, v in stack_samples(samples).items()}
 
 
 def materialize(cfg, state, h: Handoff, scan_out):
@@ -327,8 +335,9 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     global handoffs_taken, handoffs_refused, prefix_s, scan_s
     if probe is not None:
         raise NotImplementedError(
-            "probed runs come with the traces slice of the port (utils/trace.py "
-            "and obsim; ROADMAP.md queue A)"
+            "probe= (obsim's (sample, steady_map, reduce) taps) comes with the "
+            "services slice of the port (obsim; ROADMAP.md queue A); "
+            "utils/trace.run_traced records the heartbeat path's probe series"
         )
     lanes = np.ndim(key) == 2
     keys = np.asarray(key, np.int64).reshape(-1, 2)

@@ -33,12 +33,17 @@ committee config's lanes run in turn (neither engine has a lane axis; a
 committee run is itself a loop over committees, topo/committee.py), with
 the refusal of multi-lane ``"normal"`` / ``"rbg"`` batches above.
 
+The run log: with ``$BLOCKSIM_RUNS_JSONL`` set, every row (``{"seed": s,
+**metrics}``, at the point's own config) is appended through
+``utils/obs.record_run``, as the JAX package's sweeps do; the returned dicts
+stay pure metrics.
+
 Kept out, each raising ``NotImplementedError`` naming its slice: the
 node-sharded topology programs (``sharded_topo_sim_fn``,
-``run_sharded_topo``): slice 6; durable and supervised sweeps (``journal=``, ``supervise=``, ``dyn_chunk_keys``),
-the run log (``$BLOCKSIM_RUNS_JSONL``) and the health gate
-(``$BLOCKSIM_HEALTH_JSONL``): the services slice; ``probe=``: the traces
-slice; ``mesh=``: slice 6 (many GPUs).
+``run_sharded_topo``): slice 6; durable and supervised sweeps
+(``journal=``, ``supervise=``, ``dyn_chunk_keys``), the health gate
+(``$BLOCKSIM_HEALTH_JSONL``) and obsim's ``probe=``: the services slice;
+``mesh=``: slice 6 (many GPUs).
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ from blockchain_simulator_tpu_torch.runner import (
     resolve_device,
     use_round_schedule,
 )
-from blockchain_simulator_tpu_torch.utils import threefry
+from blockchain_simulator_tpu_torch.utils import obs, threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
 _SERVICES = "the services slice of the port (ROADMAP.md queue A)"
@@ -79,15 +84,16 @@ def _refuse_arms(mesh=None, journal=None, supervise=None, probe=None):
     if journal is not None or supervise is not None:
         _refuse("journal= / supervise= (durable, supervised sweeps)", _SERVICES)
     if probe is not None:
-        _refuse("probe= (consensus probes)",
-                "the traces slice of the port (utils/trace.py and obsim; ROADMAP.md queue A)")
+        _refuse("probe= (obsim's consensus probes, obsim.schema.ProbeConfig)", _SERVICES)
 
 
-def _record(rows_cfgs):
-    """JAX appends every row to ``$BLOCKSIM_RUNS_JSONL`` (utils/obs); the
-    port has no run log yet, so a set variable is refused, not ignored."""
-    if rows_cfgs and os.environ.get("BLOCKSIM_RUNS_JSONL"):
-        _refuse("the run log ($BLOCKSIM_RUNS_JSONL, utils/obs.record_run)", _SERVICES)
+def _record(rows, cfgs, seeds):
+    """Append every row to the optional run log (``$BLOCKSIM_RUNS_JSONL``)
+    as ``{"seed": s, **metrics}`` at its own config, as the JAX package's
+    sweeps do (utils/obs.record_run: a finalized copy; the rows stay as
+    they are)."""
+    for m, cfg, seed in zip(rows, cfgs, seeds):
+        obs.record_run({"seed": int(seed), **m}, cfg)
 
 
 def _health_gate():
@@ -234,7 +240,7 @@ def run_seed_sweep(cfg: SimConfig, seeds, mesh=None, device=None):
     seeds = list(seeds)
     finals = _batched_fn(cfg)(seeds, dev)
     out = [sim_metrics(cfg, lane_state(finals, i)) for i in range(len(seeds))]
-    _record(out)
+    _record(out, [cfg] * len(out), seeds)
     return out
 
 
@@ -261,7 +267,7 @@ def _dispatch_dyn_points(canon: SimConfig, points, record: bool = True,
         points = points[:n_out]
     out = [sim_metrics(cfg_i, lane_state(finals, i)) for i, (cfg_i, _) in enumerate(points)]
     if record:
-        _record(out)
+        _record(out, [c for c, _ in points], [s for _, s in points])
     return out
 
 

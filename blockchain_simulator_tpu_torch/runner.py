@@ -360,17 +360,34 @@ def make_topo_dyn_sim_fn(cfg: SimConfig, exchange_spec=None):
 
 def final_state(cfg: SimConfig, seed: int | None = None, device=None):
     """Run and return the raw final state (for tests and digests)."""
+    from blockchain_simulator_tpu_torch.utils.sync import force_sync
+
     dev = resolve_device(device)
-    state = make_sim_fn(cfg)(cfg.seed if seed is None else seed, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return state
+    return force_sync(make_sim_fn(cfg)(cfg.seed if seed is None else seed, dev))
 
 
-def run_simulation(cfg: SimConfig, seed: int | None = None, device=None) -> dict:
+def run_simulation(cfg: SimConfig, seed: int | None = None, with_timing: bool = False,
+                   device=None) -> dict:
     """Run one simulation; returns the protocol's structured metrics dict,
-    the same dict the JAX package's ``run_simulation`` returns."""
-    return sim_metrics(cfg, final_state(cfg, seed, device))
+    the same dict the JAX package's ``run_simulation`` returns.
+
+    ``with_timing`` stages through ``utils/obs.timed_run``: a first run
+    pays the kernel build and the warm-up, then a second run is timed
+    between ``force_sync``s; the dict gains ``compile_plus_first_run_s``,
+    the execution-only ``wallclock_s`` and ``ticks``, as JAX's does."""
+    if not with_timing:
+        return sim_metrics(cfg, final_state(cfg, seed, device))
+    from blockchain_simulator_tpu_torch.utils import obs
+
+    dev = resolve_device(device)
+    sim = make_sim_fn(cfg)
+    final, compile_s, wall = obs.timed_run(lambda s: sim(s, dev),
+                                           cfg.seed if seed is None else seed)
+    m = sim_metrics(cfg, final)
+    m["wallclock_s"] = wall
+    m["compile_plus_first_run_s"] = round(compile_s, 3)
+    m["ticks"] = cfg.ticks
+    return m
 
 
 def run_multi_seed(cfg: SimConfig, seeds, record: bool = True, device=None):

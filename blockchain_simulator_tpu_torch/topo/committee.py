@@ -35,6 +35,8 @@ trip, ``2 * (one_way_hi - 1)`` (0 at C = 1).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -64,12 +66,14 @@ def stacked_body(cfg, keys, alive_cm, honest_cm, probe=None):
     """The committee body: the inner tick engine over each committee in
     turn — ``keys [C', 2]``, ``alive_cm`` / ``honest_cm [C', m]`` ->
     stacked final state ``[C', ...]``, what JAX's ``lax.map`` returns.
-    ``probe`` (per-committee taps) belongs to the traces slice and
-    raises."""
-    if probe is not None:
-        raise NotImplementedError(
-            "probe= (per-committee consensus taps) comes with the traces slice "
-            "of the port (utils/trace.py and obsim; ROADMAP.md queue A)")
+
+    ``probe`` (utils/trace.py) arms per-committee taps: a ``(sample_fn,
+    finalize_fn)`` pair, ``sample_fn(icfg, state) -> {name: 0-d tensor}``
+    after every inner tick and ``finalize_fn(icfg, final, ys) -> {name:
+    tensor}`` over the committee's series ``{name: [ticks]}``.  The
+    committees' dicts are stacked ``[C', ...]`` as ``lax.map`` stacks them,
+    on the device, and ``(finals, probes)`` is returned.  The taps only
+    read, so the finals are the unprobed run's."""
     from blockchain_simulator_tpu_torch.runner import dyn_step_cfg
 
     proto = base_model.get_protocol(cfg.protocol)
@@ -78,12 +82,19 @@ def stacked_body(cfg, keys, alive_cm, honest_cm, probe=None):
     liars = int(bool((alive_cm & ~honest_cm).any()))
     step_cfg = dyn_step_cfg(icfg, liars)
     device = alive_cm.device
-    finals = []
+    sample_fn, finalize_fn = probe or (None, None)
+    tap = None if probe is None else functools.partial(sample_fn, icfg)
+    finals, probes = [], []
     for kc, alive_c, honest_c in zip(np.asarray(keys, np.int64), alive_cm, honest_cm):
         state, bufs = proto.init(icfg, threefry.fold_in(kc, _INIT_FOLD), device=device)
         state = base_model.apply_fault_masks(icfg, state, alive_c, honest_c)
-        finals.append(base_model.tick_loop(step_cfg, state, bufs, kc, 0, icfg.ticks)[0])
-    return base_model.stack_lanes(finals)
+        out = base_model.tick_loop(step_cfg, state, bufs, kc, 0, icfg.ticks, probe=tap)
+        finals.append(out[0])
+        if probe is not None:
+            probes.append(finalize_fn(icfg, out[0], out[2]))
+    if probe is None:
+        return base_model.stack_lanes(finals)
+    return base_model.stack_lanes(finals), base_model.stack_samples(probes)
 
 
 def run_stacked(cfg, key, n_crashed, n_byzantine, probe=None, *, device):
@@ -91,7 +102,8 @@ def run_stacked(cfg, key, n_crashed, n_byzantine, probe=None, *, device):
     state [C, ...]`` on ``device``, the fault counts as run-time operands
     (runner.make_dyn_sim_fn's committee arm; the static arm passes the
     config's own counts).  ``cfg`` must be fault-canonical
-    (models/base.canonical_fault_cfg), like every dyn program."""
+    (models/base.canonical_fault_cfg), like every dyn program.  ``probe``
+    goes to :func:`stacked_body` (``(finals, probes)`` when armed)."""
     c, m = cfg.committees, cfg.n // cfg.committees
     alive, honest = base_model.dyn_fault_masks(cfg.n, int(n_crashed), int(n_byzantine),
                                                torch.device(device))

@@ -141,6 +141,29 @@ Phases (any failure raises, and the script exits non-zero):
 24. kreg-equal — PBFT (edge, threefry) and Raft (stat, exact) at n = 256:
               the kregular run at k = 255 equals the dense run on the card.
 
+25. cli-trace-round — the slice at full width: cli.main in this process
+              with the headline's flags (PBFT, n = 100,000, stat,
+              serialization off, window 8) cut to 500 rounds, with --trace:
+              the metrics line and every series (sha256, dtype, shape, last
+              value) equal the JAX golden (golden/trace_s0.json), the
+              manifest names the card; the probed scan's first 100 rounds
+              again under sync debug mode "error"; kernel launches a round,
+              probed against unprobed.
+26. cli-trace-tick — cli.main with config 2's flags and --schedule tick
+              --trace: metrics equal the edge golden, series the trace
+              golden, one ring-push launch of four pushes a tick; host syncs
+              a tick.
+27. trace-hb, 28. trace-mixed, 29. trace-committee — run_traced on the
+              Raft heartbeat golden's config, on 16 Raft shards x 1,000
+              (3,000 ms, stat) and on n = 5,000 in 10 committees of 500
+              (150 ms, stat, "normal"), each held to the trace golden.
+30. profile — cli.main --profile on PBFT n = 1000, edge, 200 ms: metrics
+              equal the JAX golden, and the exported Chrome trace holds one
+              ring_push kernel event a tick of the profiled run.
+31. entry   — a subprocess, python -m blockchain_simulator_tpu_torch
+              --protocol pbft --n 8 --sim-ms 600 --timing: exit 0, the
+              manifest names the card, the metrics equal the JAX golden's.
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -172,6 +195,7 @@ DROP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_drop_n1
 KREG_1M_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_kreg_n1m_s0.json"
 COMMITTEE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_committee_n100k_s0.json"
 KREG_RP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "kreg_raft_paxos_n10k_s0.json"
+TRACE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "trace_s0.json"
 # kreg-equal: the port's kregular run at k = N-1 against its dense run
 KREG_EQUAL = {
     "pbft_edge": dict(protocol="pbft", n=256, sim_ms=600, fidelity="clean",
@@ -185,6 +209,7 @@ GOSSIP_WINDOW_TICKS = 300
 SYNC_COUNT_TICKS = 1000
 SAMPLER_N = 1_000_000
 PROFILED_ROUNDS = 20
+SYNC_CHECKED_ROUNDS = 100  # probed rounds rerun under sync debug mode "error"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 67e12    # H100 SXM non-tensor 32-bit rate (data sheet fp32 figure)
 
@@ -1828,6 +1853,344 @@ def phase_kreg_equal(dev, card: str):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# traces, run manifests and the command line                                  #
+# --------------------------------------------------------------------------- #
+
+
+def _series_summary(series: dict) -> dict:
+    """What the trace golden keeps of a series dict (tests/test_torch_trace.py
+    ``series_summary``): each array's sha256 (convert.digest), dtype, shape
+    and last value."""
+    from blockchain_simulator_tpu_torch import convert
+
+    return {k: {"sha256": convert.digest(v), "dtype": str(v.dtype), "shape": list(v.shape),
+                "last": v[..., -1].tolist() if v.size else None}
+            for k, v in sorted(series.items())}
+
+
+def _check_trace(entry, metrics, series, what: str):
+    """Metrics and every series (sha256, dtype, shape, last value) against
+    the trace golden's entry."""
+    if metrics != entry["metrics"]:
+        raise AssertionError(f"{what}: metrics differ from the JAX golden:\n{metrics}\n"
+                             f"{entry['metrics']}")
+    got = _series_summary(series)
+    bad = sorted(k for k in set(got) | set(entry["series"])
+                 if got.get(k) != entry["series"].get(k))
+    if bad:
+        raise AssertionError(f"{what}: series differ from the JAX golden: {bad}")
+
+
+def _cli(argv) -> dict:
+    """``cli.main(argv)`` in this process; its last JSON line (exit 0 or
+    the phase fails)."""
+    import contextlib
+    import io
+
+    from blockchain_simulator_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)}: exit {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _check_manifest(line, what: str, config_hash=None):
+    import torch
+
+    man = line["manifest"]
+    if (man.get("backend"), man.get("device")) != ("cuda", torch.cuda.get_device_name(0)):
+        raise AssertionError(f"{what}: the manifest {man} does not name the card")
+    if config_hash is not None and man["config_hash"] != config_hash:
+        raise AssertionError(f"{what}: config hash {man['config_hash']}, the JAX CLI's "
+                             f"{config_hash}")
+
+
+def _cli_trace(argv, entry, dev, what: str):
+    """The CLI with ``--trace`` into a temporary file: the line's metrics and
+    the file's series against the golden, the manifest naming the card and
+    the JAX CLI's config hash.  Returns ``(line, series, wall_s)``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    with tempfile.TemporaryDirectory() as d:
+        path = str(pathlib.Path(d) / "series.npz")
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        line = _cli(argv + ["--trace", path])
+        wall = time.perf_counter() - t0
+        with np.load(path) as f:
+            series = {k: f[k] for k in f.files}
+    metrics = {k: v for k, v in line.items()
+               if k not in ("manifest", "trace_file", "trace_series", "seed")}
+    _check_trace(entry, metrics, series, what)
+    _check_manifest(line, what, entry["config_hash"])
+    return line, series, wall
+
+
+def _round_launches(cfg, dev, probed: bool, rounds: int) -> float:
+    """Kernel launches a round of the round path over its first rounds (raw
+    profiler events, after one warm-up round), with or without the probe."""
+    import functools
+
+    import torch
+
+    from blockchain_simulator_tpu_torch import runner
+    from blockchain_simulator_tpu_torch.models import pbft_round
+    from blockchain_simulator_tpu_torch.utils import prng, threefry, trace
+
+    key = threefry.key(0)
+    state, _ = pbft_round.init(cfg, threefry.fold_in(key, runner._INIT_FOLD), device=dev)
+    rr = pbft_round.round_range(cfg)[:rounds + 1]
+    tkeys = prng.tick_key(key, [r * cfg.pbft_block_interval_ms for r in rr])
+    tap = functools.partial(trace.probe, cfg) if probed else (lambda st: None)
+    state = pbft_round.step_round(cfg, state, rr[0], tkeys[0])  # warm-up
+    tap(state)
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(1, len(rr)):
+            state = pbft_round.step_round(cfg, state, rr[i], tkeys[i])
+            tap(state)
+        torch.cuda.synchronize(dev)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    return len(kernels) / (len(rr) - 1)
+
+
+def phase_cli_trace_round(dev, card: str):
+    """The slice at full width: ``cli.main`` in this process with the
+    headline's flags (bench._cfg: PBFT, n = 100,000, stat, serialization
+    off, window 8) cut to 500 rounds, with ``--trace``: the metrics line and
+    every series equal the JAX golden, the manifest names the card.  Then
+    the probed scan over the first 100 rounds under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync inside it fails
+    the phase), its series the CLI's; then kernel launches a round, probed
+    against unprobed, over the first rounds."""
+    import numpy as np
+    import torch
+
+    from blockchain_simulator_tpu_torch import cli, runner
+    from blockchain_simulator_tpu_torch.models import pbft_round
+    from blockchain_simulator_tpu_torch.utils import threefry
+
+    entry = json.loads(TRACE_GOLDEN.read_text())["entries"]["cli_trace_round"]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(entry["argv"]))
+    if not runner.use_round_schedule(cfg):
+        raise AssertionError("cli-trace-round: the config should run the round path")
+    line, series, wall = _cli_trace(entry["argv"], entry, dev, "cli-trace-round")
+    head = cfg.with_(sim_ms=SYNC_CHECKED_ROUNDS * cfg.pbft_block_interval_ms + 1)
+    key = threefry.key(0)
+    state, _ = pbft_round.init(head, threefry.fold_in(key, runner._INIT_FOLD), device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, ys = pbft_round.scan_rounds(head, state, key, with_probe=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(dev)
+    head_s = time.perf_counter() - t0
+    # the head's last round is cut at its window's end, so it is left out
+    for k, v in ys.items():
+        if not np.array_equal(v.cpu().numpy()[:-1], series[k][:len(v) - 1]):
+            raise AssertionError(f"cli-trace-round: the sync-checked scan's {k} differs")
+    probed = _round_launches(cfg, dev, True, PROFILED_ROUNDS)
+    plain = _round_launches(cfg, dev, False, PROFILED_ROUNDS)
+    rounds = len(pbft_round.round_range(cfg))
+    print(f"cli-trace-round: {' '.join(entry['argv'])} --trace: "
+          f"{ {k: line[k] for k in entry['metrics']} }", flush=True)
+    print(f"cli-trace-round on {card}: wall {wall:.3f} s (cli.main, {rounds} rounds, "
+          f"{line['rounds_sent'] / wall:.2f} rounds/s), metrics + {len(series)} series equal "
+          f"the JAX golden, the manifest names {line['manifest']['device']}; 0 host syncs "
+          f"in the probed scan (its first {len(ys['rounds_sent'])} rounds, sync debug mode "
+          f"'error', {head_s:.3f} s); {probed:.1f} kernel launches a round probed, "
+          f"{plain:.1f} unprobed (first {PROFILED_ROUNDS} rounds, torch.profiler)", flush=True)
+    return dict(wall_s=wall, rounds=rounds, rounds_per_s=line["rounds_sent"] / wall,
+                sync_checked_rounds=len(ys["rounds_sent"]), sync_checked_s=head_s,
+                launches_per_round_probed=probed, launches_per_round=plain)
+
+
+def phase_cli_trace_tick(dev, card: str):
+    """``cli.main`` with BASELINE config 2's flags (PBFT, n = 1000, 2,500 ms,
+    edge) and ``--schedule tick --trace``, under sync debug mode "warn":
+    the metrics equal the edge golden (pbft_edge_s0.json n1000), the series
+    the trace golden; one ring-push launch of four pushes a tick, as
+    untraced; host syncs a tick of the whole CLI run."""
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+
+    entry = json.loads(TRACE_GOLDEN.read_text())["entries"]["cli_trace_tick"]
+    edge = json.loads(GOLDEN.read_text())["entries"]["n1000"]
+    if entry["metrics"] != edge["metrics"]:
+        raise AssertionError("cli-trace-tick: the trace golden is not the edge golden's run")
+    ticks = 2500
+    out = {}
+
+    def run():
+        rk.launches = rk.pushes = 0
+        out["line"], out["series"], out["wall"] = _cli_trace(entry["argv"], entry, dev,
+                                                             "cli-trace-tick")
+        out["launches"], out["pushes"] = rk.launches, rk.pushes
+
+    syncs = _count_syncs(run)
+    if (out["launches"], out["pushes"]) != (ticks, 4 * ticks):
+        raise AssertionError(f"cli-trace-tick: ring_push made {out['launches']} launches and "
+                             f"{out['pushes']} pushes, want {ticks} and {4 * ticks}")
+    print(f"cli-trace-tick on {card}: {' '.join(entry['argv'])} --trace: wall "
+          f"{out['wall']:.3f} s under sync debug mode 'warn' ({ticks / out['wall']:.1f} "
+          f"ticks/s), metrics equal the edge golden, {len(out['series'])} series the trace "
+          f"golden; ring_push launches {out['launches']} and pushes {out['pushes']}; "
+          f"{syncs / ticks:.3f} host syncs a tick ({syncs} in the CLI run)", flush=True)
+    return dict(wall_s=out["wall"], ticks=ticks, launches=out["launches"],
+                pushes=out["pushes"], syncs_per_tick=syncs / ticks)
+
+
+def _traced_phase(name: str, dev, card: str, check=None):
+    """``run_traced`` on a trace golden entry's config, held to it; the
+    ring-push counters set to 0 just before and read just after."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils import trace
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(TRACE_GOLDEN.read_text())["entries"][name]
+    cfg = SimConfig(**entry["config"])
+    torch.cuda.synchronize(dev)
+    rk.launches = rk.pushes = 0
+    t0 = time.perf_counter()
+    metrics, series = trace.run_traced(cfg, seed=entry["seed"], device=dev)
+    wall = time.perf_counter() - t0
+    launches, pushes = rk.launches, rk.pushes
+    _check_trace(entry, metrics, series, name)
+    if check is not None:
+        check(cfg, metrics, series, launches, pushes)
+    shapes = {k: v.shape for k, v in series.items()}
+    print(f"{name} on {card}: run_traced {cfg.protocol} n={cfg.n} sim_ms={cfg.sim_ms}: wall "
+          f"{wall:.3f} s, ring_push launches {launches} and pushes {pushes}, metrics + "
+          f"series {shapes} equal the JAX golden", flush=True)
+    return dict(wall_s=wall, launches=launches, pushes=pushes,
+                samples=len(series.get("t", next(iter(series.values())))))
+
+
+def phase_trace_hb(dev, card: str):
+    """The Raft heartbeat golden's config (raft_hb_n1000_s0.json) through
+    ``run_traced``: its metrics, the handoff taken (a ``"t"`` axis of
+    heartbeats), the per-heartbeat series equal the JAX golden."""
+    hb = json.loads(RAFT_HB_GOLDEN.read_text())["entries"]["n1000"]
+
+    def check(cfg, metrics, series, launches, pushes):
+        if metrics != hb["metrics"] or "t" not in series or launches == 0:
+            raise AssertionError("trace-hb: not the heartbeat golden's run with the "
+                                 "handoff taken and the prefix's pushes")
+
+    return _traced_phase("trace_hb", dev, card, check)
+
+
+def phase_trace_mixed(dev, card: str):
+    """16 Raft shards x 1,000 nodes, 3,000 ms, stat, serialization off
+    (config 5's knobs at 16 shards) through ``run_traced``: every handoff
+    taken, per-heartbeat shard aggregates and the PBFT layer equal the JAX
+    golden."""
+
+    def check(cfg, metrics, series, launches, pushes):
+        if "t" not in series or metrics["shards_with_leader"] != cfg.mixed_shards:
+            raise AssertionError("trace-mixed: a handoff was refused")
+
+    return _traced_phase("trace_mixed", dev, card, check)
+
+
+def phase_trace_committee(dev, card: str):
+    """PBFT n = 5,000 in 10 committees of 500, 150 ms, stat, "normal" (the
+    committee row's knobs) through ``run_traced``: stacked ``[10, 150]``
+    series equal the JAX golden; one ring-push launch of four pushes an
+    inner tick."""
+
+    def check(cfg, metrics, series, launches, pushes):
+        inner = cfg.committees * cfg.ticks
+        if (launches, pushes) != (inner, 4 * inner):
+            raise AssertionError(f"trace-committee: ring_push made {launches} launches and "
+                                 f"{pushes} pushes, want {inner} and {4 * inner}")
+
+    return _traced_phase("trace_committee", dev, card, check)
+
+
+def phase_profile(dev, card: str):
+    """``cli.main`` with ``--profile DIR`` on PBFT n = 1000, edge, 200 ms:
+    the metrics equal the JAX golden, and the exported Chrome trace holds
+    one ``ring_push`` kernel event a tick of the profiled run."""
+    import tempfile
+
+    entry = json.loads(TRACE_GOLDEN.read_text())["entries"]["profile"]
+    argv = ["--protocol", "pbft", "--n", str(entry["config"]["n"]),
+            "--sim-ms", str(entry["config"]["sim_ms"])]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        line = _cli(argv + ["--profile", d])
+        wall = time.perf_counter() - t0
+        doc = json.loads((pathlib.Path(d) / "trace.json").read_text())
+    events = doc["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ring = [e for e in kernels if "ring_push" in e.get("name", "")]
+    metrics = {k: v for k, v in line.items()
+               if k not in ("manifest", "profile_dir", "profiled_run_s",
+                            "compile_plus_first_run_s")}
+    if metrics != entry["metrics"]:
+        raise AssertionError(f"profile: metrics differ from the JAX golden:\n{metrics}")
+    _check_manifest(line, "profile")
+    ticks = entry["config"]["sim_ms"]
+    if len(ring) != ticks:
+        raise AssertionError(f"profile: {len(ring)} ring_push kernel events in the trace, "
+                             f"want one a tick ({ticks})")
+    print(f"profile on {card}: {' '.join(argv)} --profile: wall {wall:.3f} s (the profiled "
+          f"run {line['profiled_run_s']:.3f} s, the first {line['compile_plus_first_run_s']:.3f}"
+          f" s); the Chrome trace holds {len(events)} events, {len(kernels)} kernels, "
+          f"{len(ring)} of them ring_push ({ring[0]['name']}); metrics equal the JAX golden",
+          flush=True)
+    return dict(wall_s=wall, profiled_run_s=line["profiled_run_s"], events=len(events),
+                kernel_events=len(kernels), ring_push_events=len(ring))
+
+
+def phase_entry(card: str):
+    """One subprocess, ``python -m blockchain_simulator_tpu_torch --protocol
+    pbft --n 8 --sim-ms 600 --timing``: exit 0, the manifest names the card,
+    the metrics equal the JAX golden's."""
+    import os
+
+    import torch
+
+    entry = json.loads(TRACE_GOLDEN.read_text())["entries"]["entry"]
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "blockchain_simulator_tpu_torch",
+                           *entry["argv"]], capture_output=True, text=True, cwd=HERE,
+                          env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"entry: exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    timing = ("wallclock_s", "compile_plus_first_run_s", "ticks", "manifest")
+    metrics = {k: v for k, v in line.items() if k not in timing}
+    if metrics != entry["metrics"] or line["ticks"] != entry["config"]["sim_ms"]:
+        raise AssertionError(f"entry: metrics differ from the JAX golden:\n{metrics}")
+    man = line["manifest"]
+    if (man.get("backend"), man.get("device")) != ("cuda", torch.cuda.get_device_name(0)):
+        raise AssertionError(f"entry: the manifest {man} does not name the card")
+    print(f"entry on {card}: python -m blockchain_simulator_tpu_torch "
+          f"{' '.join(entry['argv'])}: exit 0 in {wall:.3f} s (the process), the run "
+          f"{line['wallclock_s']:.4f} s after a first run of "
+          f"{line['compile_plus_first_run_s']:.3f} s, manifest {man['device']} x "
+          f"{man['device_count']} torch {man['torch']} cuda {man['cuda']}, metrics equal "
+          f"the JAX golden", flush=True)
+    return dict(wall_s=wall, run_s=line["wallclock_s"],
+                first_run_s=line["compile_plus_first_run_s"])
+
+
 def main() -> int:
     import torch
 
@@ -1888,6 +2251,17 @@ def main() -> int:
     kreg_equal = phase_kreg_equal(dev, card)
     print(f"sparse-topology phases (topo-kernel, kreg-1m, committee-100k, kreg-raft-paxos, "
           f"kreg-equal): {time.perf_counter() - t_topo:.3f} s", flush=True)
+    t_trace = time.perf_counter()
+    traced = {"cli_trace_round": phase_cli_trace_round(dev, card),
+              "cli_trace_tick": phase_cli_trace_tick(dev, card),
+              "trace_hb": phase_trace_hb(dev, card),
+              "trace_mixed": phase_trace_mixed(dev, card),
+              "trace_committee": phase_trace_committee(dev, card),
+              "profile": phase_profile(dev, card),
+              "entry": phase_entry(card)}
+    print(f"trace phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
+                                                 for k, v in traced.items())
+          + f"; together {time.perf_counter() - t_trace:.3f} s", flush=True)
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -1940,7 +2314,11 @@ def main() -> int:
                              "committee_100k": committee["launches"],
                              **{f"kreg_{k}": v["launches"] for k, v in kreg_rp.items()},
                              **{f"kreg_equal_{k}": v["launches"]
-                                for k, v in kreg_equal.items()}},
+                                for k, v in kreg_equal.items()},
+                             "cli_trace_tick": traced["cli_trace_tick"]["launches"],
+                             "trace_hb": traced["trace_hb"]["launches"],
+                             "trace_mixed": traced["trace_mixed"]["launches"],
+                             "trace_committee": traced["trace_committee"]["launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
@@ -1951,7 +2329,11 @@ def main() -> int:
                            "kreg_1m": kreg_1m["pushes"],
                            "committee_100k": committee["pushes"],
                            **{f"kreg_{k}": v["pushes"] for k, v in kreg_rp.items()},
-                           **{f"kreg_equal_{k}": v["pushes"] for k, v in kreg_equal.items()}},
+                           **{f"kreg_equal_{k}": v["pushes"] for k, v in kreg_equal.items()},
+                           "cli_trace_tick": traced["cli_trace_tick"]["pushes"],
+                           "trace_hb": traced["trace_hb"]["pushes"],
+                           "trace_mixed": traced["trace_mixed"]["pushes"],
+                           "trace_committee": traced["trace_committee"]["pushes"]},
     }]
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
@@ -1959,7 +2341,8 @@ def main() -> int:
                                 **gossip, "mixed_config5": config5, "config4": config4,
                                 "drop_sweep": drop, "checkpoint": ckpt,
                                 "kreg_1m": kreg_1m, "committee_100k": committee,
-                                "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal}}),
+                                "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal,
+                                **traced}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

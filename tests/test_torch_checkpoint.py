@@ -38,7 +38,7 @@ from blockchain_simulator_tpu_torch import runner as trunner
 from blockchain_simulator_tpu_torch.models import base as tbase
 from blockchain_simulator_tpu_torch.utils import checkpoint as tckpt
 from blockchain_simulator_tpu_torch.utils import threefry
-from test_torch_pbft import _cfgs
+from test_torch_pbft import _cfgs, release_jax_executables  # noqa: F401 (autouse fixture)
 
 # (config, every_ms): the JAX package's own checkpoint test configs
 CASES = {

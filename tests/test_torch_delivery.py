@@ -18,6 +18,7 @@ from blockchain_simulator_tpu.ops import delivery as jdv
 from blockchain_simulator_tpu_torch.ops import delay as tdelay
 from blockchain_simulator_tpu_torch.ops import delivery as tdv
 from blockchain_simulator_tpu_torch.utils import threefry
+from test_torch_pbft import release_jax_executables  # noqa: F401 (autouse fixture)
 
 LO, HI = 6, 9  # the PBFT one-way range at the package defaults
 CASES = [(n, drop) for n in (8, 33) for drop in (0.0, 0.1)]

@@ -19,7 +19,7 @@ from blockchain_simulator_tpu import engine as jengine
 from blockchain_simulator_tpu_torch import engine as tengine
 from blockchain_simulator_tpu_torch import runner as trunner
 from blockchain_simulator_tpu_torch.utils import config as tconfig
-from test_torch_pbft import _cfgs
+from test_torch_pbft import _cfgs, release_jax_executables  # noqa: F401 (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -42,7 +42,9 @@ from blockchain_simulator_tpu_torch.ops import delivery as tdv
 from blockchain_simulator_tpu_torch.ops import topology as ttopology
 from blockchain_simulator_tpu_torch.utils import config as tconfig
 from blockchain_simulator_tpu_torch.utils import threefry
-from test_torch_pbft import _assert_leaves_equal, _cfgs, _jax_leaves
+from test_torch_pbft import (  # noqa: F401 (release_jax_executables: autouse)
+    _assert_leaves_equal, _cfgs, _jax_leaves, release_jax_executables,
+)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_DIR = REPO / "blockchain_simulator_tpu_torch" / "golden"

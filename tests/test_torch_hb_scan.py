@@ -25,6 +25,7 @@ from blockchain_simulator_tpu.utils import config as jconfig
 from blockchain_simulator_tpu_torch.models import raft_hb as thb
 from blockchain_simulator_tpu_torch.ops import delay as tdelay
 from blockchain_simulator_tpu_torch.utils import config as tconfig
+from test_torch_pbft import release_jax_executables  # noqa: F401 (autouse fixture)
 
 BASE = dict(protocol="raft", n=16, sim_ms=2000, delivery="stat", schedule="round")
 B = 50  # raft_max_blocks at the defaults

@@ -49,7 +49,9 @@ from blockchain_simulator_tpu_torch.models import raft as traft
 from blockchain_simulator_tpu_torch.ops import delay as tdelay
 from blockchain_simulator_tpu_torch.ops import delivery as tdv
 from blockchain_simulator_tpu_torch.utils import threefry
-from test_torch_pbft import _assert_leaves_equal, _cfgs
+from test_torch_pbft import (  # noqa: F401 (release_jax_executables: autouse)
+    _assert_leaves_equal, _cfgs, release_jax_executables,
+)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "blockchain_simulator_tpu_torch" / "golden" / "mixed_n256k_s0.json"
@@ -348,9 +350,23 @@ def test_refusals_match_jax(kw, exc, match):
 
 
 def test_probed_mixed_run_raises():
-    _, tcfg = _cfgs(**CASES["fast"])
-    with pytest.raises(NotImplementedError, match="traces slice"):
-        tmixed.fast_finish(tcfg, None, None, threefry.key(0), with_probe=True)
+    """Probed mixed runs are ported (utils/trace.py): fast_finish with the
+    probe ends in the unprobed run's state and returns the heartbeat scan's
+    ``[S, K]`` series and the PBFT layer's ``[ticks - t_e]`` series."""
+    _, tcfg = _cfgs(**dict(STAT, n=12, mixed_shards=4, sim_ms=800))
+    key = threefry.key(0)
+    state, bufs = tmixed.init(tcfg, threefry.fold_in(key, 0x1217), device="cpu")
+    carry, ok_all, h = tmixed.prefix_handoff(tcfg, state, bufs, key)
+    assert ok_all
+    final, (raft_ys, pbft_ys) = tmixed.fast_finish(tcfg, carry, h, key, with_probe=True)
+    plain = trunner.final_state(tcfg, device="cpu")
+    assert (convert.state_digests(convert.state_to_numpy(final))
+            == convert.state_digests(convert.state_to_numpy(plain)))
+    rcfg, _ = tmixed.sub_configs(tcfg)
+    t_e = tmixed.raft_hb.prefix_ticks(rcfg)
+    assert sorted(raft_ys) == ["acks_in_window", "blocks", "rounds", "stopped"]
+    assert all(v.shape == (4, tmixed.raft_hb.n_hb_steps(rcfg)) for v in raft_ys.values())
+    assert all(v.shape == (tcfg.ticks - t_e,) for v in pbft_ys.values())
 
 
 def test_golden_holds_the_config5_milestones():

@@ -29,7 +29,9 @@ from blockchain_simulator_tpu_torch.models import paxos as tpaxos
 from blockchain_simulator_tpu_torch.utils import config as tconfig
 from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
-from test_torch_pbft import _assert_leaves_equal, _cfgs, _jax_leaves
+from test_torch_pbft import (  # noqa: F401 (release_jax_executables: autouse)
+    _assert_leaves_equal, _cfgs, _jax_leaves, release_jax_executables,
+)
 
 RUNS = {
     # tests/test_paxos.py's CFG, both fidelities

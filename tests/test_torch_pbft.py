@@ -19,6 +19,7 @@ Regenerate them with ``python tests/test_torch_pbft.py --write-golden``
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -43,6 +44,39 @@ from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+# half of Linux's default limit on a process's memory mappings
+# (vm.max_map_count, 65,530)
+_MAPPINGS_HIGH = 32_768
+
+
+def _mappings() -> int:
+    """This process's memory mappings (0 where there is no procfs)."""
+    try:
+        with open("/proc/self/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:
+        return 0
+
+
+@pytest.fixture(autouse=True)
+def release_jax_executables():
+    """After each test, free the JAX programs this process has compiled once
+    it holds more than ``_MAPPINGS_HIGH`` memory mappings (every port test
+    file that runs the JAX package imports this fixture).  XLA:CPU maps each
+    compiled program's code into memory, several hundred mappings a
+    simulation program, and JAX keeps its programs cached: a test process
+    that has compiled a few hundred reaches the kernel's limit on mappings,
+    and the next compile crashes the process.  ``jax.clear_caches`` drops
+    the cached programs and the collection unmaps them; below the mark
+    nothing is freed, so tests that share programs do not compile again."""
+    yield
+    if _mappings() > _MAPPINGS_HIGH:
+        jax.clear_caches()
+        gc.collect()
+
+
 GOLDEN_DIR = REPO / "blockchain_simulator_tpu_torch" / "golden"
 GOLDEN = GOLDEN_DIR / "pbft_edge_s0.json"
 GOLDEN_CONFIGS = {
@@ -289,6 +323,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, blockchain_simulator_tpu_torch as p\n"
         "from blockchain_simulator_tpu_torch import convert, runner\n"
         "from blockchain_simulator_tpu_torch.ops import ring, ring_kernel, delivery, delay\n"
+        "from blockchain_simulator_tpu_torch import cli\n"
+        "from blockchain_simulator_tpu_torch.utils import obs, sync, trace\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'blockchain_simulator_tpu'))\n"
         "print(bad)\n"
@@ -322,13 +358,22 @@ def test_unported_configs_raise(kw):
 
 
 def test_probed_round_run_raises():
+    """Probed round runs are ported (utils/trace.py): the probed scan
+    leaves the unprobed final state and records one int32 sample a round."""
     from blockchain_simulator_tpu_torch.models import pbft_round
 
     cfg = tconfig.SimConfig(protocol="pbft", n=8, sim_ms=200, delivery="stat",
                             schedule="round", model_serialization=False)
-    state, _ = pbft_round.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pbft_round.scan_rounds(cfg, state, threefry.key(0), with_probe=True)
+    plain = pbft_round.scan_rounds(cfg, pbft_round.init(cfg, device="cpu")[0],
+                                   threefry.key(0))
+    probed, ys = pbft_round.scan_rounds(cfg, pbft_round.init(cfg, device="cpu")[0],
+                                        threefry.key(0), with_probe=True)
+    assert (convert.state_digests(convert.state_to_numpy(probed))
+            == convert.state_digests(convert.state_to_numpy(plain)))
+    n_rounds = len(pbft_round.round_range(cfg))
+    assert sorted(ys) == ["blocks_committed_max", "commit_events_total", "rounds_sent",
+                          "view_max"]
+    assert all(v.dtype == torch.int32 and v.shape == (n_rounds,) for v in ys.values())
 
 
 @pytest.mark.parametrize("kw", [

@@ -18,7 +18,9 @@ from blockchain_simulator_tpu import runner as jrunner
 from blockchain_simulator_tpu_torch import convert
 from blockchain_simulator_tpu_torch import runner as trunner
 from blockchain_simulator_tpu_torch.utils import config as tconfig
-from test_torch_pbft import _assert_leaves_equal, _cfgs, _jax_leaves
+from test_torch_pbft import (  # noqa: F401 (release_jax_executables: autouse)
+    _assert_leaves_equal, _cfgs, _jax_leaves, release_jax_executables,
+)
 
 
 RUNS = {

@@ -17,6 +17,7 @@ import pytest
 from blockchain_simulator_tpu.ops import delay as jdelay
 from blockchain_simulator_tpu_torch.ops import delay as tdelay
 from blockchain_simulator_tpu_torch.utils import philox, threefry
+from test_torch_pbft import release_jax_executables  # noqa: F401 (autouse fixture)
 
 
 def _kd(k):

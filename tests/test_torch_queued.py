@@ -24,7 +24,9 @@ from blockchain_simulator_tpu_torch import runner as trunner
 from blockchain_simulator_tpu_torch.models import pbft as tpbft
 from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
-from test_torch_pbft import _assert_leaves_equal, _cfgs, _jax_leaves
+from test_torch_pbft import (  # noqa: F401 (release_jax_executables: autouse)
+    _assert_leaves_equal, _cfgs, _jax_leaves, release_jax_executables,
+)
 
 RUNS = {
     "pbft_n8": dict(protocol="pbft", n=8, sim_ms=1500, pbft_max_rounds=12),

@@ -41,7 +41,9 @@ from blockchain_simulator_tpu_torch.models import raft as traft
 from blockchain_simulator_tpu_torch.utils import config as tconfig
 from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
-from test_torch_pbft import _assert_leaves_equal, _cfgs
+from test_torch_pbft import (  # noqa: F401 (release_jax_executables: autouse)
+    _assert_leaves_equal, _cfgs, release_jax_executables,
+)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_DIR = REPO / "blockchain_simulator_tpu_torch" / "golden"

@@ -20,11 +20,12 @@ from blockchain_simulator_tpu import runner as jrunner
 from blockchain_simulator_tpu.models import pbft_round as jround
 from blockchain_simulator_tpu_torch import convert
 from blockchain_simulator_tpu_torch import runner as trunner
-from blockchain_simulator_tpu_torch.models import mixed as tmixed
 from blockchain_simulator_tpu_torch.models import pbft_round as tround
 from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
-from test_torch_pbft import ROUND_CONFIGS, _assert_leaves_equal, _cfgs, _jax_leaves
+from test_torch_pbft import (  # noqa: F401 (release_jax_executables: autouse)
+    _assert_leaves_equal, _cfgs, _jax_leaves, release_jax_executables, ROUND_CONFIGS,
+)
 
 # serialization off: rounds must close inside one block interval
 BASE = dict(protocol="pbft", delivery="stat", model_serialization=False)
@@ -134,13 +135,17 @@ def test_headline_config_resolves_to_the_round_path():
 
 
 def test_probe_and_raft_refused():
+    """Probed round runs are ported (utils/trace.py, tests/test_torch_trace.py);
+    probed lane batches (the sweeps' probe=, obsim) still raise, naming the
+    services slice.  The mixed sim resolves its schedule as JAX does."""
     _, tcfg = _cfgs(**BASE, n=16, sim_ms=200, schedule="round")
     state, _ = tround.init(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="traces slice"):
-        tround.scan_rounds(tcfg, state, threefry.key(0), with_probe=True)
-    # Raft's heartbeat path and the mixed shard sim are ported now: the mixed
-    # sim resolves its schedule as JAX does, and its probed runs raise
+    final, ys = tround.scan_rounds(tcfg, state, threefry.key(0), with_probe=True)
+    assert len(ys["rounds_sent"]) == len(tround.round_range(tcfg))
+    assert int(ys["rounds_sent"][-1]) == int(final.next_n.max())
+    lanes = np.stack([threefry.key(0), threefry.key(1)])
+    state, _ = tround.init(tcfg, lanes, device="cpu")
+    with pytest.raises(NotImplementedError, match="services slice"):
+        tround.scan_rounds(tcfg, state, lanes, with_probe=True)
     jcfg, rcfg = _cfgs(protocol="mixed", n=16, mixed_shards=2, sim_ms=200, delivery="stat")
     assert trunner.use_round_schedule(rcfg) == jrunner.use_round_schedule(jcfg)
-    with pytest.raises(NotImplementedError, match="traces slice"):
-        tmixed.fast_finish(rcfg, None, None, threefry.key(0), with_probe=True)

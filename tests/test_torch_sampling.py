@@ -21,6 +21,7 @@ from blockchain_simulator_tpu.ops import delivery as jdv
 from blockchain_simulator_tpu_torch.ops import delay as tdelay
 from blockchain_simulator_tpu_torch.ops import delivery as tdv
 from blockchain_simulator_tpu_torch.utils import threefry, xla_math
+from test_torch_pbft import release_jax_executables  # noqa: F401 (autouse fixture)
 
 
 def _kd(k):

@@ -58,8 +58,9 @@ from blockchain_simulator_tpu_torch import runner as trunner
 from blockchain_simulator_tpu_torch.models import base as tbase
 from blockchain_simulator_tpu_torch.parallel import sweep as tsweep
 from blockchain_simulator_tpu_torch.utils import config as tconfig
+from blockchain_simulator_tpu_torch.utils import obs
 from blockchain_simulator_tpu_torch.utils.checkpoint import config_to_json as tconfig_to_json
-from test_torch_pbft import _cfgs
+from test_torch_pbft import _cfgs, release_jax_executables  # noqa: F401 (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_DIR = REPO / "blockchain_simulator_tpu_torch" / "golden"
@@ -415,7 +416,7 @@ REFUSED = {
     "mesh": (lambda cfg: tsweep.run_seed_sweep(cfg, [0, 1], mesh=object(), device="cpu"),
              "slice 6"),
     "probe": (lambda cfg: tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=object(),
-                                                device="cpu"), "traces slice"),
+                                                device="cpu"), "services"),
 }
 
 
@@ -431,10 +432,19 @@ def test_sweep_arms_refused(arm):
 
 @pytest.mark.parametrize("var", ["BLOCKSIM_RUNS_JSONL", "BLOCKSIM_HEALTH_JSONL"])
 def test_sweep_env_arms_refused(monkeypatch, tmp_path, var):
-    """The run log and the health gate are the services slice's: with their
-    variable set a sweep raises instead of ignoring it."""
-    monkeypatch.setenv(var, str(tmp_path / "log.jsonl"))
+    """The health gate is the services slice's: with its variable set a
+    sweep raises instead of ignoring it.  The run log is ported
+    (utils/obs.py): with its variable set a sweep appends one row a point,
+    the point's seed and metrics under its config's hash."""
+    path = tmp_path / "log.jsonl"
+    monkeypatch.setenv(var, str(path))
     _, tcfg = _cfgs(protocol="pbft", n=8, sim_ms=60)
+    if var == "BLOCKSIM_RUNS_JSONL":
+        (row,) = tsweep.run_fault_sweep(tcfg, [tcfg.faults], [0], device="cpu")[tcfg.faults]
+        (rec,) = obs.read_jsonl(str(path))
+        assert rec["seed"] == 0 and {k: rec[k] for k in row} == row
+        assert rec["manifest"]["config_hash"] == obs.config_hash(tcfg)
+        return
     with pytest.raises(NotImplementedError, match="services"):
         tsweep.run_fault_sweep(tcfg, [tcfg.faults], [0], device="cpu")
 

@@ -15,6 +15,7 @@ import pytest
 from blockchain_simulator_tpu.utils import prng as jprng
 from blockchain_simulator_tpu_torch.utils import prng as tprng
 from blockchain_simulator_tpu_torch.utils import threefry
+from test_torch_pbft import release_jax_executables  # noqa: F401 (autouse fixture)
 
 SEEDS = [0, 1, 7, 123456789, 2**32 + 5]
 SHAPES = [(), (1,), (7,), (3, 5), (2, 3, 5)]

@@ -52,6 +52,7 @@ from blockchain_simulator_tpu_torch.topo import committee as tcommittee
 from blockchain_simulator_tpu_torch.topo import spec as tspec
 from blockchain_simulator_tpu_torch.utils import config as tconfig
 from blockchain_simulator_tpu_torch.utils import threefry
+from test_torch_pbft import release_jax_executables  # noqa: F401 (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_DIR = REPO / "blockchain_simulator_tpu_torch" / "golden"
@@ -571,9 +572,17 @@ def test_sharded_topo_and_exchange_refuse():
         trunner.make_topo_dyn_sim_fn(tconfig.SimConfig(**RUNS["committee_pbft"]))
     with pytest.raises(NotImplementedError, match="slice 6"):
         trunner.run_simulation(kcfg.with_(mesh_axis="nodes"), device="cpu")
-    with pytest.raises(NotImplementedError, match="traces slice"):
-        tcommittee.run_stacked(tconfig.SimConfig(**RUNS["committee_pbft"]), threefry.key(0),
-                               0, 0, probe=(None, None), device="cpu")
+    # committee probes are ported (utils/trace.py): the taps only read, and
+    # the committees' series stack [C, ticks]
+    ccfg = tconfig.SimConfig(protocol="pbft", n=8, sim_ms=60, topology="committee",
+                             committees=2)
+    finals, ys = tcommittee.run_stacked(
+        ccfg, threefry.key(0), 0, 0, device="cpu",
+        probe=(lambda icfg, st: {"views": st.v.max()}, lambda icfg, final, ys: ys))
+    plain = tcommittee.run_stacked(ccfg, threefry.key(0), 0, 0, device="cpu")
+    assert (convert.state_digests(convert.state_to_numpy(finals))
+            == convert.state_digests(convert.state_to_numpy(plain)))
+    assert list(ys) == ["views"] and ys["views"].shape == (2, 60)
     with pytest.raises(ValueError, match="schedule='round'"):
         trunner.make_sim_fn(tconfig.SimConfig(**RUNS["committee_pbft"], schedule="round"))
 
