@@ -18,8 +18,9 @@ batch of lanes), multi-seed runs, checkpoints in the JAX package's archive
 format, the sparse topologies (the kregular overlay and the committee
 hierarchy), probe traces of every schedule (``run_traced``, beside
 ``run_simulation``), run manifests and the run log (``utils/obs.py``), the
-command line (``python -m blockchain_simulator_tpu_torch``, ``cli.py``), and
-the C++ reference engine's wrapper.
+command line (``python -m blockchain_simulator_tpu_torch``, ``cli.py``), the
+scenario server (``serve/``) with its registry, telemetry, health gate, WAL
+and chaos points, and the C++ reference engine's wrapper.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``--device cpu`` on the command line).
 
@@ -36,6 +37,11 @@ Subpackages
   fast path, Raft's heartbeat-blocked path and the mixed shard sim.
 - ``topo``   — the kregular overlay tables and the committee hierarchy.
 - ``parallel`` — fault and seed sweeps on one device (``sweep.py``).
+- ``serve``  — the scenario server and its daemon (``python -m
+  blockchain_simulator_tpu_torch.serve``), with the chaos points
+  (``chaos/``), the executable registry (``utils/aotcache.py``), host
+  telemetry (``utils/telemetry.py``) and the health probe
+  (``utils/health.py``).
 - ``cli``    — the command line.
 """
 

@@ -344,8 +344,8 @@ def scan_rounds(cfg, state: PbftRoundState, key, with_probe=False):
         probe_fn = with_probe or None
     if probe_fn is not None and np.ndim(key) == 2:
         raise NotImplementedError(
-            "probed lane batches (the sweeps' probe=, obsim) come with the services "
-            "slice of the port (ROADMAP.md queue A)"
+            "probed lane batches (the sweeps' probe=, obsim) come with the "
+            "durable-sweeps slice of the port (journal, query, obsim; ROADMAP.md queue A)"
         )
     rounds = round_range(cfg)
     bt = cfg.pbft_block_interval_ms

@@ -336,7 +336,7 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     if probe is not None:
         raise NotImplementedError(
             "probe= (obsim's (sample, steady_map, reduce) taps) comes with the "
-            "services slice of the port (obsim; ROADMAP.md queue A); "
+            "durable-sweeps slice of the port (journal, query, obsim; ROADMAP.md queue A); "
             "utils/trace.run_traced records the heartbeat path's probe series"
         )
     lanes = np.ndim(key) == 2

@@ -38,18 +38,24 @@ The run log: with ``$BLOCKSIM_RUNS_JSONL`` set, every row (``{"seed": s,
 ``utils/obs.record_run``, as the JAX package's sweeps do; the returned dicts
 stay pure metrics.
 
+The services around the dispatch are the JAX package's: the batched
+programs are registry entries (utils/aotcache.py: ``"sweep-batched"``,
+``"sweep-batched-dynf"``, ``"multi-seed-tick"``), the batched dispatch fires
+the ``sweep.dyn_dispatch`` chaos point (chaos/inject.py) and runs inside
+``telemetry.profile_region("sweep_dispatch")``, and the fault sweeps fail
+fast on a fresh ``wedged`` verdict in ``$BLOCKSIM_HEALTH_JSONL``
+(utils/health.require_not_wedged).
+
 Kept out, each raising ``NotImplementedError`` naming its slice: the
 node-sharded topology programs (``sharded_topo_sim_fn``,
-``run_sharded_topo``): slice 6; durable and supervised sweeps
-(``journal=``, ``supervise=``, ``dyn_chunk_keys``), the health gate
-(``$BLOCKSIM_HEALTH_JSONL``) and obsim's ``probe=``: the services slice;
-``mesh=``: slice 6 (many GPUs).
+``run_sharded_topo``) and ``mesh=``: slice 6 (many GPUs); durable and
+supervised sweeps (``journal=``, ``supervise=``, ``dyn_chunk_keys``) and
+obsim's ``probe=``: the durable-sweeps slice (journal, query, obsim).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 
@@ -67,10 +73,13 @@ from blockchain_simulator_tpu_torch.runner import (
     resolve_device,
     use_round_schedule,
 )
-from blockchain_simulator_tpu_torch.utils import obs, threefry
+from blockchain_simulator_tpu_torch.chaos import inject
+from blockchain_simulator_tpu_torch.utils import aotcache, health, obs, telemetry, threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
-_SERVICES = "the services slice of the port (ROADMAP.md queue A)"
+DURABLE_SWEEPS = ("the durable-sweeps slice of the port (journal, query, obsim; "
+                  "ROADMAP.md queue A)")
+MANY_GPUS = "slice 6 of the port (many GPUs)"
 
 
 def _refuse(what: str, where: str):
@@ -80,11 +89,11 @@ def _refuse(what: str, where: str):
 def _refuse_arms(mesh=None, journal=None, supervise=None, probe=None):
     """The sweep arms later slices bring."""
     if mesh is not None:
-        _refuse("mesh= (a sweep over a device mesh)", "slice 6 of the port (many GPUs)")
+        _refuse("mesh= (a sweep over a device mesh)", MANY_GPUS)
     if journal is not None or supervise is not None:
-        _refuse("journal= / supervise= (durable, supervised sweeps)", _SERVICES)
+        _refuse("journal= / supervise= (durable, supervised sweeps)", DURABLE_SWEEPS)
     if probe is not None:
-        _refuse("probe= (obsim's consensus probes, obsim.schema.ProbeConfig)", _SERVICES)
+        _refuse("probe= (obsim's consensus probes, obsim.schema.ProbeConfig)", DURABLE_SWEEPS)
 
 
 def _record(rows, cfgs, seeds):
@@ -97,12 +106,10 @@ def _record(rows, cfgs, seeds):
 
 
 def _health_gate():
-    """JAX's sweeps fail fast on a fresh ``wedged`` verdict in
-    ``$BLOCKSIM_HEALTH_JSONL`` (utils/health); without the variable its gate
-    passes, and so does the port's."""
-    if os.environ.get("BLOCKSIM_HEALTH_JSONL"):
-        _refuse("the health gate ($BLOCKSIM_HEALTH_JSONL, utils/health."
-                "require_not_wedged)", _SERVICES)
+    """Fail fast on a fresh ``wedged`` verdict in ``$BLOCKSIM_HEALTH_JSONL``
+    (utils/health.require_not_wedged raises ``BackendWedgedError``), as the
+    JAX package's sweeps do; no log, or a stale or healthy verdict, passes."""
+    health.require_not_wedged()
 
 
 def lane_axis(cfg: SimConfig) -> bool:
@@ -148,6 +155,7 @@ def _keys(seeds) -> np.ndarray:
         np.zeros((0, 2), np.int64)
 
 
+@aotcache.cached_factory("sweep-batched-dynf")
 def dyn_batched_fn(cfg: SimConfig):
     """``batched(keys [B, 2], n_crashed [B], n_byzantine [B], device) ->
     final state [B, ...]`` for a canonical config: JAX's ``jit(vmap(
@@ -182,7 +190,7 @@ def sharded_topo_sim_fn(cfg: SimConfig, mesh, layout: str = "exchange"):
             f"topology={cfg.topology!r} has no node-dim topo structure "
             "(dense configs ride parallel/shard.py, gossip is unsharded)"
         )
-    _refuse(f"sharded_topo_sim_fn over a mesh ({mesh!r})", "slice 6 of the port (many GPUs)")
+    _refuse(f"sharded_topo_sim_fn over a mesh ({mesh!r})", MANY_GPUS)
 
 
 def run_sharded_topo(cfg: SimConfig, mesh, seed: int | None = None):
@@ -193,6 +201,7 @@ def run_sharded_topo(cfg: SimConfig, mesh, seed: int | None = None):
     sharded_topo_sim_fn(canonical_fault_cfg(cfg), mesh)
 
 
+@aotcache.cached_factory("multi-seed-tick")
 def multi_seed_fn(cfg: SimConfig, n_seeds: int):
     """``batched(keys [B, 2], n_crashed [B], n_byzantine [B], device) ->
     final state [B, ...]``: JAX's ``lax.map`` of the unvmapped dyn program,
@@ -208,6 +217,7 @@ def multi_seed_fn(cfg: SimConfig, n_seeds: int):
     return batched
 
 
+@aotcache.cached_factory("sweep-batched")
 def _batched_fn(cfg: SimConfig):
     """``batched(seeds, device) -> final state [B, ...]`` of a static config:
     JAX's ``jit(vmap(make_sim_fn(cfg)))``.  Every batchable config rides
@@ -259,10 +269,18 @@ def _dispatch_dyn_points(canon: SimConfig, points, record: bool = True,
     if not points:
         return []
     dev = resolve_device(device)
+    # the batched-dispatch chaos point: drills inject raise/hang/slow here,
+    # the exception path a real device fault takes through the sweeps AND
+    # the server's degrade machinery (chaos/inject.py)
+    inject.chaos_point("sweep.dyn_dispatch", canon=canon, n=len(points))
     batched = multi_seed_fn(canon, len(points)) if multi_seed else dyn_batched_fn(canon)
     ops = [_dyn_operands(cfg, cfg.faults) for cfg, _ in points]
-    finals = batched(_keys([s for _, s in points]), [o[0] for o in ops],
-                     [o[1] for o in ops], dev)
+    # $BLOCKSIM_PROFILE arms a torch.profiler capture around the run
+    # (utils/telemetry.py; free when disarmed); a serve flush routed here
+    # is already inside its own region, and the nested guard skips this one
+    with telemetry.profile_region("sweep_dispatch"):
+        finals = batched(_keys([s for _, s in points]), [o[0] for o in ops],
+                         [o[1] for o in ops], dev)
     if n_out is not None:
         points = points[:n_out]
     out = [sim_metrics(cfg_i, lane_state(finals, i)) for i, (cfg_i, _) in enumerate(points)]
@@ -300,8 +318,8 @@ def run_dyn_points(canon: SimConfig, points, record: bool = True,
 
 def dyn_chunk_keys(cfg: SimConfig, fault_configs, seeds, mesh=None):
     """The journal chunk keys of a journaled sweep: journaled sweeps come
-    with the services slice."""
-    _refuse("dyn_chunk_keys (the journal's chunk keys)", _SERVICES)
+    with the durable-sweeps slice."""
+    _refuse("dyn_chunk_keys (the journal's chunk keys)", DURABLE_SWEEPS)
 
 
 def _run_dyn_group(cfg: SimConfig, canon: SimConfig, fcs, seeds, mesh=None,

@@ -41,7 +41,7 @@ import torch
 
 from blockchain_simulator_tpu_torch.models import base as base_model
 from blockchain_simulator_tpu_torch.models.base import get_protocol, sim_metrics
-from blockchain_simulator_tpu_torch.utils import threefry
+from blockchain_simulator_tpu_torch.utils import aotcache, threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
 _INIT_FOLD = 0x1217  # proto.init's key, as in the JAX package
@@ -62,7 +62,7 @@ def check_batchable(cfg: SimConfig) -> None:
         raise UnbatchableConfigError(
             "dynamic fault operands are not implemented for the mixed shard "
             "sim (faults live at the raft-shard level, models/mixed.py); "
-            "sweep it with one static program per fault config"
+            "sweep it with one static compile per fault config"
         )
 
 
@@ -182,10 +182,12 @@ def _reject_cpp_only(cfg: SimConfig) -> None:
                 )
 
 
+@aotcache.cached_factory("sim")
 def make_sim_fn(cfg: SimConfig):
     """``sim(seed, device) -> final state``: the phase-blocked fast path
     when ``use_round_schedule`` picks it, else the tick engine, ``cfg.ticks``
-    ticks from ``proto.init``."""
+    ticks from ``proto.init``.  Built once a config (the ``"sim"`` registry
+    entry, utils/aotcache.py)."""
     _reject_cpp_only(cfg)
     if cfg.topology == "committee":
         from blockchain_simulator_tpu_torch.topo import committee
@@ -404,6 +406,7 @@ def run_multi_seed(cfg: SimConfig, seeds, record: bool = True, device=None):
                                 device=device)
 
 
+@aotcache.cached_factory("segment")
 def make_segment_fn(cfg: SimConfig, n_ticks: int):
     """``seg(key, state, bufs, t0) -> (state, bufs)``: the tick engine
     ``n_ticks`` ticks on from tick ``t0``, on the state's device.  Tick keys

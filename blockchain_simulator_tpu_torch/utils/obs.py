@@ -22,9 +22,10 @@ Design constraints, as in the JAX module:
   only the printing layer attaches manifests.  :func:`record_run` appends a
   finalized COPY and leaves the caller's dict untouched.
 
-The JAX manifest's ``cache`` block (the executable registry,
-``utils/aotcache.py``) and ``telemetry`` block (``utils/telemetry.py``) come
-with the services slice of the port; this manifest has neither.
+The manifest carries the JAX manifest's ``cache`` block (the executable
+registry's counters, ``utils/aotcache.py``) and, once the process has
+counted something, its ``telemetry`` block (``utils/telemetry.py``), with
+JAX's keys; reading either touches no device.
 """
 
 from __future__ import annotations
@@ -96,6 +97,25 @@ def manifest(cfg=None, backend=None, device_count=None) -> dict:
         rec["backend"] = backend
     if device_count is not None:
         rec["device_count"] = device_count
+    try:
+        # executable-registry provenance: hit/miss counters, the last key
+        # touched, the (null) persistent cache dir; pure counter reads
+        from blockchain_simulator_tpu_torch.utils import aotcache
+
+        rec["cache"] = aotcache.registry.manifest()
+    except Exception:  # provenance, never a failure mode
+        pass
+    try:
+        # telemetry provenance: counter totals and spans recorded, attached
+        # only once the process has counted something, so a bare run's
+        # manifest stays the size it was
+        from blockchain_simulator_tpu_torch.utils import telemetry
+
+        tel = telemetry.metrics.manifest()
+        if tel.get("counters"):
+            rec["telemetry"] = tel
+    except Exception:  # provenance, never a failure mode
+        pass
     return rec
 
 

@@ -29,9 +29,9 @@ Observability as data, at three levels, as in the JAX package:
   ``torch.profiler`` and exports its Chrome trace, the card's kernels on
   their own timeline.
 
-The JAX arms are jitted programs cached in the executable registry
-(``utils/aotcache``, the services slice); the port's arms are plain
-functions over the step functions and need no registry.
+The tick arm's program is built once a config in the executable registry
+(utils/aotcache.py, ``"trace-tick"``, as in the JAX package); the fast-path
+arms are plain functions over the step functions.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ import torch
 
 from blockchain_simulator_tpu_torch.models import base as base_model
 from blockchain_simulator_tpu_torch.models.base import get_protocol, tick_loop
-from blockchain_simulator_tpu_torch.utils import threefry
+from blockchain_simulator_tpu_torch.utils import aotcache, threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 from blockchain_simulator_tpu_torch.utils.sync import force_sync
 
@@ -98,14 +98,24 @@ def _cat(pre: dict, post: dict) -> dict:
     return {k: np.concatenate([pre[k], post[k]]) for k in pre}
 
 
-def _traced_tick(cfg: SimConfig, key, dev):
-    """The general tick engine with the probe after every tick (the
-    kregular overlay builds its tables inside the step, as untraced)."""
+@aotcache.cached_factory("trace-tick")
+def _tick_traced_fn(cfg: SimConfig):
+    """``sim(key, dev) -> (final state, series)``: the general tick engine
+    with the probe after every tick (the kregular overlay builds its tables
+    inside the step, as untraced)."""
     proto = get_protocol(cfg.protocol)
-    state, bufs = proto.init(cfg, threefry.fold_in(key, _INIT_FOLD), device=dev)
-    state, _, ys = tick_loop(cfg, state, bufs, key, 0, cfg.ticks,
-                             probe=functools.partial(probe, cfg))
-    return state, _np_series(ys)
+    probe_fn = functools.partial(probe, cfg)
+
+    def sim(key, dev):
+        state, bufs = proto.init(cfg, threefry.fold_in(key, _INIT_FOLD), device=dev)
+        state, _, ys = tick_loop(cfg, state, bufs, key, 0, cfg.ticks, probe=probe_fn)
+        return state, _np_series(ys)
+
+    return sim
+
+
+def _traced_tick(cfg: SimConfig, key, dev):
+    return _tick_traced_fn(cfg)(key, dev)
 
 
 def _traced_pbft_round(cfg: SimConfig, key, dev):

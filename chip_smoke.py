@@ -164,6 +164,26 @@ Phases (any failure raises, and the script exits non-zero):
               --protocol pbft --n 8 --sim-ms 600 --timing: exit 0, the
               manifest names the card, the metrics equal the JAX golden's.
 
+32. serve-config4 — config 4's twelve points as requests to an in-process
+              ScenarioServer(max_batch=12), submitted before start() in the
+              golden's lane order: one batched flush of 12, every answer the
+              golden's row; its wall beside phase config4's.
+33. serve-tick — config 2 as one request, solo through serve-solo: the JAX
+              server's answer, one ring-push launch of four pushes a tick.
+              The processes of phases 34 and 35 start beside it.
+34. health  — python -m blockchain_simulator_tpu_torch.utils.health --log
+              '': verdict healthy, backend cuda, the card's name.
+35. serve-http — the scenario daemon as the README starts it: python -m
+              blockchain_simulator_tpu_torch.serve --port 0 --max-batch 8
+              --max-wait-ms 50 --prewarm '<PBFT n = 1024, 600 ms, stat, round,
+              exact>' with its own run log; a health pause 503, then resume;
+              15 requests (f in {0, 1, 2, 5, 10} x seeds {0, 1, 2}) from 8
+              threads, each 200 and equal to the JAX server's answer
+              (golden/serve_s0.json); /stats shows a batch of more than one
+              and no registry miss after the prewarm; a mixed request 422,
+              n = -1 400; /metrics; /shutdown exits 0; every access-log line
+              names the card and carries the cache and telemetry blocks.
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -196,6 +216,8 @@ KREG_1M_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_kreg
 COMMITTEE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_committee_n100k_s0.json"
 KREG_RP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "kreg_raft_paxos_n10k_s0.json"
 TRACE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "trace_s0.json"
+SERVE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "serve_s0.json"
+SERVE_THREADS = 8  # serve-http's client threads
 # kreg-equal: the port's kregular run at k = N-1 against its dense run
 KREG_EQUAL = {
     "pbft_edge": dict(protocol="pbft", n=256, sim_ms=600, fidelity="clean",
@@ -2191,6 +2213,295 @@ def phase_entry(card: str):
                 first_run_s=line["compile_plus_first_run_s"])
 
 
+def _read_lines(stream, lines: list, ready: "threading.Event"):
+    """Collect a subprocess's stdout lines; flag the READY line."""
+    for line in stream:
+        lines.append(line.rstrip("\n"))
+        if line.startswith("READY "):
+            ready.set()
+    ready.set()  # the stream closed: the daemon exited
+
+
+def _http(base: str, path: str, obj=None, method=None):
+    """``(status, body bytes, seconds)`` of one HTTP call."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def start_serve_daemon(d: str) -> dict:
+    """Start the README's daemon, ``python -m blockchain_simulator_tpu_torch.
+    serve --port 0 --max-batch 8 --max-wait-ms 50 --prewarm <the n = 1024
+    request>``, with its run log and stderr in ``d``; a thread collects its
+    stdout.  Returns what :func:`phase_serve_http` drives."""
+    import os
+    import threading
+
+    tpl = json.loads(SERVE_GOLDEN.read_text())["entries"]["serve_http"]["template"]
+    runs = os.path.join(d, "runs.jsonl")
+    env = dict(os.environ, PYTHONPATH=str(HERE), BLOCKSIM_RUNS_JSONL=runs)
+    argv = [sys.executable, "-m", "blockchain_simulator_tpu_torch.serve", "--port", "0",
+            "--max-batch", "8", "--max-wait-ms", "50", "--prewarm", json.dumps(tpl)]
+    err = open(os.path.join(d, "stderr.txt"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err, text=True, cwd=HERE,
+                            env=env)
+    lines: list = []
+    ready = threading.Event()
+    threading.Thread(target=_read_lines, args=(proc.stdout, lines, ready), daemon=True).start()
+    return {"proc": proc, "lines": lines, "ready": ready, "err": err, "runs": runs, "t0": t0}
+
+
+def phase_serve_http(card: str, daemon: dict):
+    """The README's daemon on the card (started by :func:`start_serve_daemon`):
+    its READY line; a health pause (503), then resume; 15 requests from 8
+    threads, each answer 200 and equal to the JAX server's
+    (golden/serve_s0.json); /stats shows a batch of more than one and no
+    registry miss after the prewarm; 422 and 400; /metrics; /shutdown exits
+    0; every access-log line names the card and carries the cache and
+    telemetry blocks."""
+    import concurrent.futures
+
+    import torch
+
+    entry = json.loads(SERVE_GOLDEN.read_text())["entries"]["serve_http"]
+    tpl, want = entry["template"], entry["metrics"]
+    reqs = [dict(tpl, id=f"f{f}-s{s}", seed=s, faults={"n_byzantine": f})
+            for f in entry["f_values"] for s in entry["seeds"]]
+    if sorted(r["id"] for r in reqs) != sorted(want):
+        raise AssertionError("serve-http: the golden's requests are not the phase's")
+    name = torch.cuda.get_device_name(0)
+    proc, lines, err, t0 = daemon["proc"], daemon["lines"], daemon["err"], daemon["t0"]
+    if not daemon["ready"].wait(300) or not any(x.startswith("READY ") for x in lines):
+        err.seek(0)
+        raise AssertionError(f"serve-http: no READY line (exit {proc.poll()}):\n"
+                             f"{lines}\n{err.read()[-3000:]}")
+    t1 = time.perf_counter()
+    ready_s = t1 - t0
+    info = json.loads(next(x for x in lines if x.startswith("READY "))[6:])
+    prewarm = next((json.loads(x)["prewarm_s"] for x in lines if '"prewarm_s"' in x), None)
+    if prewarm is None:
+        raise AssertionError(f"serve-http: the prewarm failed: {lines}")
+    base = f"http://127.0.0.1:{info['port']}"
+    st0 = json.loads(_http(base, "/stats")[1])
+    _http(base, "/health", {"verdict": "sick"})
+    code, body, _ = _http(base, "/scenario", dict(reqs[0], id="paused"))
+    if (code, json.loads(body).get("kind")) != (503, "admission-paused"):
+        raise AssertionError(f"serve-http: paused request answered {code} {body!r}")
+    _http(base, "/health", {"verdict": "healthy"})
+    t2 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(SERVE_THREADS) as pool:
+        outs = list(pool.map(lambda r: _http(base, "/scenario", r), reqs))
+    burst_s = time.perf_counter() - t2
+    bodies = {}
+    for r, (code, body, _) in zip(reqs, outs):
+        b = json.loads(body)
+        if code != 200 or b.get("status") != "ok":
+            raise AssertionError(f"serve-http: {r['id']} answered {code} after the resume: {b}")
+        bodies[r["id"]] = b
+    bad = sorted(k for k, b in bodies.items() if b["metrics"] != want[k])
+    if bad:
+        raise AssertionError(f"serve-http: answers {bad} differ from the JAX golden:\n"
+                             f"{bodies[bad[0]]['metrics']}\n{want[bad[0]]}")
+    st1 = json.loads(_http(base, "/stats")[1])
+    occupancy = st1["occupancy"]
+    if not any(int(k) > 1 for k in occupancy):
+        raise AssertionError(f"serve-http: no batch of more than one: {occupancy}")
+    misses = st1["cache"]["misses"] - st0["cache"]["misses"]
+    if misses != 0:
+        raise AssertionError(f"serve-http: {misses} registry misses after the prewarm")
+    code, body, _ = _http(base, "/scenario", dict(tpl, protocol="mixed", n=32, mixed_shards=4))
+    if (code, json.loads(body).get("kind")) != (422, "unbatchable-config"):
+        raise AssertionError(f"serve-http: mixed request answered {code} {body!r}")
+    code, body, _ = _http(base, "/scenario", dict(tpl, n=-1))
+    if code != 400:
+        raise AssertionError(f"serve-http: n = -1 answered {code} {body!r}")
+    code, text, _ = _http(base, "/metrics")
+    if code != 200 or b"blocksim_serve_answered_total" not in text:
+        raise AssertionError("serve-http: /metrics lacks blocksim_serve_answered_total")
+    _http(base, "/shutdown", {})
+    rc = proc.wait(timeout=120)
+    if rc != 0:
+        raise AssertionError(f"serve-http: the daemon exited {rc} after /shutdown")
+    wall = time.perf_counter() - t1
+    log = [json.loads(x) for x in open(daemon["runs"]) if x.strip()]
+    for rec in log:
+        man = rec.get("manifest", {})
+        if (man.get("backend"), man.get("device")) != ("cuda", name) \
+                or "cache" not in man or "telemetry" not in man:
+            raise AssertionError(f"serve-http: an access-log line lacks the card or its "
+                                 f"blocks: {man}")
+    client_ms = sorted(1000.0 * o[2] for o in outs)
+    server_ms = sorted(b["latency_ms"] for b in bodies.values())
+    n = len(reqs)
+    p50 = client_ms[n // 2]
+    print(f"serve-http on {card}: the daemon READY {ready_s:.3f} s after its start (torch "
+          f"import, CUDA init, the prewarm's registry builds {prewarm} s; started beside "
+          f"serve-tick); one closed burst of {n} requests from {SERVE_THREADS} threads in "
+          f"{burst_s:.3f} s ({n / burst_s:.2f} req/s), client latency over those {n}: median "
+          f"{p50:.1f} ms, max {client_ms[-1]:.1f} ms, server median {server_ms[n // 2]:.1f} ms; "
+          f"occupancy {occupancy}, registry misses after the prewarm {misses}; answers equal "
+          f"the JAX server's; 503 while paused, 422, 400; {len(log)} access-log lines name the "
+          f"card; /shutdown exit 0; wall after READY {wall:.3f} s", flush=True)
+    return {"wall_s": wall, "ready_s": ready_s, "prewarm_s": prewarm, "burst_s": burst_s,
+            "requests": n, "client_p50_ms": p50, "client_max_ms": client_ms[-1],
+            "server_p50_ms": server_ms[n // 2], "occupancy": occupancy,
+            "registry_misses_after_prewarm": misses, "access_log_lines": len(log)}
+
+
+def phase_serve_config4(dev, card: str, config4_wall: float):
+    """BASELINE config 4 served: ``ScenarioServer(max_batch=12)`` built with
+    ``start=False``, the golden's twelve points submitted in its lane order
+    (f-major, seed-minor, as run_byzantine_sweep builds them), then
+    ``start()``: one batched flush of 12, every answer the golden's row."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.serve import ScenarioServer
+
+    entry = json.loads(CONFIG4_GOLDEN.read_text())["entries"]["config4"]
+    f_values, seeds = entry["args"]["f_values"], entry["args"]["seeds"]
+    rows = {(r["f"], r["seed"]): {k: v for k, v in r.items() if k not in ("f", "seed")}
+            for r in entry["rows"]}
+    reqs = [dict(entry["config"], id=f"f{f}-s{s}", seed=s,
+                 faults={"n_byzantine": f, "byz_forge": entry["args"]["forge"]})
+            for f in f_values for s in seeds]
+    srv = ScenarioServer(max_batch=len(reqs), max_wait_ms=1.0, default_timeout_s=600.0,
+                         start=False, device=dev)
+    try:
+        pends = [srv.submit(r) for r in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.start()
+        resps = [p.result(600) for p in pends]
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    finally:
+        srv.close()
+    for r, resp in zip(reqs, resps):
+        if resp.get("status") != "ok" or resp["batch"]["mode"] != "batched" \
+                or resp["batch"]["padded"] != len(reqs):
+            raise AssertionError(f"serve-config4: {r['id']} answered {resp}")
+        if resp["metrics"] != rows[(r["faults"]["n_byzantine"], r["seed"])]:
+            raise AssertionError(f"serve-config4: {r['id']} differs from the golden row:\n"
+                                 f"{resp['metrics']}")
+    if stats["occupancy"] != {str(len(reqs)): 1} or stats["batches"] != 1:
+        raise AssertionError(f"serve-config4: not one flush of {len(reqs)}: {stats['occupancy']}")
+    print(f"serve-config4 on {card}: {len(reqs)} requests (config 4's points in the golden's "
+          f"lane order) in one batched flush of {len(reqs)}: wall {wall:.3f} s from start() "
+          f"to the last answer, against phase config4's run_byzantine_sweep {config4_wall:.3f} "
+          f"s in this run (difference {wall - config4_wall:+.3f} s, one run of each: "
+          f"within their run-to-run spread); occupancy "
+          f"{stats['occupancy']}; every answer equals the golden row", flush=True)
+    return {"wall_s": wall, "config4_wall_s": config4_wall,
+            "difference_s": wall - config4_wall, "occupancy": stats["occupancy"]}
+
+
+def phase_serve_tick(dev, card: str):
+    """BASELINE config 2 (PBFT, n = 1000, 2,500 ms, defaults) as one request,
+    solo through ``serve-solo`` on the card: its answer the JAX server's
+    (golden/serve_s0.json), one ring-push launch a tick, the counts set to 0
+    just before the request and read just after."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.serve import ScenarioServer
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(SERVE_GOLDEN.read_text())["entries"]["serve_tick"]
+    ticks = SimConfig(**entry["request"]).ticks
+    with ScenarioServer(max_batch=1, max_wait_ms=1.0, default_timeout_s=600.0,
+                        device=dev) as srv:
+        rk.launches = rk.pushes = 0
+        t0 = time.perf_counter()
+        resp = srv.request(dict(entry["request"], id="config2"), wait_s=600)
+        wall = time.perf_counter() - t0
+        launches, pushes = rk.launches, rk.pushes
+        misses = srv.stats()["cache"]["misses"]
+    if resp.get("status") != "ok" or resp["batch"]["mode"] != "solo":
+        raise AssertionError(f"serve-tick: answered {resp}")
+    if resp["metrics"] != entry["metrics"]:
+        raise AssertionError(f"serve-tick: metrics differ from the JAX server's:\n"
+                             f"{resp['metrics']}")
+    if (launches, pushes) != (ticks, 4 * ticks):
+        raise AssertionError(f"serve-tick: ring_push made {launches} launches and {pushes} "
+                             f"pushes, expected {ticks} and {4 * ticks}")
+    torch.cuda.synchronize()
+    print(f"serve-tick on {card}: config 2 served solo (serve-solo -> make_dyn_sim_fn -> the "
+          f"tick loop): wall {wall:.3f} s, server latency {resp['latency_ms']:.1f} ms, "
+          f"ring_push launches {launches}, pushes {pushes}; metrics equal the JAX server's "
+          f"(registry misses so far {misses})", flush=True)
+    return {"wall_s": wall, "launches": launches, "pushes": pushes,
+            "latency_ms": resp["latency_ms"]}
+
+
+def start_health() -> dict:
+    """Start ``python -m blockchain_simulator_tpu_torch.utils.health --log ''``
+    (a supervising process and its probe child)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "blockchain_simulator_tpu_torch.utils.health",
+                             "--log", ""], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=HERE, env=env)
+    return {"proc": proc, "t0": t0}
+
+
+def phase_health(card: str, started: dict):
+    """The health CLI started by :func:`start_health`: one JSON line, verdict
+    healthy, backend cuda, the card's name."""
+    import torch
+
+    proc = started["proc"]
+    out, err = proc.communicate(timeout=600)
+    wall = time.perf_counter() - started["t0"]
+    out = out.strip().splitlines()
+    if proc.returncode != 0 or len(out) != 1:
+        raise AssertionError(f"health: exit {proc.returncode}, stdout {out}:\n{err[-2000:]}")
+    rec = json.loads(out[0])
+    if (rec["verdict"], rec["backend"], rec.get("device")) != (
+            "healthy", "cuda", torch.cuda.get_device_name(0)):
+        raise AssertionError(f"health: {rec}")
+    print(f"health on {card}: {rec['verdict']} ({rec['backend']}, {rec['device']} x "
+          f"{rec['device_count']}), the probe {rec['probe_s']} s (init {rec['init_s']} s, "
+          f"matmul and read-back {rec['compile_run_s']} s), the supervised process "
+          f"{wall:.3f} s from its start (beside serve-tick)", flush=True)
+    return {"wall_s": wall, "probe_s": rec["probe_s"], "init_s": rec["init_s"]}
+
+
+def serving_phases(dev, card: str, config4_wall: float) -> dict:
+    """serve-config4 alone; then the daemon and the health CLI start, and
+    their processes' start (the interpreter, ``import torch``, the CUDA
+    context) overlaps serve-tick in this process; then health and serve-http
+    are read.  Both processes are stopped on any failure."""
+    import tempfile
+
+    served = {"serve_config4": phase_serve_config4(dev, card, config4_wall)}
+    with tempfile.TemporaryDirectory() as d:
+        daemon = start_serve_daemon(d)
+        health = start_health()
+        try:
+            served["serve_tick"] = phase_serve_tick(dev, card)
+            served["health"] = phase_health(card, health)
+            served["serve_http"] = phase_serve_http(card, daemon)
+        finally:
+            for proc in (daemon["proc"], health["proc"]):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            daemon["err"].close()
+    return served
+
+
 def main() -> int:
     import torch
 
@@ -2262,6 +2573,11 @@ def main() -> int:
     print(f"trace phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
                                                  for k, v in traced.items())
           + f"; together {time.perf_counter() - t_trace:.3f} s", flush=True)
+    t_serve = time.perf_counter()
+    served = serving_phases(dev, card, config4["wall_s"])
+    print(f"serving phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
+                                                   for k, v in served.items())
+          + f"; together {time.perf_counter() - t_serve:.3f} s", flush=True)
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -2318,7 +2634,8 @@ def main() -> int:
                              "cli_trace_tick": traced["cli_trace_tick"]["launches"],
                              "trace_hb": traced["trace_hb"]["launches"],
                              "trace_mixed": traced["trace_mixed"]["launches"],
-                             "trace_committee": traced["trace_committee"]["launches"]},
+                             "trace_committee": traced["trace_committee"]["launches"],
+                             "serve_tick": served["serve_tick"]["launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
@@ -2333,7 +2650,8 @@ def main() -> int:
                            "cli_trace_tick": traced["cli_trace_tick"]["pushes"],
                            "trace_hb": traced["trace_hb"]["pushes"],
                            "trace_mixed": traced["trace_mixed"]["pushes"],
-                           "trace_committee": traced["trace_committee"]["pushes"]},
+                           "trace_committee": traced["trace_committee"]["pushes"],
+                           "serve_tick": served["serve_tick"]["pushes"]},
     }]
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
@@ -2342,7 +2660,7 @@ def main() -> int:
                                 "drop_sweep": drop, "checkpoint": ckpt,
                                 "kreg_1m": kreg_1m, "committee_100k": committee,
                                 "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal,
-                                **traced}}),
+                                **traced, **served}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,6 @@ Regenerate them with ``python tests/test_torch_pbft.py --write-golden``
 from __future__ import annotations
 
 import dataclasses
-import gc
 import json
 import os
 import pathlib
@@ -46,35 +45,21 @@ from blockchain_simulator_tpu_torch.utils import threefry
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
-# half of Linux's default limit on a process's memory mappings
-# (vm.max_map_count, 65,530)
-_MAPPINGS_HIGH = 32_768
-
-
-def _mappings() -> int:
-    """This process's memory mappings (0 where there is no procfs)."""
-    try:
-        with open("/proc/self/maps") as f:
-            return sum(1 for _ in f)
-    except OSError:
-        return 0
+# every test process collects this file: the plugin frees JAX's compiled
+# programs after any of its tests once the process nears its mapping limit
+pytest_plugins = ["jax_mappings"]
 
 
 @pytest.fixture(autouse=True)
 def release_jax_executables():
     """After each test, free the JAX programs this process has compiled once
-    it holds more than ``_MAPPINGS_HIGH`` memory mappings (every port test
-    file that runs the JAX package imports this fixture).  XLA:CPU maps each
-    compiled program's code into memory, several hundred mappings a
-    simulation program, and JAX keeps its programs cached: a test process
-    that has compiled a few hundred reaches the kernel's limit on mappings,
-    and the next compile crashes the process.  ``jax.clear_caches`` drops
-    the cached programs and the collection unmaps them; below the mark
-    nothing is freed, so tests that share programs do not compile again."""
+    it nears its limit on memory mappings (tests/jax_mappings.py; every
+    port test file that runs the JAX package imports this fixture, so a
+    file run on its own, without this one collected, frees them too)."""
     yield
-    if _mappings() > _MAPPINGS_HIGH:
-        jax.clear_caches()
-        gc.collect()
+    import jax_mappings  # after pytest has imported it as a plugin
+
+    jax_mappings.release_if_high()
 
 
 GOLDEN_DIR = REPO / "blockchain_simulator_tpu_torch" / "golden"

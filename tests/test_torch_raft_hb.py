@@ -144,7 +144,7 @@ def test_probed_runs_raise():
     """The probed heartbeat scan is ported (utils/trace.py): it returns the
     unprobed scan's carry and one int32 sample a heartbeat and shard.
     scan_from_init's probe= (obsim's taps) still raises, naming the
-    services slice."""
+    durable-sweeps slice."""
     from blockchain_simulator_tpu_torch.models import raft
     from blockchain_simulator_tpu_torch.models.base import tick_loop
 
@@ -161,5 +161,5 @@ def test_probed_runs_raise():
     assert sorted(ys) == ["acks_in_window", "blocks", "rounds", "stopped"]
     assert all(v.dtype == torch.int32 and v.shape == (1, thb.n_hb_steps(tcfg))
                for v in ys.values())
-    with pytest.raises(NotImplementedError, match="services slice"):
+    with pytest.raises(NotImplementedError, match="durable-sweeps slice"):
         thb.scan_from_init(tcfg, state, bufs, key, probe=(None, None, None))

@@ -137,7 +137,7 @@ def test_headline_config_resolves_to_the_round_path():
 def test_probe_and_raft_refused():
     """Probed round runs are ported (utils/trace.py, tests/test_torch_trace.py);
     probed lane batches (the sweeps' probe=, obsim) still raise, naming the
-    services slice.  The mixed sim resolves its schedule as JAX does."""
+    durable-sweeps slice.  The mixed sim resolves its schedule as JAX does."""
     _, tcfg = _cfgs(**BASE, n=16, sim_ms=200, schedule="round")
     state, _ = tround.init(tcfg, device="cpu")
     final, ys = tround.scan_rounds(tcfg, state, threefry.key(0), with_probe=True)
@@ -145,7 +145,7 @@ def test_probe_and_raft_refused():
     assert int(ys["rounds_sent"][-1]) == int(final.next_n.max())
     lanes = np.stack([threefry.key(0), threefry.key(1)])
     state, _ = tround.init(tcfg, lanes, device="cpu")
-    with pytest.raises(NotImplementedError, match="services slice"):
+    with pytest.raises(NotImplementedError, match="durable-sweeps slice"):
         tround.scan_rounds(tcfg, state, lanes, with_probe=True)
     jcfg, rcfg = _cfgs(protocol="mixed", n=16, mixed_shards=2, sim_ms=200, delivery="stat")
     assert trunner.use_round_schedule(rcfg) == jrunner.use_round_schedule(jcfg)

@@ -42,6 +42,7 @@ import dataclasses
 import json
 import pathlib
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -409,14 +410,14 @@ def test_normal_tick_batch_raises():
 
 REFUSED = {
     "journal": (lambda cfg: tsweep.run_fault_sweep(cfg, [cfg.faults], [0], journal=object(),
-                                                   device="cpu"), "services"),
+                                                   device="cpu"), "durable-sweeps"),
     "supervise": (lambda cfg: tsweep.run_byzantine_sweep(cfg, [0], supervise=object(),
-                                                         device="cpu"), "services"),
-    "chunk_keys": (lambda cfg: tsweep.dyn_chunk_keys(cfg, [cfg.faults], [0]), "services"),
+                                                         device="cpu"), "durable-sweeps"),
+    "chunk_keys": (lambda cfg: tsweep.dyn_chunk_keys(cfg, [cfg.faults], [0]), "durable-sweeps"),
     "mesh": (lambda cfg: tsweep.run_seed_sweep(cfg, [0, 1], mesh=object(), device="cpu"),
              "slice 6"),
     "probe": (lambda cfg: tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=object(),
-                                                device="cpu"), "services"),
+                                                device="cpu"), "durable-sweeps"),
 }
 
 
@@ -432,10 +433,12 @@ def test_sweep_arms_refused(arm):
 
 @pytest.mark.parametrize("var", ["BLOCKSIM_RUNS_JSONL", "BLOCKSIM_HEALTH_JSONL"])
 def test_sweep_env_arms_refused(monkeypatch, tmp_path, var):
-    """The health gate is the services slice's: with its variable set a
-    sweep raises instead of ignoring it.  The run log is ported
-    (utils/obs.py): with its variable set a sweep appends one row a point,
-    the point's seed and metrics under its config's hash."""
+    """The health gate is ported (utils/health.py): with its variable naming
+    a log whose latest verdict is a fresh ``wedged`` a sweep fails fast with
+    ``BackendWedgedError``, as JAX's does, and a later ``healthy`` verdict
+    lets it run.  The run log is ported (utils/obs.py): with its variable set
+    a sweep appends one row a point, the point's seed and metrics under its
+    config's hash."""
     path = tmp_path / "log.jsonl"
     monkeypatch.setenv(var, str(path))
     _, tcfg = _cfgs(protocol="pbft", n=8, sim_ms=60)
@@ -445,8 +448,14 @@ def test_sweep_env_arms_refused(monkeypatch, tmp_path, var):
         assert rec["seed"] == 0 and {k: rec[k] for k in row} == row
         assert rec["manifest"]["config_hash"] == obs.config_hash(tcfg)
         return
-    with pytest.raises(NotImplementedError, match="services"):
+    from blockchain_simulator_tpu_torch.utils import health as thealth
+
+    path.write_text(json.dumps({"verdict": "wedged", "ts": time.time()}) + "\n")
+    with pytest.raises(thealth.BackendWedgedError):
         tsweep.run_fault_sweep(tcfg, [tcfg.faults], [0], device="cpu")
+    with path.open("a") as f:
+        f.write(json.dumps({"verdict": "healthy", "ts": time.time()}) + "\n")
+    assert len(tsweep.run_fault_sweep(tcfg, [tcfg.faults], [0], device="cpu")[tcfg.faults]) == 1
 
 
 def test_sweep_entry_points_default_to_the_card(monkeypatch):

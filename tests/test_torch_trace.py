@@ -144,7 +144,7 @@ def test_round_probe_with_no_round_equals_jax():
 
 def test_round_probe_callable_and_lanes():
     """A callable ``with_probe`` is the probe (obsim's form); probed lane
-    batches belong to the services slice and raise."""
+    batches belong to the durable-sweeps slice and raise."""
     _, tcfg = _cfgs(protocol="pbft", n=16, sim_ms=300, delivery="stat", schedule="round",
                     model_serialization=False)
     key = threefry.key(0)
@@ -155,7 +155,7 @@ def test_round_probe_callable_and_lanes():
     assert int(ys["views"][-1]) == int(final.view_changes.sum())
     lanes = np.stack([threefry.key(0), threefry.key(1)])
     state, _ = tround.init(tcfg, lanes, device="cpu")
-    with pytest.raises(NotImplementedError, match="services"):
+    with pytest.raises(NotImplementedError, match="durable-sweeps"):
         tround.scan_rounds(tcfg, state, lanes, with_probe=True)
 
 
