@@ -30,11 +30,17 @@ Registered sites in the port (grep ``chaos_point(`` for ground truth):
   program runs (ctx carries ``req_id`` so poison can target one request);
 - ``serve.batcher`` — the ScenarioServer batcher loop, once per iteration
   after the arrivals drain (where :class:`ChaosKill` simulates a dead
-  batcher thread for the supervision drill).
+  batcher thread for the supervision drill);
+- ``sweep.chunk`` — parallel/sweep._run_chunk, once a chunk ATTEMPT, with
+  the arm in its ctx (``primary``, ``degrade``, ``degrade-checkpoint``),
+  so a drill can wedge exactly the primary arm of a journaled or
+  supervised sweep;
+- ``query.step`` — query/engine._Search.evaluate, before each refinement
+  generation dispatches (ctx ``step``, ``n``, ``values``): a fault there
+  stops a search mid-way, and the journal resumes it.
 
-The JAX package's other sites (``fleet.send``, ``fleet.handoff``,
-``sweep.chunk``, ``query.step``) come with the slices that port the fleet
-router, the sweep journal and the adaptive queries.
+The JAX package's other sites (``fleet.send``, ``fleet.handoff``) come with
+the slice that ports the fleet router.
 """
 
 from __future__ import annotations

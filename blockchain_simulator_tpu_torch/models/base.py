@@ -154,11 +154,14 @@ def stack_samples(samples: list, template=None) -> dict:
     """Per-step probe samples (dicts of tensors) stacked on a new leading
     step axis, on their device: the ``ys`` of a ``lax.scan``.  With no
     samples, ``template()`` (one sample) gives each key's dtype and shape,
-    and the stack is empty, as a scan of length 0 gives."""
+    and the stack is empty, as a scan of length 0 gives.  A dict value
+    (obsim's ``{"series": {...}, "monitors": {...}}``) is stacked key by
+    key."""
     if not samples:
         return {k: torch.zeros((0,) + tuple(v.shape), dtype=v.dtype, device=v.device)
                 for k, v in template().items()}
-    return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
+    return {k: (stack_samples([s[k] for s in samples]) if isinstance(samples[0][k], dict)
+                else torch.stack([s[k] for s in samples])) for k in samples[0]}
 
 
 def state_device(state) -> torch.device:

@@ -334,19 +334,16 @@ def scan_rounds(cfg, state: PbftRoundState, key, with_probe=False):
     device, stacked once at the end (no host read in the loop).  A callable
     ``with_probe`` (``state -> {name: 0-d tensor}``) is used as the probe
     instead.  The probe only reads, so the state is the unprobed run's.
-    Probed lane batches (the sweeps' ``probe=``, obsim) come with the
-    services slice of the port."""
+    A lane-stacked state (lane keys ``[B, 2]``; the sweeps' ``probe=``,
+    obsim/build.py) gives ``[B]`` samples, stacked ``[rounds, B]``: the
+    caller moves the round axis last to get JAX's vmapped ``[B, rounds]``
+    (obsim/taps.time_last)."""
     if with_probe is True:
         from blockchain_simulator_tpu_torch.utils import trace
 
         probe_fn = functools.partial(trace.probe, cfg)
     else:
         probe_fn = with_probe or None
-    if probe_fn is not None and np.ndim(key) == 2:
-        raise NotImplementedError(
-            "probed lane batches (the sweeps' probe=, obsim) come with the "
-            "durable-sweeps slice of the port (journal, query, obsim; ROADMAP.md queue A)"
-        )
     rounds = round_range(cfg)
     bt = cfg.pbft_block_interval_ms
     ticks = np.asarray([r * bt for r in rounds], np.int64)

@@ -331,39 +331,72 @@ def scan_from_init(cfg, state, bufs, key, probe=None):
     and when some lane's handoff is refused the tick engine continues every
     lane from the prefix carry (its ``"normal"`` draws follow the first
     lane's key, as the vmapped branch's do); each lane then keeps the branch
-    its own handoff picked.  A branch no lane picks is not run."""
+    its own handoff picked.  A branch no lane picks is not run.
+
+    ``probe`` (obsim/build.py) arms taps without forking the engine, as in
+    the JAX package: a ``(sample_fn, steady_map_fn, reduce_fn)`` triple,
+    ``sample_fn(state) -> {field: tensor}`` after every TICK,
+    ``steady_map_fn(ys, handoff_state) -> {field: [..., K]}`` lifting the
+    heartbeat scan's samples into the same fields, and ``reduce_fn(series)
+    -> dict`` collapsing the series ``{field: [..., m]}`` (the sample axis
+    last) to a shape both branches share.  The prefix's series is joined to
+    each branch's, each branch's is reduced, and the per-lane select picks
+    each lane's reduced probes with its state.  Returns ``(final,
+    reduced)``; the taps only read, so the final state is the unprobed
+    run's."""
     global handoffs_taken, handoffs_refused, prefix_s, scan_s
-    if probe is not None:
-        raise NotImplementedError(
-            "probe= (obsim's (sample, steady_map, reduce) taps) comes with the "
-            "durable-sweeps slice of the port (journal, query, obsim; ROADMAP.md queue A); "
-            "utils/trace.run_traced records the heartbeat path's probe series"
-        )
+    sample_fn, steady_map_fn, reduce_fn = probe or (None, None, None)
     lanes = np.ndim(key) == 2
     keys = np.asarray(key, np.int64).reshape(-1, 2)
     t0 = time.perf_counter()
     t_e = prefix_ticks(cfg)
-    state, bufs = tick_loop(cfg, state, bufs, key, 0, t_e)
+    state, bufs, *pre_ys = tick_loop(cfg, state, bufs, key, 0, t_e, probe=sample_fn)
+
+    def reduced(ys):
+        """The prefix's series joined to a branch's ``ys`` (the sample axis
+        last), reduced."""
+        return reduce_fn({k: torch.cat([v.movedim(0, -1), ys[k]], -1)
+                          for k, v in pre_ys[0].items()})
+
     view = state if lanes else _shard_view(state)
     ok, h = handoff(cfg, view)
     t1 = time.perf_counter()
     prefix_s += t1 - t0
     handoffs_taken += int(ok.sum())
     handoffs_refused += int((~ok).sum())
-    fast = None
+    fast = fast_red = None
     if ok.any():
-        out = steady_scan(cfg, keys, h)
+        out = steady_scan(cfg, keys, h, with_probe=probe is not None)
+        if probe is not None:
+            out, hb_ys = out  # [S, K]
+            fast_red = reduced(steady_map_fn(hb_ys if lanes else
+                                             {k: v[0] for k, v in hb_ys.items()}, state))
         fast = materialize(cfg, view, h, out)
         if not lanes:
             fast = _unshard(fast)
         scan_s += time.perf_counter() - t1
-        if ok.all():
-            return fast
-    # the prefix did not reach the quiet window: the tick engine takes over
-    slow, _ = tick_loop(cfg, state, bufs, key, t_e, max(cfg.ticks, t_e))
-    if fast is None:
-        return slow
-    return _select(torch.as_tensor(ok, device=slow.alive.device), fast, slow)
+    if ok.all():
+        final, red = fast, fast_red
+    else:
+        # the prefix did not reach the quiet window: the tick engine takes over
+        slow, _, *post_ys = tick_loop(cfg, state, bufs, key, t_e, max(cfg.ticks, t_e),
+                                      probe=sample_fn)
+        slow_red = reduced({k: v.movedim(0, -1) for k, v in post_ys[0].items()}) \
+            if probe is not None else None
+        if fast is None:
+            final, red = slow, slow_red
+        else:
+            pick = torch.as_tensor(ok, device=slow.alive.device)
+            final = _select(pick, fast, slow)
+            red = None if probe is None else _select_tree(pick, fast_red, slow_red)
+    return final if probe is None else (final, red)
+
+
+def _select_tree(ok, fast: dict, slow: dict) -> dict:
+    """:func:`_select` over a (nested) dict of lane-leading tensors."""
+    return {k: (_select_tree(ok, v, slow[k]) if isinstance(v, dict) else
+                torch.where(ok.reshape((-1,) + (1,) * (v.ndim - 1)), v, slow[k]))
+            for k, v in fast.items()}
 
 
 def run(cfg, key, device):

@@ -40,22 +40,34 @@ stay pure metrics.
 
 The services around the dispatch are the JAX package's: the batched
 programs are registry entries (utils/aotcache.py: ``"sweep-batched"``,
-``"sweep-batched-dynf"``, ``"multi-seed-tick"``), the batched dispatch fires
-the ``sweep.dyn_dispatch`` chaos point (chaos/inject.py) and runs inside
+``"sweep-batched-dynf"``, ``"multi-seed-tick"``, and obsim's
+``"consobs-batched"``), the batched dispatch fires the
+``sweep.dyn_dispatch`` chaos point (chaos/inject.py) and runs inside
 ``telemetry.profile_region("sweep_dispatch")``, and the fault sweeps fail
 fast on a fresh ``wedged`` verdict in ``$BLOCKSIM_HEALTH_JSONL``
 (utils/health.require_not_wedged).
 
+Durability: every dynamic-operand sweep accepts ``journal=`` (a
+parallel/journal.SweepJournal): execution then chunks one fault level (its
+seed tile) to a fsynced journal append, and a restarted identical sweep skips
+completed chunks (it recomputes at most the one chunk in flight).
+``supervise=`` (journal.ChunkSupervisor) adds a deadline to each chunk, with
+bounded retry and a recorded degrade arm on the same device: the sweep's
+own program again, or for a single tick-engine point
+``runner.run_dyn_checkpointed``.  The chunk keys (:func:`dyn_chunk_keys`)
+and rows are the JAX package's, so either package resumes the other's
+journal.  ``probe=`` (obsim/schema.ProbeConfig) dispatches the armed twin
+(obsim/build.probed_batched_fn) and adds each row's ``"probe"`` summary.
+
 Kept out, each raising ``NotImplementedError`` naming its slice: the
 node-sharded topology programs (``sharded_topo_sim_fn``,
-``run_sharded_topo``) and ``mesh=``: slice 6 (many GPUs); durable and
-supervised sweeps (``journal=``, ``supervise=``, ``dyn_chunk_keys``) and
-obsim's ``probe=``: the durable-sweeps slice (journal, query, obsim).
+``run_sharded_topo``) and ``mesh=``: slice 6 (many GPUs).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -74,11 +86,10 @@ from blockchain_simulator_tpu_torch.runner import (
     use_round_schedule,
 )
 from blockchain_simulator_tpu_torch.chaos import inject
+from blockchain_simulator_tpu_torch.parallel import journal as journal_mod
 from blockchain_simulator_tpu_torch.utils import aotcache, health, obs, telemetry, threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
-DURABLE_SWEEPS = ("the durable-sweeps slice of the port (journal, query, obsim; "
-                  "ROADMAP.md queue A)")
 MANY_GPUS = "slice 6 of the port (many GPUs)"
 
 
@@ -86,14 +97,10 @@ def _refuse(what: str, where: str):
     raise NotImplementedError(f"{what} comes with {where}")
 
 
-def _refuse_arms(mesh=None, journal=None, supervise=None, probe=None):
-    """The sweep arms later slices bring."""
+def _refuse_mesh(mesh=None):
+    """The sweep arm a later slice brings."""
     if mesh is not None:
         _refuse("mesh= (a sweep over a device mesh)", MANY_GPUS)
-    if journal is not None or supervise is not None:
-        _refuse("journal= / supervise= (durable, supervised sweeps)", DURABLE_SWEEPS)
-    if probe is not None:
-        _refuse("probe= (obsim's consensus probes, obsim.schema.ProbeConfig)", DURABLE_SWEEPS)
 
 
 def _record(rows, cfgs, seeds):
@@ -245,7 +252,7 @@ def _batched_fn(cfg: SimConfig):
 def run_seed_sweep(cfg: SimConfig, seeds, mesh=None, device=None):
     """Run ``len(seeds)`` simulations of one config as one batched program;
     returns one metrics dict a seed, each the vmapped JAX row."""
-    _refuse_arms(mesh=mesh)
+    _refuse_mesh(mesh)
     dev = resolve_device(device)
     seeds = list(seeds)
     finals = _batched_fn(cfg)(seeds, dev)
@@ -263,8 +270,12 @@ def _dispatch_dyn_points(canon: SimConfig, points, record: bool = True,
                          n_out: int | None = None, mesh=None,
                          multi_seed: bool = False, probe=None, device=None):
     """ONE batched dispatch of a same-structure point list; one metrics dict
-    a point (the first ``n_out`` when given)."""
-    _refuse_arms(mesh=mesh, probe=probe)
+    a point (the first ``n_out`` when given).  ``probe`` (an
+    obsim/schema.ProbeConfig) swaps in the armed twin of the same program
+    (obsim/build.probed_batched_fn) and adds each row's ``"probe"`` summary;
+    monitor violations trip the flight recorder
+    (obsim/host.note_violations)."""
+    _refuse_mesh(mesh)
     points = list(points)
     if not points:
         return []
@@ -273,20 +284,110 @@ def _dispatch_dyn_points(canon: SimConfig, points, record: bool = True,
     # the exception path a real device fault takes through the sweeps AND
     # the server's degrade machinery (chaos/inject.py)
     inject.chaos_point("sweep.dyn_dispatch", canon=canon, n=len(points))
-    batched = multi_seed_fn(canon, len(points)) if multi_seed else dyn_batched_fn(canon)
+    if probe is not None:
+        from blockchain_simulator_tpu_torch.obsim import build as obsim_build
+        from blockchain_simulator_tpu_torch.obsim import host as obsim_host
+
+        batched = obsim_build.probed_batched_fn(canon, probe, multi_seed=multi_seed)
+    elif multi_seed:
+        batched = multi_seed_fn(canon, len(points))
+    else:
+        batched = dyn_batched_fn(canon)
     ops = [_dyn_operands(cfg, cfg.faults) for cfg, _ in points]
     # $BLOCKSIM_PROFILE arms a torch.profiler capture around the run
     # (utils/telemetry.py; free when disarmed); a serve flush routed here
     # is already inside its own region, and the nested guard skips this one
     with telemetry.profile_region("sweep_dispatch"):
-        finals = batched(_keys([s for _, s in points]), [o[0] for o in ops],
-                         [o[1] for o in ops], dev)
+        outs = batched(_keys([s for _, s in points]), [o[0] for o in ops],
+                       [o[1] for o in ops], dev)
+    finals, probes = outs if probe is not None else (outs, None)
+    if probes is not None:
+        probes = obsim_host.tree_to_host(probes)  # one copy a leaf
     if n_out is not None:
         points = points[:n_out]
-    out = [sim_metrics(cfg_i, lane_state(finals, i)) for i, (cfg_i, _) in enumerate(points)]
+    out = []
+    for i, (cfg_i, seed) in enumerate(points):
+        m = sim_metrics(cfg_i, lane_state(finals, i))
+        if probe is not None:
+            m["probe"] = obsim_host.summarize_lane(cfg_i, probe, probes, i)
+            obsim_host.note_violations(m["probe"], cfg_i, int(seed))
+        out.append(m)
     if record:
         _record(out, [c for c, _ in points], [s for _, s in points])
     return out
+
+
+def _run_chunk(canon, tile, record, n_out, supervise, journal, key, index,
+               multi_seed=False, probe=None, device=None):
+    """Compute ONE chunk, optionally under the supervisor's deadline ->
+    retry -> degrade state machine (parallel/journal.py).  The
+    ``sweep.chunk`` chaos point fires once an ATTEMPT with the arm in its
+    ctx, so a drill can wedge exactly the primary arm and watch the degrade
+    arm answer.  Every arm runs on ``device``: a supervised attempt runs in
+    a worker thread, which selects the card first."""
+    dev = resolve_device(device)
+
+    def on_device(fn):
+        """``fn`` with ``dev`` selected in the calling thread first (a
+        deadline's worker thread starts on the process's current card)."""
+        if dev.type != "cuda":
+            return fn
+
+        def run():
+            import torch
+
+            torch.cuda.set_device(dev)
+            return fn()
+
+        return run
+
+    def primary():
+        inject.chaos_point("sweep.chunk", key=key, index=index,
+                           n=len(tile), arm="primary", mesh=False)
+        # every chunk ATTEMPT is one span on a chunk-scoped trace
+        # (utils/telemetry.py): which chunk, which arm, how long, as data
+        with telemetry.span("sweep.chunk", key=key, index=index,
+                            n=len(tile), arm="primary"):
+            return _dispatch_dyn_points(canon, tile, record, n_out, None,
+                                        multi_seed, probe, dev)
+
+    if supervise is None:
+        return primary()
+
+    if supervise.checkpoint_dir and len(tile) == 1 \
+            and not use_round_schedule(tile[0][0]):
+        # the very-long-single-sim arm: tick-level mid-chunk checkpoints
+        # (utils/checkpoint.py); a re-kill resumes MID-chunk from the last
+        # segment instead of restarting the whole run, on the same device
+        cfg_pt, seed_pt = tile[0]
+
+        def degrade():
+            inject.chaos_point("sweep.chunk", key=key, index=index,
+                               n=len(tile), arm="degrade-checkpoint",
+                               mesh=False)
+            with telemetry.span("sweep.chunk", key=key, index=index,
+                                n=len(tile), arm="degrade-checkpoint"):
+                m, _ = runner.run_dyn_checkpointed(
+                    cfg_pt, supervise.checkpoint_every_ms,
+                    os.path.join(supervise.checkpoint_dir, key),
+                    seed=seed_pt, device=dev,
+                )
+            return [m]
+    else:
+        # JAX's mesh-shrink arm: the single-device program again (one card
+        # has no smaller mesh), on the same device, equal rows
+        def degrade():
+            inject.chaos_point("sweep.chunk", key=key, index=index,
+                               n=len(tile), arm="degrade", mesh=False)
+            with telemetry.span("sweep.chunk", key=key, index=index,
+                                n=len(tile), arm="degrade"):
+                return _dispatch_dyn_points(canon, tile, record, n_out,
+                                            mesh=None, probe=probe, device=dev)
+
+    rows, _events = journal_mod.run_supervised(
+        on_device(primary), on_device(degrade), supervise, journal=journal, key=key,
+    )
+    return rows
 
 
 def run_dyn_points(canon: SimConfig, points, record: bool = True,
@@ -297,38 +398,127 @@ def run_dyn_points(canon: SimConfig, points, record: bool = True,
     """THE group-dispatch primitive: one batched program over a list of
     same-structure ``(cfg, seed)`` points (configs that canonicalize to
     ``canon`` and differ only in fault counts).  Returns one metrics dict a
-    point, in order (the first ``n_out`` when given); ``with_index=True``
-    returns ``(rows, meta)`` with JAX's row map and dispatch accounting.
-    ``multi_seed`` dispatches the solo-semantics program
-    (:func:`multi_seed_fn`).  ``chunk_size`` and ``key_suffix`` only shape
-    journaled sweeps, which come with a later slice."""
-    del chunk_size, key_suffix
-    _refuse_arms(mesh=mesh, journal=journal, supervise=supervise, probe=probe)
+    point, in order (the first ``n_out`` when given: the server's padded
+    lanes are dropped).  ``multi_seed`` dispatches the solo-semantics
+    program (:func:`multi_seed_fn`).
+
+    **Durable execution** (``journal=``, a parallel/journal.SweepJournal),
+    as in the JAX package: the point list splits into ``chunk_size``-point
+    chunks (default one chunk; the fault sweeps pass one chunk a fault
+    level), each chunk's rows are appended to the journal (fsynced, with
+    row checksums and the registry ``cache`` block) BEFORE the next chunk
+    dispatches, and a chunk whose content key (journal.chunk_key) is
+    already journaled is served from the journal without a dispatch.
+    Resumed rows ride a JSON round trip and are not re-recorded to the run
+    log.  ``supervise=`` (journal.ChunkSupervisor) wraps every computed
+    chunk in the deadline -> retry -> degrade machine, with or without a
+    journal.  Under ``"normal"``/``"rbg"`` a chunk's rows are its own
+    batch's (the first-lane rule), as JAX's chunked rows are.
+
+    ``probe=`` (obsim/schema.ProbeConfig) arms the taps: every row gains a
+    ``"probe"`` summary, the metrics stay the disarmed run's, and armed
+    chunks journal under a ``+p<W>[m]`` key suffix, so a journal written
+    disarmed never answers an armed call.  ``key_suffix`` is appended to
+    every chunk key after it (the query engine's ``+q<step>`` namespace).
+
+    ``with_index=True`` returns ``(rows, meta)``: ``meta["rows"][i]`` maps
+    output row ``i`` to its point (``point``, ``seed``, ``key``, ``cached``)
+    and ``meta`` carries ``dispatches``, ``lanes``, ``pad`` and the
+    per-chunk trail ``chunks``.  ``mesh=`` raises (slice 6)."""
+    _refuse_mesh(mesh)
     points = list(points)
-    rows = _dispatch_dyn_points(canon, points, record, n_out, None, multi_seed, None, device)
-    if not with_index:
-        return rows
-    pts_out = points if n_out is None else points[:n_out]
-    meta = {"rows": [{"point": i, "seed": int(s), "key": None, "cached": False}
-                     for i, (_, s) in enumerate(pts_out)],
-            "chunks": [], "lanes": len(points), "dispatches": int(bool(points)),
-            "pad": 0}
-    return rows, meta
+    meta = {"rows": [], "chunks": [], "lanes": 0, "dispatches": 0, "pad": 0}
+
+    def _done(rows):
+        return (rows, meta) if with_index else rows
+
+    if journal is None and supervise is None:
+        rows = _dispatch_dyn_points(canon, points, record, n_out, None, multi_seed, probe,
+                                    device)
+        if points:
+            meta["dispatches"] = 1
+            meta["lanes"] = len(points)
+        pts_out = points if n_out is None else points[:n_out]
+        meta["rows"] = [{"point": i, "seed": int(s), "key": None, "cached": False}
+                        for i, (_, s) in enumerate(pts_out)]
+        return _done(rows)
+    if not points:
+        return _done([])
+    if chunk_size is None or n_out is not None:
+        # n_out callers (serve's bucket-padded flushes) journal the whole
+        # batch as ONE chunk: pad lanes never split across chunk keys
+        chunk_size = len(points)
+    done = journal.completed() if journal is not None else {}
+    out = []
+    for index, start in enumerate(range(0, len(points), chunk_size)):
+        tile = points[start:start + chunk_size]
+        want = len(tile) if n_out is None else max(0, min(len(tile), n_out))
+        t_out = None if n_out is None else want
+        key = journal_mod.chunk_key(canon, index, tile, n_out=t_out)
+        if probe is not None:
+            # armed and disarmed calls never share a journal key: a cached
+            # disarmed chunk has no "probe" summaries to serve
+            key += f"+p{probe.windows}{'m' if probe.monitors else ''}"
+        key += key_suffix
+        cached = done.get(key)
+        if cached is not None and len(cached) == want:
+            meta["chunks"].append({"key": key, "index": index, "cached": True, "n": want})
+            meta["rows"] += [{"point": start + j, "seed": int(tile[j][1]), "key": key,
+                              "cached": True} for j in range(want)]
+            out.extend(cached)
+            continue
+        # every dispatch ATTEMPT runs record=False: only the winning arm's
+        # rows (journaled below) reach the run log, so an abandoned slow
+        # attempt finishing late cannot double-record its points
+        rows = _run_chunk(canon, tile, False, t_out, supervise, journal, key, index,
+                          multi_seed, probe, device)
+        # durable BEFORE the next chunk dispatches: the recompute-at-most-one
+        # contract of a kill -9
+        if journal is not None:
+            journal.append_chunk(key, index, rows, cache=aotcache.registry.manifest())
+        if record:
+            pts_out = tile if t_out is None else tile[:t_out]
+            _record(rows, [c for c, _ in pts_out], [s for _, s in pts_out])
+        meta["dispatches"] += 1
+        meta["lanes"] += len(tile)
+        meta["chunks"].append({"key": key, "index": index, "cached": False, "n": len(rows)})
+        meta["rows"] += [{"point": start + j, "seed": int(tile[j][1]), "key": key,
+                          "cached": False} for j in range(len(rows))]
+        out.extend(rows)
+    return _done(out)
 
 
 def dyn_chunk_keys(cfg: SimConfig, fault_configs, seeds, mesh=None):
-    """The journal chunk keys of a journaled sweep: journaled sweeps come
-    with the durable-sweeps slice."""
-    _refuse("dyn_chunk_keys (the journal's chunk keys)", DURABLE_SWEEPS)
+    """The chunk keys a journaled ``run_fault_sweep(cfg, fault_configs,
+    seeds, journal=...)`` uses for ONE same-structure group, derived from the
+    grid alone (never from a journal's content), so a coverage check is
+    independent evidence.  All ``fault_configs`` must share one canonical
+    structure.  The JAX package's keys, byte for byte."""
+    _refuse_mesh(mesh)
+    fcs = list(fault_configs)
+    canons = {canonical_fault_cfg(cfg.with_(faults=fc)) for fc in fcs}
+    if len(canons) != 1:
+        raise ValueError(
+            f"dyn_chunk_keys covers one structure group, got {len(canons)}"
+        )
+    canon = next(iter(canons))
+    chunk = len(seeds)
+    points = [(cfg.with_(faults=fc), s) for fc in fcs for s in seeds]
+    return [journal_mod.chunk_key(canon, i, points[st:st + chunk])
+            for i, st in enumerate(range(0, len(points), chunk))]
 
 
 def _run_dyn_group(cfg: SimConfig, canon: SimConfig, fcs, seeds, mesh=None,
                    journal=None, supervise=None, multi_seed=False, device=None):
     """One program for every (fault config, seed) point of a same-structure
-    group; returns ``{fc: [metrics a seed]}``."""
+    group; returns ``{fc: [metrics a seed]}``.  With a journal or a
+    supervisor the group chunks one fault level (its seed tile) a chunk, so
+    a crash mid-grid loses at most one level's seed batch."""
     points = [(cfg.with_(faults=fc), seed) for fc in fcs for seed in seeds]
-    rows = run_dyn_points(canon, points, mesh=mesh, journal=journal, supervise=supervise,
-                          multi_seed=multi_seed, device=device)
+    tiled = journal is not None or supervise is not None
+    rows = run_dyn_points(canon, points, mesh=mesh, journal=journal,
+                          chunk_size=len(seeds) if tiled else None,
+                          supervise=supervise, multi_seed=multi_seed, device=device)
     n_s = len(seeds)
     return {fc: rows[i * n_s:(i + 1) * n_s] for i, fc in enumerate(fcs)}
 
@@ -339,8 +529,9 @@ def run_fault_sweep(cfg: SimConfig, fault_configs, seeds, mesh=None,
     Returns ``{fault_config: [metrics a seed]}``.  Fault configs that differ
     only in their counts share one program (a structure group); the mixed
     sim takes the static :func:`run_seed_sweep` path, one program a fault
-    config."""
-    _refuse_arms(mesh=mesh, journal=journal, supervise=supervise)
+    config, un-journaled (it has no dynamic-operand chunk identity).
+    ``journal=`` / ``supervise=``: :func:`run_dyn_points`."""
+    _refuse_mesh(mesh)
     _health_gate()
     fault_configs = list(fault_configs)
     seeds = list(seeds)
@@ -358,7 +549,8 @@ def run_fault_sweep(cfg: SimConfig, fault_configs, seeds, mesh=None,
         order[fc] = canon
     done: dict = {}
     for canon, fcs in groups.items():
-        done.update(_run_dyn_group(cfg, canon, fcs, seeds, multi_seed=multi_seed,
+        done.update(_run_dyn_group(cfg, canon, fcs, seeds, journal=journal,
+                                   supervise=supervise, multi_seed=multi_seed,
                                    device=device))
     return {fc: (run_seed_sweep(cfg.with_(faults=fc), seeds, device=device)
                  if order[fc] is None else done[fc])

@@ -28,8 +28,12 @@ ephemeral port, a mixed-workload drill over real HTTP (batchable pair,
 un-batchable reject, health pause, stats), then a clean shutdown —
 printing one JSON summary line and exiting nonzero on any miss.
 
-``--journal`` (the durable-sweep journal) and ``--mesh-sweep`` > 0 (a sweep
-mesh over many GPUs) come with later slices of the port and exit 2.
+With ``--journal PATH`` batched flushes journal their rows in the
+durable-sweep journal (parallel/journal.py): a restarted daemon answers a
+WAL-replayed batch whose rows were already computed from the journal, and a
+``query`` request's refinement steps journal there too.  ``--mesh-sweep`` >
+0 (a sweep mesh over many GPUs) comes with a later slice of the port and
+exits 2.
 """
 
 from __future__ import annotations
@@ -109,7 +113,9 @@ def make_httpd(server, host: str = "127.0.0.1", port: int = 0):
                     self.headers.get(telemetry.TRACE_HEADER))
                 with telemetry.context(ctx):
                     resp = server.request(obj)
-                self._send(resp.get("code", 500), resp)
+                # a query's answer body carries no "code" (the JAX
+                # package's body, kept equal); its status "ok" is a 200
+                self._send(resp.get("code", 200 if resp.get("status") == "ok" else 500), resp)
             elif self.path == "/health":
                 obj = self._read_json()
                 verdict = obj.get("verdict") if isinstance(obj, dict) \
@@ -298,8 +304,10 @@ def main(argv=None) -> int:
                         "replays admitted-but-unanswered requests exactly "
                         "once per pending id")
     p.add_argument("--journal", default=None, metavar="PATH",
-                   help="durable-sweep journal for batched flushes (comes "
-                        "with the durable-sweeps slice of the port; exits 2)")
+                   help="durable-sweep journal (parallel/journal.py) for "
+                        "batched flushes and query steps: a restarted daemon "
+                        "answers a WAL-replayed batch whose rows were already "
+                        "computed from the journal instead of re-running it")
     p.add_argument("--wal-no-sync", action="store_true",
                    help="skip the per-admit fsync (faster admission, "
                         "admits may be lost to an OS crash — process "
@@ -344,14 +352,10 @@ def main(argv=None) -> int:
                    help="warm requests in the self-test latency sample")
     args = p.parse_args(argv)
 
-    from blockchain_simulator_tpu_torch.parallel.sweep import DURABLE_SWEEPS, MANY_GPUS
+    from blockchain_simulator_tpu_torch.parallel.sweep import MANY_GPUS
 
     if args.mesh_sweep and args.mesh_sweep > 0:
         print(f"serve: --mesh-sweep {args.mesh_sweep} (a sweep mesh) comes with {MANY_GPUS}",
-              file=sys.stderr)
-        return 2
-    if args.journal:
-        print(f"serve: --journal (the durable-sweep journal) comes with {DURABLE_SWEEPS}",
               file=sys.stderr)
         return 2
     from blockchain_simulator_tpu_torch import runner
@@ -383,6 +387,7 @@ def main(argv=None) -> int:
         breaker_threshold=args.breaker_threshold,
         breaker_cooldown_s=args.breaker_cooldown_s,
         replica=args.replica_id,
+        journal_path=args.journal,
         device=args.device,
     )
     if args.prewarm:

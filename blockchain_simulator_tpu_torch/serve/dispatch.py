@@ -88,6 +88,21 @@ def _solo_metrics(req, device):
         inject.chaos_point("serve.solo_dispatch", req_id=req.req_id)
         with telemetry.profile_region("serve_solo"):
             keys, nc, nb = _operands([req])
+            if req.probe is not None:
+                # the armed solo twin (the consobs-solo registry entry):
+                # same operands, the same final state; the probe summary
+                # rides the metrics row
+                from blockchain_simulator_tpu_torch.obsim import build as obsb
+                from blockchain_simulator_tpu_torch.obsim import host as obsh
+                from blockchain_simulator_tpu_torch.obsim import schema as obs_schema
+
+                final, probes = force_sync(obsb.probed_solo_fn(req.canon, req.probe)(
+                    keys[0], nc[0], nb[0], device))
+                m = sim_metrics(req.cfg, final)
+                m["probe"] = obs_schema.summarize(req.canon, req.probe,
+                                                  obsh.tree_to_host(probes))
+                obsh.note_violations(m["probe"], req.cfg, req.seed)
+                return m
             final = force_sync(_solo_fn(req.canon)(keys[0], nc[0], nb[0], device))
         return sim_metrics(req.cfg, final)
     finally:
@@ -110,10 +125,15 @@ def run_batch(reqs, max_batch: int, force_solo: bool = False,
     breaker); ``solo_reason`` labels such batches' ``mode``
     (``breaker-solo``, ``quarantined-solo``).
 
-    ``mesh`` (a batch sharded over many GPUs) and ``journal`` (durable
-    batches) raise ``NotImplementedError`` naming their slices, as the
-    sweep's do."""
-    sweep._refuse_arms(mesh=mesh, journal=journal)
+    ``journal`` (a parallel/journal.SweepJournal: ``ScenarioServer(
+    journal_path=)``, the daemon's ``--journal``): batched flushes ride the
+    sweep journal as single-chunk dispatches keyed on their content
+    (canonical structure + the padded point list), so the WAL replay of a
+    batch whose rows were already computed is answered from the journal
+    without running it.  Solo and degrade dispatches stay un-journaled
+    (their recompute is one request).  ``mesh`` (a batch sharded over many
+    GPUs) raises ``NotImplementedError`` naming its slice."""
+    sweep._refuse_mesh(mesh)
     device = runner.resolve_device(device)
     t0 = time.monotonic()
     canon = reqs[0].canon
@@ -161,9 +181,12 @@ def run_batch(reqs, max_batch: int, force_solo: bool = False,
         d0 = time.monotonic()
         try:
             with telemetry.profile_region("serve_flush"):
+                # the batcher groups on (canon, probe), so one flush is
+                # probe-homogeneous: reqs[0].probe speaks for every lane
                 rows = sweep.run_dyn_points(
                     canon, [(r.cfg, r.seed) for r in lanes], record=False,
-                    n_out=len(reqs), device=device,
+                    n_out=len(reqs), journal=journal, probe=reqs[0].probe,
+                    device=device,
                 )
         finally:
             d1 = time.monotonic()

@@ -23,9 +23,10 @@ the group equals the JAX package's for the same request.
 Rejections are typed, never stringly: every failure mode is a
 :class:`ServeError` subclass with an HTTP-style ``code`` and a stable
 ``kind`` slug, with the JAX package's codes, kinds and messages.  The
-request-level ``probe`` (obsim's in-program probes) and ``query`` (adaptive
-threshold searches) fields come with the durable-sweeps slice of the port
-and are refused at admission with a typed 400 naming it.
+request-level ``probe`` (obsim's in-program probes: ``true`` or a dict of
+``ProbeConfig`` fields) and ``query`` (an adaptive threshold search: a dict
+of ``QuerySpec`` fields, the request's config its base) fields are
+validated at admission with JAX's checks and 400 wording.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from __future__ import annotations
 import dataclasses
 
 from blockchain_simulator_tpu_torch.models.base import canonical_fault_cfg
-from blockchain_simulator_tpu_torch.parallel.sweep import DURABLE_SWEEPS
 from blockchain_simulator_tpu_torch.utils.config import FaultConfig, SimConfig
 
 # Request-level keys that are not SimConfig fields.
@@ -190,6 +190,16 @@ class ScenarioRequest:
     timeout_s: float
     submitted: float = 0.0
     replayed: bool = False
+    # in-program probe opt-in (obsim/schema.ProbeConfig, None = disarmed):
+    # part of the batch-group key, so armed and disarmed requests never
+    # share a dispatch, and the armed group's program is a consobs-*
+    # registry entry (obsim/build.py)
+    probe: object = None
+    # adaptive-query opt-in (query/spec.QuerySpec, None = ordinary
+    # scenario): the request's cfg is the BASE config of a threshold search
+    # (query/engine.py), a long-running request the batcher diverts to its
+    # own worker (serve/server.py), journaled a refinement step
+    query: object = None
     # -- telemetry (utils/telemetry.py; host-side only) --------------------
     # trace identity: minted at admission (or adopted from the router's
     # X-Blocksim-Trace header, in which case parent_span is the router's
@@ -205,6 +215,10 @@ class ScenarioRequest:
     t_flush: float = 0.0
     t_dispatch0: float = 0.0
     t_dispatch1: float = 0.0
+    # pre-minted root span id: the query worker mints it BEFORE the search
+    # so each query.step span can parent under the serve.request root the
+    # server only emits at answer time (None = let emit() mint one)
+    root_span: str | None = None
 
     def expired(self, now: float) -> bool:
         return self.timeout_s > 0 and (now - self.submitted) > self.timeout_s
@@ -293,12 +307,38 @@ def parse_request(obj, req_id: str, default_timeout_s: float = 30.0,
     except (NotImplementedError, ValueError, TypeError) as e:
         raise InvalidRequestError(str(e)) from e
 
-    # obsim's probes and the adaptive queries are not ported yet: refused
-    # here, so such a request never reaches a batch
+    probe = None
     if probe_kw:
-        raise InvalidRequestError(f"probe: obsim's in-program probes come with {DURABLE_SWEEPS}")
+        from blockchain_simulator_tpu_torch.obsim import build as obsim_build
+        from blockchain_simulator_tpu_torch.obsim import schema as obsim_schema
+
+        try:
+            probe = obsim_schema.ProbeConfig(
+                **(probe_kw if isinstance(probe_kw, dict) else {})
+            )
+            # full admission-time validation (a probe schema exists for the
+            # protocol, the armed arm has samples to tap): building the
+            # probed closure runs nothing
+            obsim_build.make_probed_dyn_sim_fn(cfg, probe)
+        except (TypeError, ValueError, KeyError) as e:
+            raise InvalidRequestError(f"probe: {e}") from e
+
+    query = None
     if query_kw is not None:
-        raise InvalidRequestError(f"query: adaptive queries come with {DURABLE_SWEEPS}")
+        from blockchain_simulator_tpu_torch.query import spec as query_spec
+
+        if probe is not None:
+            raise InvalidRequestError(
+                "query requests do not accept probe (arm the probe on "
+                "ordinary scenario requests)")
+        try:
+            query = query_spec.parse_query(query_kw)
+            # resolve the domain against THIS base config now: an empty or
+            # out-of-range domain is a 400 at admission, never a
+            # worker-thread surprise
+            query_spec.resolve_domain(query, cfg)
+        except ValueError as e:
+            raise InvalidRequestError(f"query: {e}") from e
 
     return ScenarioRequest(
         req_id=req_id,
@@ -306,6 +346,8 @@ def parse_request(obj, req_id: str, default_timeout_s: float = 30.0,
         canon=canonical_fault_cfg(cfg),
         seed=seed,
         timeout_s=timeout_s,
+        probe=probe,
+        query=query,
     )
 
 

@@ -53,10 +53,14 @@ pushed via :meth:`set_health` — pauses admission with typed 503s until a
 in runs.jsonl (``$BLOCKSIM_RUNS_JSONL``), cache and telemetry blocks
 included.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its slice:
-``mesh=`` (batches sharded over many GPUs) and ``journal_path=`` (the
-durable-sweep journal); ``"query"`` requests are refused at admission
-(serve/schema.py).
+``journal_path=`` (the daemon's ``--journal``) attaches the durable-sweep
+journal (parallel/journal.py): batched flushes journal their rows, so a WAL
+replay of an already-computed batch is answered from the journal, and the
+journal compacts at startup keyed on the pending admissions.  ``"query"``
+requests (serve/schema.py) each run the adaptive search (query/engine.py)
+on a worker thread of their own, which selects the server's device first.
+Not ported yet: ``mesh=`` (batches sharded over many GPUs), refused with
+``NotImplementedError`` naming its slice.
 """
 
 from __future__ import annotations
@@ -69,7 +73,7 @@ import time
 from blockchain_simulator_tpu_torch import runner
 from blockchain_simulator_tpu_torch.chaos import inject
 from blockchain_simulator_tpu_torch.parallel import sweep
-from blockchain_simulator_tpu_torch.parallel.sweep import DURABLE_SWEEPS, MANY_GPUS
+from blockchain_simulator_tpu_torch.parallel.sweep import MANY_GPUS
 from blockchain_simulator_tpu_torch.serve import dispatch, schema
 from blockchain_simulator_tpu_torch.serve.wal import WriteAheadLog
 from blockchain_simulator_tpu_torch.utils import aotcache, obs, telemetry
@@ -200,10 +204,15 @@ class ScenarioServer:
         if mesh is not None:
             raise NotImplementedError(
                 f"mesh= (batched flushes sharded over a device mesh) comes with {MANY_GPUS}")
+        # durable-sweep journal (parallel/journal.py; daemon --journal):
+        # batched flushes append their rows content-keyed, so a WAL replay
+        # of an already-computed batch is answered from the journal
+        # instead of re-executed (serve/dispatch.run_batch journal=)
+        self._journal = None
         if journal_path:
-            raise NotImplementedError(
-                "journal_path= (the durable-sweep journal of batched flushes) comes "
-                f"with {DURABLE_SWEEPS}")
+            from blockchain_simulator_tpu_torch.parallel.journal import SweepJournal
+
+            self._journal = SweepJournal(journal_path)
         # the one device every dispatch runs on: the CUDA card unless the
         # caller names another; without a card this raises HERE.  A bare
         # "cuda" is pinned to the current card, so the batcher thread can
@@ -242,7 +251,7 @@ class ScenarioServer:
             "received": 0, "served": 0, "timeouts": 0, "batches": 0,
             "degraded_batches": 0, "rejected": {}, "errors": 0,
             "replayed": 0, "quarantined": 0, "batcher_restarts": 0,
-            "queries": 0,  # query requests: refused at admission (schema.py)
+            "queries": 0,
         }
         # PRIVATE latency histograms (utils/telemetry.py) behind the
         # /stats "latency_ms" percentiles: per-server so N servers in one
@@ -265,6 +274,10 @@ class ScenarioServer:
         self._closing = False
         self._drain = True
         self._thread: threading.Thread | None = None
+        # long-running query requests (schema "query"): each runs on its
+        # own worker thread outside the micro-batching loop, tracked so
+        # close() can wait for them and sweep any dead worker's future
+        self._queries: list = []  # [(req, PendingResponse, Thread)]
 
         self._wal: WriteAheadLog | None = None
         self._wal_replayed_at_start = 0
@@ -277,12 +290,22 @@ class ScenarioServer:
             self._wal_claimed_by = fleet.claim_owner(wal_path)
             if self._wal_claimed_by is None:
                 self._wal.compact()
+                # the sweep journal compacts at the SAME point, keyed on the
+                # pending admissions: a replay backlog keeps every valid
+                # chunk line (the replayed batches still answer from the
+                # journal, zero dispatches), an empty backlog empties the
+                # file, so a live-traffic daemon's journal tracks its crash
+                # backlog, not its flush history
+                if self._journal is not None:
+                    keep = (set(self._journal.completed())
+                            if self._wal.pending() else ())
+                    self._journal.compact(keep)
                 self._replay_wal()
             # else: a router holds this WAL's lease (serve/fleet.py) — the
             # pending ids are being replayed on a peer RIGHT NOW, so a
             # restarting replica must not replay them a second time; it
-            # still serves new traffic on the same file.  Compaction is
-            # skipped too: the lease holder is reading it.
+            # still serves (and journals) new traffic on the same file.
+            # Compaction is skipped too: the lease holder is reading it.
         if start:
             self.start()
 
@@ -311,6 +334,17 @@ class ScenarioServer:
         if self._thread is not None and self._thread.is_alive():
             self._thread.join()
         self._thread = None
+        # query workers answer through their own threads: wait for them, so
+        # the sweep below only 503s a genuinely dead worker's future (a
+        # ChaosKill'd search), never a result that was seconds away
+        with self._lock:
+            queries = list(self._queries)
+            self._queries = []
+        for _, _, t in queries:
+            if t.is_alive():
+                t.join()
+        self._reject_shutdown(
+            [(req, fut) for req, fut, _ in queries if not fut.done()])
         # the sweep: whatever the batcher could not (or was told not to)
         # serve gets its typed 503 + rejection manifest right here — the
         # invariant checker's "no request unaccounted" has no exceptions
@@ -329,6 +363,8 @@ class ScenarioServer:
         self._reject_shutdown(leftovers)
         if self._wal is not None:
             self._wal.close()
+        if self._journal is not None:
+            self._journal.close()
         # flight-recorder post-mortem (utils/telemetry.py): a no-op file-
         # wise unless $BLOCKSIM_FLIGHT_DIR is armed, so every drill/test
         # shutdown stays free; the ring note is always recorded
@@ -565,11 +601,24 @@ class ScenarioServer:
                 else:
                     req, fut = item
                     req.t_drained = time.monotonic()
-                    if req.req_id in self._quarantine:
-                        key = (_QUARANTINE_GROUP, req.req_id)
+                    if req.query is not None:
+                        # adaptive queries are long-running requests: a
+                        # search's refinement generations must not block
+                        # the micro-batching loop, so each gets its own
+                        # worker thread (it answers through _answer like
+                        # every batched request)
+                        self._spawn_query(req, fut)
                     else:
-                        key = req.canon
-                    pending.setdefault(key, []).append((req, fut))
+                        if req.req_id in self._quarantine:
+                            key = (_QUARANTINE_GROUP, req.req_id)
+                        else:
+                            # the probe config is part of the group
+                            # identity: armed and disarmed requests never
+                            # share a flush (dispatch assumes
+                            # probe-homogeneous batches)
+                            key = req.canon if req.probe is None \
+                                else (req.canon, req.probe)
+                        pending.setdefault(key, []).append((req, fut))
                 try:
                     item = self._arrivals.get_nowait()
                 except queue.Empty:
@@ -673,7 +722,7 @@ class ScenarioServer:
         status = "ok" if resp.get("status") == "ok" else "error"
         root = telemetry.emit(
             "serve.request", t0, t_ans, trace=tid, parent=req.parent_span,
-            status=status, id=req.req_id,
+            span_id=req.root_span, status=status, id=req.req_id,
             outcome=counter, replayed=req.replayed or None,
             replica=self.replica,
         )
@@ -779,7 +828,8 @@ class ScenarioServer:
                 solo_reason = "breaker-solo"
         results = dispatch.run_batch(
             reqs, self.max_batch,
-            force_solo=force_solo, solo_reason=solo_reason, device=self.device,
+            force_solo=force_solo, solo_reason=solo_reason,
+            journal=self._journal, device=self.device,
         )
         degraded = any(
             resp.get("batch", {}).get("degraded") for _, resp in results
@@ -813,6 +863,79 @@ class ScenarioServer:
             counter = "served" if resp.get("status") == "ok" else "errors"
             self._answer(req, fut, resp, counter)
 
+    # --------------------------------------------------------------- queries
+    def _spawn_query(self, req, fut) -> None:
+        """Divert one admitted query request (schema ``"query"``) to its own
+        worker thread: it is already past admission and WAL-durable, so the
+        only fast-shutdown concern is a search not yet started (a typed 503
+        here; a RUNNING search is joined by close())."""
+        with self._lock:
+            self._stats["queries"] += 1
+            closing, drain = self._closing, self._drain
+        if closing and not drain:
+            err = schema.ShuttingDownError(
+                "server shut down before this query was started")
+            self._answer(req, fut, err.to_response(req.req_id),
+                         schema.ShuttingDownError.kind)
+            return
+        t = threading.Thread(
+            target=self._run_query_worker, args=(req, fut),
+            name=f"query-{req.req_id}", daemon=True,
+        )
+        with self._lock:
+            self._queries.append((req, fut, t))
+        t.start()
+
+    def _run_query_worker(self, req, fut) -> None:
+        """One query request's whole lifetime on the server's device (the
+        worker selects it first): pre-mint the request's root span so every
+        ``query.step`` span the engine emits parents under the
+        ``serve.request`` root the server synthesizes at answer time, run
+        the deterministic search (journaled when the server has a sweep
+        journal: a WAL replay after a crash then serves every completed
+        generation from the journal), and answer through the one terminal
+        door.  An injected ChaosKill escapes WITHOUT answering: the stand-in
+        for the replica dying mid-search with the admission durable in the
+        WAL."""
+        from blockchain_simulator_tpu_torch.query import engine as query_engine
+
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.set_device(self.device)
+        now = time.monotonic()
+        if req.expired(now):
+            err = schema.RequestTimeoutError(
+                f"timed out after {req.timeout_s:.3f}s in queue")
+            self._answer(req, fut, err.to_response(req.req_id), "timeouts")
+            return
+        req.t_flush = req.t_dispatch0 = now
+        req.root_span = telemetry.new_span_id()
+        ctx = telemetry.TraceContext(
+            req.trace_id or telemetry.new_trace_id(), req.root_span)
+        req.trace_id = ctx.trace_id
+        try:
+            with telemetry.context(ctx):
+                result = query_engine.run_query(
+                    req.cfg, req.query, journal=self._journal, device=self.device)
+        except inject.ChaosKill:
+            return  # simulated replica death: unanswered, WAL-pending
+        except Exception as e:
+            req.t_dispatch1 = time.monotonic()
+            err = schema.DispatchFailedError(
+                f"query failed: {type(e).__name__}: {e}")
+            self._answer(req, fut, err.to_response(req.req_id), "errors")
+            return
+        req.t_dispatch1 = time.monotonic()
+        # the response carries the answer, the (small) step trail and the
+        # run accounting; the per-point metrics rows stay in the journal
+        resp = {
+            "id": req.req_id, "status": "ok",
+            "query": result["query"], "answer": result["answer"],
+            "trail": result["trail"], "run": result["run"],
+        }
+        self._answer(req, fut, resp, "served")
+
     # ---------------------------------------------------------------- stats
     def stats(self) -> dict:
         """The /stats endpoint body: serving counters, batch-occupancy
@@ -843,7 +966,8 @@ class ScenarioServer:
                     "default_timeout_s": self.default_timeout_s,
                     "breaker_threshold": self.breaker_threshold,
                     "breaker_cooldown_s": self.breaker_cooldown_s,
-                    "journal": None,
+                    "journal": (self._journal.path
+                                if self._journal is not None else None),
                 },
                 # the batched-dispatch mesh: single-device (None) until the
                 # many-GPU slice
@@ -895,7 +1019,14 @@ class ScenarioServer:
         req = schema.parse_request(dict(obj), f"prewarm-{size}",
                                    default_timeout_s=self.default_timeout_s)
         t0 = time.monotonic()
-        if size == 1:
+        if req.probe is not None:  # an armed template warms the consobs-* entries
+            from blockchain_simulator_tpu_torch.obsim import build as obsim_build
+
+            if size == 1:
+                obsim_build.probed_solo_fn(req.canon, req.probe)
+            else:
+                obsim_build.probed_batched_fn(req.canon, req.probe)
+        elif size == 1:
             dispatch._solo_fn(req.canon)
         else:
             sweep.dyn_batched_fn(req.canon)

@@ -124,9 +124,11 @@ Phases (any failure raises, and the script exits non-zero):
 20. topo-kernel — the grouped kernel at the sparse paths' new member
               shapes against its plain version, eager and under graph
               replay: PBFT's four pushes at n = 1,000,000 (rings
-              [8, 10^6, 8]) and Raft kregular's group at n = 10,000 (vreq
-              [D, N, 17]); device time against the bound, the plain version
-              and one library call a push.
+              [8, 10^6, 8]), Raft kregular's group at n = 10,000 (vreq
+              [D, N, 17]), committee-100k's inner group (PBFT's four pushes
+              at n = 500, W = 8) and kreg-paxos's six-member group (n =
+              10,000, degree 16); device time against the bound, the plain
+              version and one library call a push.
 21. kreg-1m — the artifact's largest kregular rung (tools/topo_bench.py:
               PBFT, n = 1,000,000, degree 8, 150 ms, edge, rbg, window 8),
               uncut: metrics and digests equal the JAX golden, one launch
@@ -184,6 +186,24 @@ Phases (any failure raises, and the script exits non-zero):
               n = -1 400; /metrics; /shutdown exits 0; every access-log line
               names the card and carries the cache and telemetry blocks.
 
+36. obsim-config4 — config 4's twelve points (the golden's lane order)
+              through run_dyn_points(probe=ProbeConfig(windows=16,
+              monitors=True), journal=J) as one chunk: rows, probe summaries,
+              the chunk key and row checksums equal the JAX golden
+              (golden/obsim_query_s0.json), metrics and lane digests the
+              disarmed config-4 golden's; the probed scan over the first 100
+              rounds under sync debug mode "error" (0 host syncs); the same
+              call again answered from J with 0 dispatches.
+37. query-config4 — query.run_query on config 4: the largest n_byzantine in
+              [33,333, 50,001] with all 200 blocks, 16 probes a step,
+              journaled; a query.step chaos fault stops the first call at
+              step 2, a second call resumes (cached_steps 2), a third replays
+              with 0 dispatches; answer, trail and points equal JAX's.
+38. obsim-tick — config 2 through the probed solo program (consobs-solo,
+              the tick loop with its taps): metrics and digests equal the
+              edge golden, the probe summary JAX's, one ring-push launch of
+              four pushes a tick.
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -217,6 +237,7 @@ COMMITTEE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "pbft_co
 KREG_RP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "kreg_raft_paxos_n10k_s0.json"
 TRACE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "trace_s0.json"
 SERVE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "serve_s0.json"
+OBSIM_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "obsim_query_s0.json"
 SERVE_THREADS = 8  # serve-http's client threads
 # kreg-equal: the port's kregular run at k = N-1 against its dense run
 KREG_EQUAL = {
@@ -1626,15 +1647,21 @@ def phase_kernel_topo(dev, card: str):
     one library call per push."""
     import torch
 
-    from blockchain_simulator_tpu_torch.models import pbft, raft
+    from blockchain_simulator_tpu_torch.models import paxos, pbft, raft
     from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.topo import committee
     from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
     out, max_err = {}, 0
     kreg1m = SimConfig(**json.loads(KREG_1M_GOLDEN.read_text())["entries"]["kreg1m"]["config"])
-    kraft = SimConfig(**json.loads(KREG_RP_GOLDEN.read_text())["entries"]["raft"]["config"])
+    kreg = json.loads(KREG_RP_GOLDEN.read_text())["entries"]
+    kraft, kpaxos = SimConfig(**kreg["raft"]["config"]), SimConfig(**kreg["paxos"]["config"])
+    inner = committee.inner_cfg(SimConfig(**json.loads(COMMITTEE_GOLDEN.read_text())
+                                          ["entries"]["committee100k"]["config"]))
     for name, model, cfg, reps in (("pbft_1m_group", pbft, kreg1m, 10),
-                                   ("raft_kreg_group", raft, kraft, 50)):
+                                   ("raft_kreg_group", raft, kraft, 50),
+                                   ("committee_inner_group", pbft, inner, 200),
+                                   ("paxos_kreg_group", paxos, kpaxos, 50)):
         named = _tick_group(model, cfg, dev)
         items = [it for _, it in named]
         d = items[0][0].shape[0]
@@ -2502,7 +2529,241 @@ def serving_phases(dev, card: str, config4_wall: float) -> dict:
     return served
 
 
+def _canon_json(x) -> str:
+    return json.dumps(x, sort_keys=True, separators=(",", ":"))
+
+
+def phase_obsim_config4(dev, card: str):
+    """BASELINE config 4's twelve points (the golden's lane order) through
+    ``run_dyn_points(probe=ProbeConfig(windows=16, monitors=True),
+    journal=J)`` as one chunk: every row (metrics and probe summary), the
+    chunk key and the row checksums equal the JAX golden, the metrics and
+    every lane's state digests the config-4 golden's (armed equals
+    disarmed); the probed scan over the first rounds again with every host
+    sync an error, its samples at the window boundaries they reach the
+    journaled run's; then the same call again, answered from J with 0
+    dispatches and the same rows."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert, runner
+    from blockchain_simulator_tpu_torch.models import base, pbft_round
+    from blockchain_simulator_tpu_torch.obsim import build, host, schema, taps
+    from blockchain_simulator_tpu_torch.parallel import journal, sweep
+    from blockchain_simulator_tpu_torch.utils import threefry
+    from blockchain_simulator_tpu_torch.utils.config import FaultConfig, SimConfig
+
+    entry = json.loads(OBSIM_GOLDEN.read_text())["entries"]["obsim_config4"]
+    c4 = json.loads(CONFIG4_GOLDEN.read_text())["entries"]["config4"]
+    cfg = SimConfig(**entry["config"])
+    args = entry["args"]
+    pcfg = schema.ProbeConfig(**entry["probe"])
+    points = [(cfg.with_(faults=FaultConfig(n_byzantine=f, byz_forge=args["forge"])), s)
+              for f in args["f_values"] for s in args["seeds"]]
+    canon = base.canonical_fault_cfg(cfg)
+    real, outs = build.probed_batched_fn, []
+
+    def recorded(*a, **kw):
+        batched = real(*a, **kw)
+        return lambda *x: outs.append(batched(*x)) or outs[-1]
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/obsim.jsonl"
+        build.probed_batched_fn = recorded
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows, meta = sweep.run_dyn_points(canon, points, record=False, probe=pcfg,
+                                              journal=journal.SweepJournal(path),
+                                              with_index=True, device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            build.probed_batched_fn = real
+        (line,) = journal.SweepJournal(path).chunk_lines()
+        t0 = time.perf_counter()
+        again, meta2 = sweep.run_dyn_points(canon, points, record=False, probe=pcfg,
+                                            journal=journal.SweepJournal(path),
+                                            with_index=True, device=dev)
+        replay_s = time.perf_counter() - t0
+    if _canon_json(rows) != _canon_json(entry["rows"]) or meta["dispatches"] != 1:
+        raise AssertionError(f"obsim-config4: rows differ from the JAX golden "
+                             f"({meta['dispatches']} dispatches):\n{rows[0]}")
+    if (line["key"], line["sums"]) != (entry["key"], entry["sums"]):
+        raise AssertionError(f"obsim-config4: chunk key {line['key']} / checksums differ "
+                             f"from JAX's {entry['key']}")
+    plain = {(r["f"], r["seed"]): {k: v for k, v in r.items() if k not in ("f", "seed")}
+             for r in c4["rows"]}
+    if [{k: v for k, v in r.items() if k != "probe"} for r in rows] != \
+            [plain[(c.faults.n_byzantine, s)] for c, s in points]:
+        raise AssertionError("obsim-config4: armed metrics differ from the disarmed golden")
+    (finals, probes), = outs
+    leaves = convert.state_to_numpy(finals)
+    if [convert.state_digests(convert.lane_leaves(leaves, i)) for i in range(len(points))] \
+            != c4["lane_sha256"]:
+        raise AssertionError("obsim-config4: armed lane states differ from the disarmed golden")
+    if meta2["dispatches"] != 0 or _canon_json(again) != _canon_json(rows):
+        raise AssertionError(f"obsim-config4: the replay made {meta2['dispatches']} "
+                             "dispatches or its rows differ")
+
+    # the probed scan over the first rounds, any host sync inside it an error;
+    # its samples at the window boundaries it reaches are the full run's
+    keys = sweep._keys([s for _, s in points])
+    nb = [c.faults.n_byzantine for c, _ in points]
+    head = canon.with_(sim_ms=SYNC_CHECKED_ROUNDS * canon.pbft_block_interval_ms + 1)
+    state, _ = pbft_round.init(head, threefry.fold_in(keys, runner._INIT_FOLD), device=dev)
+    state = base.apply_fault_masks(head, state, *base.dyn_fault_masks(
+        cfg.n, [0] * len(points), nb, dev))
+    r_last = len(pbft_round.round_range(canon))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, ys = pbft_round.scan_rounds(runner.dyn_step_cfg(head, nb), state, keys,
+                                       with_probe=functools.partial(taps.sample, canon))
+        ys = taps.time_last(ys)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    # the head's last round is cut at its window's end, so it is left out
+    bounds = schema.window_bounds(r_last, pcfg.windows)
+    reach = int((bounds < SYNC_CHECKED_ROUNDS - 1).sum())
+    full = host.tree_to_host(probes)["series"]
+    if reach < 1 or any((ys[k].cpu().numpy()[:, bounds[:reach]] != v[:, :reach]).any()
+                        for k, v in full.items()):
+        raise AssertionError("obsim-config4: the sync-checked probed scan's samples differ")
+    print(f"obsim-config4 on {card}: {len(points)} lanes x {r_last} rounds, n = {cfg.n}, "
+          f"probed (windows {pcfg.windows}, monitors) and journaled as one chunk: wall "
+          f"{wall:.3f} s; rows, probe summaries, chunk key and checksums equal the JAX "
+          f"golden, metrics and lane digests the disarmed config-4 golden; the probed scan "
+          f"over the first {SYNC_CHECKED_ROUNDS} rounds {scan_s:.3f} s with 0 host syncs "
+          f"(sync debug mode 'error'), its samples at {reach} window boundaries the full "
+          f"run's; the replay {replay_s:.3f} s, 0 dispatches", flush=True)
+    return {"wall_s": wall, "scan_s": scan_s, "replay_s": replay_s, "lanes": len(points),
+            "rounds": r_last, "sync_checked_rounds": SYNC_CHECKED_ROUNDS,
+            "replay_dispatches": meta2["dispatches"]}
+
+
+def phase_query_config4(dev, card: str):
+    """``query.run_query`` on config 4 (the largest Byzantine count with all
+    200 blocks, f in [33,333, 50,001], 16 probes a step), journaled: a
+    ``query.step`` chaos fault stops the first call at step 2 (steps 0 and 1
+    journaled, as JAX's), the second call resumes (``cached_steps`` 2, every
+    later step computed once) and the third replays with 0 dispatches; the
+    answer, trail and points equal JAX's."""
+    import tempfile
+
+    import torch
+
+    from blockchain_simulator_tpu_torch.chaos import inject
+    from blockchain_simulator_tpu_torch.parallel import journal
+    from blockchain_simulator_tpu_torch.query import parse_query, run_query
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(OBSIM_GOLDEN.read_text())["entries"]["query_config4"]
+    cfg = SimConfig(**entry["config"])
+    spec = parse_query(entry["query"])
+    want = entry["result"]
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/query.jsonl"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with inject.ChaosController() as ctl:
+            ctl.fail_next("query.step", n=1, match=lambda c: c["step"] == 2)
+            try:
+                run_query(cfg, spec, journal=journal.SweepJournal(path), device=dev)
+                raise AssertionError("query-config4: the step-2 fault did not fire")
+            except inject.ChaosFault:
+                pass
+        first_s = time.perf_counter() - t0
+        lines = journal.SweepJournal(path).chunk_lines()
+        if [r["key"] for r in lines] != [k for st in want["trail"][:2] for k in st["keys"]]:
+            raise AssertionError("query-config4: the first call's steps differ from JAX's")
+        t0 = time.perf_counter()
+        resumed = run_query(cfg, spec, journal=journal.SweepJournal(path), device=dev)
+        resume_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replay = run_query(cfg, spec, journal=journal.SweepJournal(path), device=dev)
+        replay_s = time.perf_counter() - t0
+    for name, res in (("resumed", resumed), ("replayed", replay)):
+        got = {k: res[k] for k in ("query", "answer", "trail", "points")}
+        if _canon_json(got) != _canon_json(want):
+            raise AssertionError(f"query-config4: the {name} answer differs from JAX's: "
+                                 f"{res['answer']}")
+    run = resumed["run"]
+    if (run["cached_steps"], run["dispatches"]) != (2, run["steps"] - 2) \
+            or replay["run"]["dispatches"] != 0:
+        raise AssertionError(f"query-config4: resumed {run}, replayed {replay['run']}")
+    lanes_a_step = run["lanes"] // max(run["dispatches"], 1)
+    print(f"query-config4 on {card}: {entry['query']} -> {resumed['answer']} (JAX's); "
+          f"{run['steps']} steps of {lanes_a_step} lanes at n = {cfg.n}: the first call "
+          f"{first_s:.3f} s (2 dispatches, stopped by a query.step fault at step 2), the "
+          f"resumed call {resume_s:.3f} s (cached_steps {run['cached_steps']}, "
+          f"{run['dispatches']} dispatches, {run['lanes']} lanes), the replay {replay_s:.3f} s "
+          f"(0 dispatches); answer, trail and points equal JAX's; JAX's own run made "
+          f"{entry['run']['dispatches']} dispatches of {entry['run']['lanes']} lanes in all",
+          flush=True)
+    return {"wall_s": first_s + resume_s + replay_s, "first_s": first_s,
+            "resume_s": resume_s, "replay_s": replay_s, "steps": run["steps"],
+            "dispatches": 2 + run["dispatches"], "lanes_per_step": lanes_a_step,
+            "answer": resumed["answer"]}
+
+
+def phase_obsim_tick(dev, card: str):
+    """BASELINE config 2 through the probed solo program (``consobs-solo``,
+    the tick engine with its taps): metrics and every state digest equal the
+    edge golden (armed equals disarmed), the probe summary JAX's, and one
+    ring-push launch of four pushes a tick (counts set to 0 just before the
+    run and read just after)."""
+    import torch
+
+    from blockchain_simulator_tpu_torch import convert
+    from blockchain_simulator_tpu_torch.models import base
+    from blockchain_simulator_tpu_torch.obsim import build, host, schema
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils import threefry
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    entry = json.loads(OBSIM_GOLDEN.read_text())["entries"]["obsim_tick"]
+    edge = json.loads(GOLDEN.read_text())["entries"]["n1000"]
+    cfg = SimConfig(**entry["config"])
+    canon = base.canonical_fault_cfg(cfg)
+    pcfg = schema.ProbeConfig(**entry["probe"])
+    sim = build.probed_solo_fn(canon, pcfg)
+    torch.cuda.synchronize()
+    rk.launches = rk.pushes = 0
+    t0 = time.perf_counter()
+    final, probes = sim(threefry.key(entry["seed"]), 0, 0, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, pushes = rk.launches, rk.pushes
+    metrics = base.sim_metrics(cfg, final)
+    _check_golden(edge, metrics, convert.state_digests(convert.state_to_numpy(final)),
+                  "obsim-tick")
+    summary = schema.summarize(canon, pcfg, host.tree_to_host(probes))
+    if _canon_json(summary) != _canon_json(entry["summary"]) or metrics != entry["metrics"]:
+        raise AssertionError(f"obsim-tick: the probe summary differs from JAX's:\n{summary}")
+    if (launches, pushes) != (cfg.ticks, 4 * cfg.ticks):
+        raise AssertionError(f"obsim-tick: ring_push made {launches} launches and {pushes} "
+                             f"pushes, expected {cfg.ticks} and {4 * cfg.ticks}")
+    print(f"obsim-tick on {card}: config 2 probed (consobs-solo -> the tick loop with its "
+          f"taps): wall {wall:.3f} s, ring_push launches {launches}, pushes {pushes}; metrics "
+          f"and all state digests equal the edge golden, the probe summary JAX's "
+          f"(final {summary['final']})", flush=True)
+    return {"wall_s": wall, "launches": launches, "pushes": pushes}
+
+
+def durable_phases(dev, card: str) -> dict:
+    """obsim-config4, query-config4, obsim-tick (the durable-sweeps slice)."""
+    return {"obsim_config4": phase_obsim_config4(dev, card),
+            "query_config4": phase_query_config4(dev, card),
+            "obsim_tick": phase_obsim_tick(dev, card)}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2578,6 +2839,11 @@ def main() -> int:
     print(f"serving phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
                                                    for k, v in served.items())
           + f"; together {time.perf_counter() - t_serve:.3f} s", flush=True)
+    t_durable = time.perf_counter()
+    durable = durable_phases(dev, card)
+    print(f"durable-sweep phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
+                                                         for k, v in durable.items())
+          + f"; together {time.perf_counter() - t_durable:.3f} s", flush=True)
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -2617,6 +2883,15 @@ def main() -> int:
         "raft_kreg_group": dict(topo_groups["raft_kreg_group"],
                                 launches=kreg_rp["raft"]["launches"],
                                 pushes=kreg_rp["raft"]["pushes"]),
+        # committee-100k's inner group: PBFT's four pushes at n = 500, W = 8,
+        # launched once an inner tick of every committee
+        "committee_inner_group": dict(topo_groups["committee_inner_group"],
+                                      launches=committee["launches"],
+                                      pushes=committee["pushes"]),
+        # Paxos over a degree-16 overlay at n = 10^4: its own six-member group
+        "paxos_kreg_group": dict(topo_groups["paxos_kreg_group"],
+                                 launches=kreg_rp["paxos"]["launches"],
+                                 pushes=kreg_rp["paxos"]["pushes"]),
         "launches_by_path": {"pbft_edge": launches, "pbft_tick_stat": stat_launches,
                              "raft_edge": raft_edge["launches"],
                              "raft_hb": raft_hb["launches"], "pbft_queued": q_launches,
@@ -2635,7 +2910,8 @@ def main() -> int:
                              "trace_hb": traced["trace_hb"]["launches"],
                              "trace_mixed": traced["trace_mixed"]["launches"],
                              "trace_committee": traced["trace_committee"]["launches"],
-                             "serve_tick": served["serve_tick"]["launches"]},
+                             "serve_tick": served["serve_tick"]["launches"],
+                             "obsim_tick": durable["obsim_tick"]["launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
@@ -2651,8 +2927,14 @@ def main() -> int:
                            "trace_hb": traced["trace_hb"]["pushes"],
                            "trace_mixed": traced["trace_mixed"]["pushes"],
                            "trace_committee": traced["trace_committee"]["pushes"],
-                           "serve_tick": served["serve_tick"]["pushes"]},
+                           "serve_tick": served["serve_tick"]["pushes"],
+                           "obsim_tick": durable["obsim_tick"]["pushes"]},
     }]
+    # the script's own wall, from its start (the interpreter's start and
+    # import of this module before it are not in it): the 1,200 s limit's
+    # margin (ROADMAP.md §C item 2)
+    print(f"chip_smoke wall on {card}: {time.perf_counter() - t_start:.3f} s from main()'s "
+          f"start to the last phase", flush=True)
     print(json.dumps({"paths": {"round": round_path, "tick_stat_wall_s": stat_wall,
                                 "raft_edge": raft_edge, "raft_hb": raft_hb,
                                 "pbft_queued_wall_s": q_wall, "samplers": samplers,
@@ -2660,7 +2942,7 @@ def main() -> int:
                                 "drop_sweep": drop, "checkpoint": ckpt,
                                 "kreg_1m": kreg_1m, "committee_100k": committee,
                                 "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal,
-                                **traced, **served}}),
+                                **traced, **served, **durable}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

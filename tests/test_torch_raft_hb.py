@@ -143,15 +143,17 @@ def test_schedule_resolution_matches_jax(n, schedule):
 def test_probed_runs_raise():
     """The probed heartbeat scan is ported (utils/trace.py): it returns the
     unprobed scan's carry and one int32 sample a heartbeat and shard.
-    scan_from_init's probe= (obsim's taps) still raises, naming the
-    durable-sweeps slice."""
+    scan_from_init's probe= (obsim's taps) is ported too: the reduced probes
+    come back beside the unprobed run's final state, the prefix's tick
+    samples joined to the heartbeat samples (obsim/build.py; the values
+    are held to JAX's in tests/test_torch_obsim.py)."""
     from blockchain_simulator_tpu_torch.models import raft
     from blockchain_simulator_tpu_torch.models.base import tick_loop
 
     _, tcfg = _cfgs(**dict(BASE, sim_ms=2000))
     key = threefry.key(0)
-    state, bufs = raft.init(tcfg, threefry.fold_in(key, 0x1217), device="cpu")
-    state, bufs = tick_loop(tcfg, state, bufs, key, 0, thb.prefix_ticks(tcfg))
+    state0, bufs0 = raft.init(tcfg, threefry.fold_in(key, 0x1217), device="cpu")
+    state, bufs = tick_loop(tcfg, state0, bufs0, key, 0, thb.prefix_ticks(tcfg))
     ok, h = thb.handoff(tcfg, thb._shard_view(state))
     assert ok.all()
     out = thb.steady_scan(tcfg, key[None], h)
@@ -161,5 +163,14 @@ def test_probed_runs_raise():
     assert sorted(ys) == ["acks_in_window", "blocks", "rounds", "stopped"]
     assert all(v.dtype == torch.int32 and v.shape == (1, thb.n_hb_steps(tcfg))
                for v in ys.values())
-    with pytest.raises(NotImplementedError, match="durable-sweeps slice"):
-        thb.scan_from_init(tcfg, state, bufs, key, probe=(None, None, None))
+    m = thb.prefix_ticks(tcfg) + thb.n_hb_steps(tcfg)
+    final, red = thb.scan_from_init(
+        tcfg, state0, bufs0, key,
+        probe=(lambda st: {"blocks": st.block_num.amax(-1)},
+               lambda hy, hst: {"blocks": hy["blocks"]},
+               lambda series: {"n": series["blocks"].shape[-1], "last": series["blocks"][-1]}))
+    assert red["n"] == m
+    plain = thb.scan_from_init(tcfg, *raft.init(tcfg, threefry.fold_in(key, 0x1217),
+                                                device="cpu"), key)
+    assert int(red["last"]) == int(plain.block_num.max())
+    assert all(torch.equal(getattr(final, f), getattr(plain, f)) for f in raft.STATE_FIELDS)

@@ -11,10 +11,13 @@ Both samplers are held bit for bit: ``"exact"`` (below n = 4096) and
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from blockchain_simulator_tpu import runner as jrunner
 from blockchain_simulator_tpu.models import pbft_round as jround
@@ -136,8 +139,10 @@ def test_headline_config_resolves_to_the_round_path():
 
 def test_probe_and_raft_refused():
     """Probed round runs are ported (utils/trace.py, tests/test_torch_trace.py);
-    probed lane batches (the sweeps' probe=, obsim) still raise, naming the
-    durable-sweeps slice.  The mixed sim resolves its schedule as JAX does."""
+    so are probed lane batches (the sweeps' probe=, obsim): a callable probe
+    over lane keys gives one sample a lane, stacked ``[rounds, B]``, each
+    lane's column the solo probed run's, and the lanes' states the unprobed
+    batch's.  The mixed sim resolves its schedule as JAX does."""
     _, tcfg = _cfgs(**BASE, n=16, sim_ms=200, schedule="round")
     state, _ = tround.init(tcfg, device="cpu")
     final, ys = tround.scan_rounds(tcfg, state, threefry.key(0), with_probe=True)
@@ -145,7 +150,12 @@ def test_probe_and_raft_refused():
     assert int(ys["rounds_sent"][-1]) == int(final.next_n.max())
     lanes = np.stack([threefry.key(0), threefry.key(1)])
     state, _ = tround.init(tcfg, lanes, device="cpu")
-    with pytest.raises(NotImplementedError, match="durable-sweeps slice"):
-        tround.scan_rounds(tcfg, state, lanes, with_probe=True)
+    tap = lambda st: {"blocks": st.block_num.amax(-1), "sent": st.next_n.amax(-1)}  # noqa: E731
+    probed, lys = tround.scan_rounds(tcfg, state, lanes, with_probe=tap)
+    assert lys["blocks"].shape == (len(tround.round_range(tcfg)), 2)
+    assert torch.equal(lys["sent"][:, 0], ys["rounds_sent"])
+    plain = tround.scan_rounds(tcfg, tround.init(tcfg, lanes, device="cpu")[0], lanes)
+    assert all(torch.equal(getattr(probed, f.name), getattr(plain, f.name))
+               for f in dataclasses.fields(plain))
     jcfg, rcfg = _cfgs(protocol="mixed", n=16, mixed_shards=2, sim_ms=200, delivery="stat")
     assert trunner.use_round_schedule(rcfg) == jrunner.use_round_schedule(jcfg)

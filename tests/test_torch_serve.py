@@ -195,17 +195,23 @@ def test_unbatchable_and_batch_groups_equal_jax():
 
 @pytest.mark.parametrize("field", ["probe", "query"])
 def test_probe_and_query_refused_naming_their_slice(field):
-    """``probe`` and ``query`` requests are a typed 400 at admission naming
-    the durable-sweeps slice; the request never reaches a batch."""
-    obj = dict(OPS, **{field: True if field == "probe" else {"param": "n_crashed"}})
-    with pytest.raises(InvalidRequestError, match="durable-sweeps slice") as ei:
-        parse_request(obj, "r")
-    assert (ei.value.code, ei.value.kind) == (400, "invalid-request")
+    """``probe`` and ``query`` requests are admitted (obsim and the adaptive
+    queries are ported); a malformed value is still a typed 400 at
+    admission, with JAX's wording, and never reaches a batch."""
+    good = {"windows": 4} if field == "probe" else {"kind": "max_f_surviving", "seeds": [0]}
+    req = parse_request(dict(OPS, **{field: good}), "r")
+    assert getattr(req, field) is not None
+    bad = dict(OPS, **{field: {"windows": 0} if field == "probe" else {"param": "n_crashed"}})
+    with pytest.raises(InvalidRequestError) as ei:
+        parse_request(bad, "r")
+    with pytest.raises(jschema.InvalidRequestError) as ej:
+        jschema.parse_request(bad, "r")
+    assert (ei.value.code, ei.value.kind, str(ei.value)) == (400, "invalid-request", str(ej.value))
     srv = ScenarioServer(device="cpu", start=False)
-    resp = srv.request(obj)
+    resp = srv.request(bad)
     srv.close()
     assert resp["code"] == 400 and srv.stats()["batches"] == 0
-    assert parse_request(dict(OPS, probe=False), "r").cfg.n == 16  # disarmed is fine
+    assert parse_request(dict(OPS, probe=False), "r").probe is None  # disarmed is fine
 
 
 def test_nonpositive_n_is_a_typed_400():
@@ -513,13 +519,14 @@ def test_default_device_is_the_card(monkeypatch):
     assert "CUDA" in proc.stderr
 
 
+# the journal arms are ported; over a device mesh they still raise
 REFUSED = {
-    "journal_path": (lambda: ScenarioServer(journal_path="j", device="cpu", start=False),
-                     "durable-sweeps slice"),
+    "journal_path": (lambda: ScenarioServer(journal_path="j", mesh=object(), device="cpu",
+                                            start=False), "slice 6"),
     "mesh": (lambda: ScenarioServer(mesh=object(), device="cpu", start=False), "slice 6"),
     "run_batch_journal": (lambda: tdispatch.run_batch([parse_request(dict(OPS), "r")], 1,
-                                                      journal=object(), device="cpu"),
-                          "durable-sweeps slice"),
+                                                      journal=object(), mesh=object(),
+                                                      device="cpu"), "slice 6"),
 }
 
 
@@ -530,7 +537,8 @@ def test_later_slices_refused(arm):
         fn()
 
 
-@pytest.mark.parametrize("argv,match", [(["--journal", "j.jsonl"], "durable-sweeps slice"),
+@pytest.mark.parametrize("argv,match", [(["--journal", "j.jsonl", "--mesh-sweep", "2"],
+                                         "slice 6"),
                                         (["--mesh-sweep", "2"], "slice 6")])
 def test_daemon_refusals_exit_2(capsys, argv, match):
     assert serve_main(argv + ["--device", "cpu"]) == 2

@@ -408,22 +408,27 @@ def test_normal_tick_batch_raises():
                                           device="cpu")) == 1
 
 
+# journal=, supervise=, dyn_chunk_keys and probe= are ported
+# (tests/test_torch_journal.py, test_torch_obsim.py); over a device mesh
+# each of them still raises, naming the many-GPU slice
 REFUSED = {
     "journal": (lambda cfg: tsweep.run_fault_sweep(cfg, [cfg.faults], [0], journal=object(),
-                                                   device="cpu"), "durable-sweeps"),
+                                                   mesh=object(), device="cpu"), "slice 6"),
     "supervise": (lambda cfg: tsweep.run_byzantine_sweep(cfg, [0], supervise=object(),
-                                                         device="cpu"), "durable-sweeps"),
-    "chunk_keys": (lambda cfg: tsweep.dyn_chunk_keys(cfg, [cfg.faults], [0]), "durable-sweeps"),
+                                                         mesh=object(), device="cpu"),
+                  "slice 6"),
+    "chunk_keys": (lambda cfg: tsweep.dyn_chunk_keys(cfg, [cfg.faults], [0], mesh=object()),
+                   "slice 6"),
     "mesh": (lambda cfg: tsweep.run_seed_sweep(cfg, [0, 1], mesh=object(), device="cpu"),
              "slice 6"),
-    "probe": (lambda cfg: tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=object(),
-                                                device="cpu"), "durable-sweeps"),
+    "probe": (lambda cfg: tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=object(), mesh=object(),
+                                                device="cpu"), "slice 6"),
 }
 
 
 @pytest.mark.parametrize("arm", list(REFUSED))
 def test_sweep_arms_refused(arm):
-    """The arms later slices bring raise ``NotImplementedError`` naming
+    """The arms a later slice brings raise ``NotImplementedError`` naming
     their slice (never silently ignored)."""
     _, tcfg = _cfgs(protocol="pbft", n=8, sim_ms=100)
     fn, match = REFUSED[arm]

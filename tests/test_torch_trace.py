@@ -143,8 +143,9 @@ def test_round_probe_with_no_round_equals_jax():
 
 
 def test_round_probe_callable_and_lanes():
-    """A callable ``with_probe`` is the probe (obsim's form); probed lane
-    batches belong to the durable-sweeps slice and raise."""
+    """A callable ``with_probe`` is the probe (obsim's form); a probed lane
+    batch gives one sample a lane, stacked ``[rounds, B]``, lane 0's column
+    the solo probed run's."""
     _, tcfg = _cfgs(protocol="pbft", n=16, sim_ms=300, delivery="stat", schedule="round",
                     model_serialization=False)
     key = threefry.key(0)
@@ -155,8 +156,9 @@ def test_round_probe_callable_and_lanes():
     assert int(ys["views"][-1]) == int(final.view_changes.sum())
     lanes = np.stack([threefry.key(0), threefry.key(1)])
     state, _ = tround.init(tcfg, lanes, device="cpu")
-    with pytest.raises(NotImplementedError, match="durable-sweeps"):
-        tround.scan_rounds(tcfg, state, lanes, with_probe=True)
+    _, lys = tround.scan_rounds(tcfg, state, lanes,
+                                with_probe=lambda st: {"views": st.view_changes.sum(-1)})
+    assert lys["views"].shape == (5, 2) and torch.equal(lys["views"][:, 0], ys["views"])
 
 
 def test_run_traced_refuses_like_jax():
