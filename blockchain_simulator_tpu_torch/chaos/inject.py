@@ -37,10 +37,12 @@ Registered sites in the port (grep ``chaos_point(`` for ground truth):
   supervised sweep;
 - ``query.step`` — query/engine._Search.evaluate, before each refinement
   generation dispatches (ctx ``step``, ``n``, ``values``): a fault there
-  stops a search mid-way, and the journal resumes it.
-
-The JAX package's other sites (``fleet.send``, ``fleet.handoff``) come with
-the slice that ports the fleet router.
+  stops a search mid-way, and the journal resumes it;
+- ``fleet.send`` — serve/router.py, before each POST to a replica (ctx
+  carries ``replica`` and ``req_id``: a drill can slow or fail the path
+  to ONE replica — the hedged-failover scenario);
+- ``fleet.handoff`` — serve/router.py, at the start of a dead replica's
+  WAL handoff (ctx carries ``replica``).
 """
 
 from __future__ import annotations

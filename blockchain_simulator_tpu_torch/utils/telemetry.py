@@ -458,7 +458,7 @@ metrics = MetricsRegistry()
 def write_exposition(handler) -> None:
     """Serve the ``GET /metrics`` body on a BaseHTTPRequestHandler — the
     one Prometheus endpoint implementation both HTTP surfaces share
-    (the serve/__main__.py daemon, and the fleet router when it is ported)."""
+    (the serve/__main__.py daemon and the serve/router.py fleet router)."""
     blob = metrics.exposition().encode()
     handler.send_response(200)
     handler.send_header("Content-Type", "text/plain; version=0.0.4")

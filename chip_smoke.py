@@ -204,6 +204,30 @@ Phases (any failure raises, and the script exits non-zero):
               edge golden, the probe summary JAX's, one ring-push launch of
               four pushes a tick.
 
+39. fleet-kill9 — a two-replica fleet on the card, in a process of its own
+              (a FleetRouter and FleetManager(2, max_batch=8,
+              max_wait_ms=5000, device="cuda") with the serve-http template
+              as --prewarm) started before phase 36, so that the replicas'
+              start and the whole leg run beside phases 36-38 and 40.  Three
+              of the golden's requests aimed by affinity at one replica (the
+              victim); once they are admitted and WAL-fsynced, kill -9 of the
+              victim.  The handoff completes; each of the three is answered
+              once, "replayed": true, by the peer, equal to
+              golden/serve_s0.json; check_fleet reports no violation; the
+              claim was exclusive and is released.  The victim restarts on
+              its WAL (READY reports replayed 0) while one more golden
+              request goes through the router: 200, equal to the golden.
+              Every access-log line names the card.  Walls: the leg, the
+              handoff (kill to the last replayed answer), the restart, and
+              how long this process waited for the result.
+40. chaos-drill — the JAX package's drill template (PBFT, n = 8, 200 ms,
+              exact) on the card: run_scenario("crash-restart") and
+              run_fleet_scenario("fleet-replica-death"), each twice under
+              seed 0; every summary equals JAX's (golden/chaos_fleet_s0.json)
+              and its twin byte for byte; the ring-push launches and pushes
+              of the template's edge tick engine are counted (set to 0 just
+              before the drill, read just after).
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -216,6 +240,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -238,6 +263,12 @@ KREG_RP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "kreg_raft
 TRACE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "trace_s0.json"
 SERVE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "serve_s0.json"
 OBSIM_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "obsim_query_s0.json"
+CHAOS_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "chaos_fleet_s0.json"
+# fleet-kill9: the golden's requests the victim holds, then one after the restart
+KILL9_IDS = ("f0-s0", "f1-s1", "f2-s2")
+KILL9_POST_ID = "f5-s2"
+# chaos-drill: (catalog, scenario) pairs run on the card, each twice
+CARD_DRILLS = (("scenarios", "crash-restart"), ("fleet_scenarios", "fleet-replica-death"))
 SERVE_THREADS = 8  # serve-http's client threads
 # kreg-equal: the port's kregular run at k = N-1 against its dense run
 KREG_EQUAL = {
@@ -2762,6 +2793,197 @@ def durable_phases(dev, card: str) -> dict:
             "obsim_tick": phase_obsim_tick(dev, card)}
 
 
+def fleet_child(d: str) -> int:
+    """fleet-kill9's own process (:func:`start_fleet_kill9` runs it): a
+    two-replica fleet on the card, ``FleetManager(2, max_batch=8,
+    max_wait_ms=5000, device="cuda")`` with the serve-http template as
+    ``--prewarm`` (both replicas started at once), then
+    :func:`fleet_scenarios.kill9_leg` with a ``FleetRouter`` in this
+    process; prints one JSON line (the answers, the restart's READY, the
+    violations, the walls).  The access log is ``d/access.jsonl`` for the
+    replicas and this process alike; CUDA is initialized here so that the
+    router's own lines (the replays' marks) name the card too."""
+    import os
+    import threading
+
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    from blockchain_simulator_tpu_torch.chaos import fleet_scenarios
+    from blockchain_simulator_tpu_torch.serve.fleet import FleetManager
+    from blockchain_simulator_tpu_torch.utils import obs
+
+    t0 = time.perf_counter()
+    torch.cuda.init()
+    entry = json.loads(SERVE_GOLDEN.read_text())["entries"]["serve_http"]
+    tpl = entry["template"]
+    reqs = {f"f{f}-s{s}": dict(tpl, id=f"f{f}-s{s}", seed=s, faults={"n_byzantine": f})
+            for f in entry["f_values"] for s in entry["seeds"]}
+    log = os.path.join(d, "access.jsonl")
+    os.environ[obs.RUNS_ENV] = log
+    mgr = FleetManager(2, os.path.join(d, "fleet"), max_batch=8, max_wait_ms=5000.0,
+                       device="cuda", prewarm=tpl, env={obs.RUNS_ENV: log})
+    errors: list = []
+
+    def start(rep):
+        try:
+            rep.start(timeout_s=600.0)
+        except Exception as e:  # reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    try:
+        threads = [threading.Thread(target=start, args=(r,)) for r in mgr.replicas]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            print(json.dumps({"errors": errors}), flush=True)
+            return 1
+        ready_s = time.perf_counter() - t0
+        rec = fleet_scenarios.kill9_leg(mgr, [reqs[k] for k in KILL9_IDS],
+                                        reqs[KILL9_POST_ID], owner="chip-router",
+                                        timeout_s=600.0)
+        mgr.close()
+    finally:
+        mgr.kill_all()
+    print(json.dumps({"ready_s": ready_s, "replicas": [r.ready for r in mgr.replicas],
+                      **{k: rec[k] for k in ("victim", "peer", "answers", "post", "ready",
+                                             "violations", "kill_s", "restart_s",
+                                             "wall_s")}}), flush=True)
+    return 0
+
+
+def start_fleet_kill9(d: str) -> dict:
+    """Start :func:`fleet_child` as the leader of a process group of its own
+    (so that one kill stops it and its replicas), before phase 36: its
+    replicas' start and the whole kill -9 leg run beside phases 36-38 and
+    40, which share no access log, span capture or chaos controller with
+    it."""
+    import os
+
+    code = (f"import sys; sys.path.insert(0, {str(HERE)!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.fleet_child({d!r}))")
+    out = open(os.path.join(d, "child.out"), "w+")
+    err = open(os.path.join(d, "child.err"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=out, stderr=err,
+                            cwd=HERE, process_group=0)
+    return {"proc": proc, "out": out, "err": err, "t0": t0, "log": os.path.join(d,
+                                                                            "access.jsonl")}
+
+
+def stop_fleet_kill9(fleet: dict) -> None:
+    """Kill fleet-kill9's process group if it still runs (a failed phase)."""
+    import os
+    import signal
+
+    if fleet["proc"].poll() is None:
+        os.killpg(fleet["proc"].pid, signal.SIGKILL)
+        fleet["proc"].wait()
+    fleet["out"].close()
+    fleet["err"].close()
+
+
+def phase_fleet_kill9(card: str, fleet: dict):
+    """The fleet's kill -9 leg at the README's serving workload (the
+    serve-http template, PBFT n = 1,024), read from :func:`fleet_child`:
+    its answers held to golden/serve_s0.json, every access-log line naming
+    the card."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.utils import obs
+
+    want = json.loads(SERVE_GOLDEN.read_text())["entries"]["serve_http"]["metrics"]
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    rc = fleet["proc"].wait(timeout=900)
+    waited = time.perf_counter() - t0
+    elapsed = time.perf_counter() - fleet["t0"]
+    fleet["out"].seek(0)
+    lines = fleet["out"].read().strip().splitlines()
+    if rc != 0 or not lines:
+        fleet["err"].seek(0)
+        raise AssertionError(f"fleet-kill9: the fleet process exited {rc}: {lines}\n"
+                             f"{fleet['err'].read()[-3000:]}")
+    rec = json.loads(lines[-1])
+    if rec["violations"]:
+        raise AssertionError(f"fleet-kill9: {rec['violations']}")
+    devices = [r.get("device") for r in rec["replicas"]]
+    if any(not str(dv).startswith("cuda") for dv in devices):
+        raise AssertionError(f"fleet-kill9: replicas not on the card: {devices}")
+    got = dict(rec["answers"], **{KILL9_POST_ID: rec["post"]})
+    bad = sorted(k for k, b in got.items() if b.get("metrics") != want[k])
+    if bad or rec["ready"].get("replayed") != 0:
+        raise AssertionError(f"fleet-kill9: answers {bad} differ from the JAX golden, or the "
+                             f"restart replayed {rec['ready'].get('replayed')}")
+    log = obs.read_jsonl(fleet["log"])
+    for line in log:
+        man = line.get("manifest", {})
+        if (man.get("backend"), man.get("device")) != ("cuda", name):
+            raise AssertionError(f"fleet-kill9: an access-log line lacks the card: {line}")
+    print(f"fleet-kill9 on {card}: its own process (a router and two replica processes on the "
+          f"card) started before phase 36 and ran beside phases 36-38 and 40; replicas READY "
+          f"{rec['ready_s']:.3f} s after its start; victim {rec['victim']}, peer {rec['peer']}; "
+          f"kill -9 with {len(KILL9_IDS)} n = 1,024 requests admitted and WAL-fsynced: the "
+          f"handoff replayed each once on the peer, the last answer {rec['kill_s']:.3f} s "
+          f"after the kill; check_fleet clean, the claim exclusive and released; the victim "
+          f"restarted on its WAL in {rec['restart_s']:.3f} s (replayed 0) beside one more "
+          f"request (200); all {len(got)} answers equal the JAX golden; {len(log)} access-log "
+          f"lines name the card; the leg {rec['wall_s']:.3f} s, the process {elapsed:.3f} s "
+          f"from its start, {waited:.3f} s of it waited for here", flush=True)
+    return {"wall_s": rec["wall_s"], "process_s": elapsed, "waited_s": waited,
+            "ready_s": rec["ready_s"], "kill_to_last_replay_s": rec["kill_s"],
+            "restart_s": rec["restart_s"], "victim": rec["victim"],
+            "replayed_on_restart": rec["ready"]["replayed"], "access_log_lines": len(log)}
+
+
+def phase_chaos_drill(card: str):
+    """The JAX package's drill template on the card (:data:`CARD_DRILLS`),
+    each scenario twice under the golden's seed: summaries equal JAX's and
+    their twins byte for byte; ring-push launches and pushes counted."""
+    import os
+
+    from blockchain_simulator_tpu_torch.chaos import fleet_scenarios, scenarios
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+
+    golden = json.loads(CHAOS_GOLDEN.read_text())
+    runner_of = {"scenarios": scenarios.run_scenario,
+                 "fleet_scenarios": fleet_scenarios.run_fleet_scenario}
+    walls = {}
+    rk.launches = rk.pushes = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        for catalog, name in CARD_DRILLS:
+            want = _canon_json(golden[catalog][name])
+            for i in range(2):
+                work = os.path.join(d, f"{name}-{i}")
+                os.makedirs(work)
+                t = time.perf_counter()
+                rep = runner_of[catalog](name, golden["seed"], workdir=work,
+                                         quick=golden["quick"], device="cuda")
+                walls[f"{name}#{i}"] = time.perf_counter() - t
+                got = _canon_json(json.loads(json.dumps(rep)))
+                if rep["violations"] or got != want:
+                    raise AssertionError(f"chaos-drill: {name} run {i} differs from JAX's "
+                                         f"summary:\n{got}\n{want}")
+    wall = time.perf_counter() - t0
+    launches, pushes = rk.launches, rk.pushes
+    if launches == 0:
+        raise AssertionError("chaos-drill: the ring kernel was never launched")
+    print(f"chaos-drill on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f"; every summary equals JAX's and its twin; ring_push launches {launches}, "
+          f"pushes {pushes}; wall {wall:.3f} s", flush=True)
+    return {"wall_s": wall, "walls_s": walls, "launches": launches, "pushes": pushes}
+
+
+def fleet_phases(card: str, fleet: dict) -> dict:
+    """chaos-drill, then fleet-kill9's result (the fleet slice; its process
+    ran beside phases 36-38 and chaos-drill)."""
+    drill = phase_chaos_drill(card)
+    return {"fleet_kill9": phase_fleet_kill9(card, fleet), "chaos_drill": drill}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2839,11 +3061,21 @@ def main() -> int:
     print(f"serving phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
                                                    for k, v in served.items())
           + f"; together {time.perf_counter() - t_serve:.3f} s", flush=True)
-    t_durable = time.perf_counter()
-    durable = durable_phases(dev, card)
-    print(f"durable-sweep phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
-                                                         for k, v in durable.items())
-          + f"; together {time.perf_counter() - t_durable:.3f} s", flush=True)
+    with tempfile.TemporaryDirectory() as fleet_dir:
+        fleet = start_fleet_kill9(fleet_dir)  # it runs beside phases 36-38 and 40
+        try:
+            t_durable = time.perf_counter()
+            durable = durable_phases(dev, card)
+            print(f"durable-sweep phases on {card}: " + ", ".join(
+                f"{k} {v['wall_s']:.3f} s" for k, v in durable.items())
+                + f"; together {time.perf_counter() - t_durable:.3f} s", flush=True)
+            t_fleet = time.perf_counter()
+            fleet_paths = fleet_phases(card, fleet)
+            print(f"fleet phases on {card}: " + ", ".join(
+                f"{k} {v['wall_s']:.3f} s" for k, v in fleet_paths.items())
+                + f"; together {time.perf_counter() - t_fleet:.3f} s", flush=True)
+        finally:
+            stop_fleet_kill9(fleet)
     kernels = [{
         "name": "ring_push",
         "route": "cuda",
@@ -2911,7 +3143,8 @@ def main() -> int:
                              "trace_mixed": traced["trace_mixed"]["launches"],
                              "trace_committee": traced["trace_committee"]["launches"],
                              "serve_tick": served["serve_tick"]["launches"],
-                             "obsim_tick": durable["obsim_tick"]["launches"]},
+                             "obsim_tick": durable["obsim_tick"]["launches"],
+                             "chaos_drill": fleet_paths["chaos_drill"]["launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
@@ -2928,7 +3161,8 @@ def main() -> int:
                            "trace_mixed": traced["trace_mixed"]["pushes"],
                            "trace_committee": traced["trace_committee"]["pushes"],
                            "serve_tick": served["serve_tick"]["pushes"],
-                           "obsim_tick": durable["obsim_tick"]["pushes"]},
+                           "obsim_tick": durable["obsim_tick"]["pushes"],
+                           "chaos_drill": fleet_paths["chaos_drill"]["pushes"]},
     }]
     # the script's own wall, from its start (the interpreter's start and
     # import of this module before it are not in it): the 1,200 s limit's
@@ -2942,7 +3176,7 @@ def main() -> int:
                                 "drop_sweep": drop, "checkpoint": ckpt,
                                 "kreg_1m": kreg_1m, "committee_100k": committee,
                                 "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal,
-                                **traced, **served, **durable}}),
+                                **traced, **served, **durable, "fleet": fleet_paths}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
