@@ -12,8 +12,13 @@ lines are the JAX package's.
     python -m blockchain_simulator_tpu_torch --protocol pbft --n 16 --device cpu --trace s.npz
 
 Output: one JSON metrics line per run, each with the run manifest
-(utils/obs.py).  ``--shards`` > 1 (node-sharded runs over many GPUs) comes
-with slice 6 of the port and exits 2.
+(utils/obs.py).  ``--shards W`` > 1 starts W rank processes of one group
+(parallel/multihost.launch: NCCL, rank r on ``cuda:r``; gloo with
+``--device cpu``), runs the node-sharded simulation over them and prints
+rank 0's line, as the JAX package prints its sharded run's; more ranks than
+cards exits 1 before any rank starts.
+
+    python -m blockchain_simulator_tpu_torch --protocol pbft --n 64 --shards 4 --device cpu
 """
 
 from __future__ import annotations
@@ -29,9 +34,6 @@ import numpy as np
 
 from blockchain_simulator_tpu_torch.utils import obs
 from blockchain_simulator_tpu_torch.utils.config import FaultConfig, SimConfig
-
-_SLICE6 = "slice 6 of the port (many GPUs)"
-
 
 def build_parser() -> argparse.ArgumentParser:
     d = SimConfig()
@@ -71,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "without a card the run fails, it never falls back) "
                         "or cpu (the kernels' plain versions)")
     p.add_argument("--shards", type=int, default=0,
-                   help="shard node state over this many devices (comes "
-                        "with slice 6 of the port; > 1 exits 2)")
+                   help="shard node state over this many ranks, one a card "
+                        "(gloo ranks on the CPU with --device cpu)")
     p.add_argument("--link-delay-ms", type=int, default=d.link_delay_ms)
     p.add_argument("--serialization", choices=["on", "off"],
                    default="on" if d.model_serialization else "off",
@@ -250,7 +252,7 @@ def _run_observed(args, cfg, seeds, dev, emit) -> int:
     from blockchain_simulator_tpu_torch.utils import trace as trace_mod
 
     if args.shards > 1:
-        return _error(f"--trace/--profile with --shards comes with {_SLICE6}")
+        return _error("--trace/--profile apply to unsharded torch runs")
     if args.profile and len(seeds) > 1:
         return _error("--profile applies to single-seed torch runs "
                       "(--trace accepts --seeds: one FILE.<seed>.npz per seed)")
@@ -277,6 +279,27 @@ def _run_observed(args, cfg, seeds, dev, emit) -> int:
             emit(m, cfg)
     except (ValueError, NotImplementedError) as e:
         return _error(e)
+    return 0
+
+
+def _run_sharded(args, cfg, seeds, emit) -> int:
+    """``--shards W``: W rank processes of one group run the node-sharded
+    simulation (parallel/multihost.launch); rank 0's metrics are printed."""
+    from blockchain_simulator_tpu_torch.parallel import multihost
+    from blockchain_simulator_tpu_torch.parallel.mesh import SWEEP_AXIS_ITEM
+
+    if len(seeds) > 1:
+        return _error(f"--seeds with --shards (a seed sweep over a mesh) comes with "
+                      f"{SWEEP_AXIS_ITEM}")
+    try:
+        m = multihost.launch(multihost.run_sharded_multihost, args.shards,
+                             args=(cfg, None, seeds[0]), device=args.device)[0]
+    except (ValueError, NotImplementedError) as e:
+        return _error(e)
+    except RuntimeError as e:  # too few cards, or a rank failed
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    emit(m, cfg)
     return 0
 
 
@@ -340,7 +363,7 @@ def main(argv=None) -> int:
               "ignoring", file=sys.stderr)
 
     if args.shards > 1:
-        return _error(f"--shards (node-sharded runs) comes with {_SLICE6}")
+        return _run_sharded(args, cfg, seeds, emit)
 
     if len(seeds) > 1:
         from blockchain_simulator_tpu_torch.parallel.sweep import run_seed_sweep

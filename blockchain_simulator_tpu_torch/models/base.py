@@ -52,18 +52,24 @@ def sim_metrics(cfg, final) -> dict:
     return get_protocol(cfg.protocol).metrics(cfg, final)
 
 
-def gated(pred, fn, zeros):
+def gated(pred, fn, zeros, axis=None):
     """Skip a delivery computation when no sender is active this tick.
 
     JAX's ``lax.cond`` becomes a host branch: ``pred`` is read back to the
-    host, one device sync per gate per tick.  The skipped branch would have
+    host, one device sync per read.  The skipped branch would have
     produced exactly ``zeros`` (its keys are pure functions of seed, tick and
     channel, so skipping it consumes nothing), hence the same numbers as
     evaluating it; the sync costs far less than the O(N^2) edge sampling it
-    saves on idle ticks (measured: 3 syncs per tick at n = 1000, PERF.md).
-    Unsharded only: a sharded gate needs a global predicate (many-GPU
-    slice)."""
-    return fn() if bool(pred) else zeros
+    saves on idle ticks.  A step with several gates a tick reads their
+    predicates together and passes each gate a host bool (PBFT's PREPARE,
+    COMMIT and block gates share one read, Raft's election and heartbeat
+    gates another; PERF.md §3 counts the reads a tick).
+    Sharded (``axis`` set), the branch holds collectives, so the predicate
+    is MAX-reduced over the mesh first and every rank takes the same
+    branch, as JAX pmax-reduces it before its ``lax.cond``."""
+    from blockchain_simulator_tpu_torch.ops.delivery import agree
+
+    return fn() if agree(pred, axis) else zeros
 
 
 def fault_masks(cfg, n: int, device):
@@ -123,13 +129,15 @@ def apply_fault_masks(cfg, state, alive, honest):
     return state
 
 
-def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None, probe=None):
+def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None, probe=None,
+              exchange=None):
     """``proto.step`` over ticks ``[start, stop)`` on the state's device, the
     tick a one-element int32 tensor there and the tick keys computed on the
     host up front; lane keys ``[B, 2]`` step a lane-stacked Raft state
     (models/raft.py).  ``topo_tables`` hands the kregular overlay's device
-    tables to every step.  Tick keys derive from the absolute tick, so loops
-    chained end to end equal one.  Returns ``(state, bufs)``; with ``probe``
+    tables to every step, and ``exchange`` the sharded overlay's neighbour
+    exchange (parallel/partition.NeighborExchange).  Tick keys derive
+    from the absolute tick, so loops chained end to end equal one.  Returns ``(state, bufs)``; with ``probe``
     (``state -> {name: 0-d tensor}``, utils/trace.probe) ``(state, bufs,
     ys)``, ``ys`` the samples after every tick stacked ``[stop - start]`` on
     the device (:func:`stack_samples`: no host read)."""
@@ -140,6 +148,8 @@ def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None, pr
     tkeys = prng.tick_key(np.asarray(key)[None],
                           np.arange(start, stop).reshape((-1,) + (1,) * (np.ndim(key) - 1)))
     kw = {} if topo_tables is None else {"topo_tables": topo_tables}
+    if exchange is not None:
+        kw["exchange"] = exchange
     samples = []
     for i in range(stop - start):
         state, bufs = proto.step(cfg, state, bufs, ticks[i], tkeys[i], **kw)

@@ -20,9 +20,13 @@ then either finishes with the ``[S]`` heartbeat scan (models/raft_hb.py)
 and the per-tick PBFT layer with ``alive`` pinned true, or continues the
 tick engine from the prefix carry.
 
-Kept out, raising ``NotImplementedError`` naming its slice: the sharded
-arms (``mesh_axis``: the all-gather of the has-leader mask and the psum'd
-handoff verdict; slice 6).
+Sharded (``mesh_axis`` set, parallel/shard.py): the Raft shards are
+row-sharded over the mesh (embarrassingly parallel: each shard's keys fold
+in its GLOBAL shard index, the rank's first shard plus its row), the
+``[S]`` has-leader mask is all-gathered, and the S-representative PBFT
+layer is replicated, every rank stepping an identical copy with identical
+keys; the handoff verdict is summed over the ranks, so every rank takes the
+same schedule.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from blockchain_simulator_tpu_torch.models import pbft, raft, raft_hb
 from blockchain_simulator_tpu_torch.models.base import stack_samples, tick_loop
+from blockchain_simulator_tpu_torch.ops import delivery as dv
 from blockchain_simulator_tpu_torch.utils import prng, threefry
 from blockchain_simulator_tpu_torch.utils.config import FaultConfig
 
@@ -70,31 +75,29 @@ def sub_configs(cfg):
     return rcfg, pcfg
 
 
-def require_ported(cfg) -> None:
-    """Raise for the mixed sim's arms later slices bring."""
-    if cfg.mesh_axis is not None:
-        raise NotImplementedError(
-            "the mixed sim's sharded arms (mesh_axis: the all-gather of the "
-            "has-leader mask, the psum'd handoff verdict) come with slice 6 of "
-            "the port (many GPUs)"
-        )
-
-
 def _shard_keys(key, fold: int, s: int) -> np.ndarray:
     """``vmap(lambda i: fold_in(key, fold + i))(arange(s))``: ``[S, 2]``."""
     return threefry.fold_in(key, fold + np.arange(s, dtype=np.int64))
 
 
-def init(cfg, key=None, *, device):
+def _base(cfg, s_loc: int) -> int:
+    """The global index of this rank's first Raft shard (0 unsharded)."""
+    return 0 if cfg.mesh_axis is None else dv.mesh_of(cfg.mesh_axis).row_base(s_loc)
+
+
+def init(cfg, key=None, *, device, rows=None):
+    """``(MixedState, MixedBufs)`` on ``device``; ``rows=(start, count)``
+    builds only those Raft shards (a rank's block of a sharded run), the
+    PBFT layer whole."""
     s = cfg.mixed_shards
     if cfg.n % s != 0:
         raise ValueError(f"n={cfg.n} not divisible into {s} shards")
     if cfg.n // s < 3:
         raise ValueError("shard size must be >= 3 for a meaningful raft quorum")
-    require_ported(cfg)
     rcfg, pcfg = sub_configs(cfg)
     k = threefry.key(cfg.seed) if key is None else key
-    r_state, r_bufs = raft.init(rcfg, _shard_keys(k, 0, s), device=device)
+    start, s_loc = (0, s) if rows is None else rows
+    r_state, r_bufs = raft.init(rcfg, _shard_keys(k, start, s_loc), device=device)
     p_state, p_bufs = pbft.init(pcfg, threefry.fold_in(k, _PBFT_INIT), device=device)
     # no representative is alive until its shard elects a leader
     p_state = dataclasses.replace(p_state, alive=torch.zeros((s,), dtype=torch.bool,
@@ -106,9 +109,10 @@ def step(cfg, state: MixedState, bufs: MixedBufs, t, tkey):
     """One tick: the Raft step over every shard, then the PBFT layer with
     ``alive`` = "the shard has an elected, alive leader"."""
     rcfg, pcfg = sub_configs(cfg)
+    s_loc = state.raft.block_num.shape[0]
     r_state, r_bufs = raft.step(rcfg, state.raft, bufs.raft, t,
-                                _shard_keys(tkey, _RAFT_STEP, cfg.mixed_shards))
-    has_leader = (r_state.is_leader & r_state.alive).any(-1)
+                                _shard_keys(tkey, _RAFT_STEP + _base(cfg, s_loc), s_loc))
+    has_leader = dv._gather((r_state.is_leader & r_state.alive).any(-1), cfg.mesh_axis)
     p_state = dataclasses.replace(state.pbft, alive=has_leader)
     p_state, p_bufs = pbft.step(pcfg, p_state, bufs.pbft, t,
                                 threefry.fold_in(tkey, _PBFT_STEP))
@@ -132,7 +136,12 @@ def prefix_handoff(cfg, state, bufs, key):
     rcfg, _ = sub_configs(cfg)
     carry = tick_loop(cfg, state, bufs, key, 0, raft_hb.prefix_ticks(rcfg))
     ok_s, h = raft_hb.handoff(rcfg, carry[0].raft)
-    return carry, bool(ok_s.all()), h
+    if cfg.mesh_axis is None:
+        return carry, bool(ok_s.all()), h
+    # the verdict summed over the ranks: every rank takes the same schedule
+    bad = dv._psum(torch.tensor(int((~ok_s).sum()), dtype=torch.int32,
+                                device=dv.mesh_of(cfg.mesh_axis).device), cfg.mesh_axis)
+    return carry, int(bad) == 0, h
 
 
 def fast_finish(cfg, carry, h, key, with_probe: bool = False):
@@ -147,7 +156,9 @@ def fast_finish(cfg, carry, h, key, with_probe: bool = False):
     t_e = raft_hb.prefix_ticks(rcfg)
     s = cfg.mixed_shards
     st, bf = carry
-    res = raft_hb.steady_scan(rcfg, _shard_keys(key, _HB_SCAN, s), h, with_probe=with_probe)
+    s_loc = st.raft.block_num.shape[0]
+    res = raft_hb.steady_scan(rcfg, _shard_keys(key, _HB_SCAN + _base(cfg, s_loc), s_loc), h,
+                              with_probe=with_probe)
     if with_probe:
         res, raft_ys = res
     raft_final = raft_hb.materialize(rcfg, st.raft, h, res)

@@ -17,8 +17,10 @@ in-table, topo/spec.py, holds the proposer: a row-local ``[N, P]`` mask on
 the same draws, all true at degree k = N-1; replies stay point to point),
 both fidelities, crash, Byzantine and drop faults, and the
 ``paxos_client_node`` hook.  ``cfg.delivery`` is ignored, as in the JAX
-package: every channel is O(N·P).  ``mesh_axis`` raises
-``NotImplementedError`` naming slice 6.
+package: every channel is O(N·P).  Node-sharded (``mesh_axis`` set,
+parallel/shard.py): each rank holds its acceptor rows, the proposers'
+request values are all-gathered, the replies' counts summed and payloads
+max-reduced over the ranks, and the tick's one host read is agreed.
 
 PyTorch idiom, as in models/pbft.py: state and rings are mutable tensors,
 the rings are updated in place, ``t`` is a 0-d int32 tensor on the device.
@@ -99,22 +101,14 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(PaxosState))
 BUF_FIELDS = tuple(f.name for f in dataclasses.fields(PaxosBufs))
 
 
-def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.mesh_axis is not None:
-        raise NotImplementedError(
-            "paxos with mesh_axis (node-sharded runs, the neighbour exchange) "
-            "comes with slice 6 of the port (many GPUs)"
-        )
-
-
-def init(cfg, key=None, *, device):
-    """``(PaxosState, PaxosBufs)`` on ``device``.  Clean fidelity checks that
-    the retry timeout covers the longest reply horizon (the flood's over
-    gossip), as the JAX package does."""
+def init(cfg, key=None, *, device, rows=None):
+    """``(PaxosState, PaxosBufs)`` on ``device``; ``rows=(start, count)``
+    builds only those node rows (a rank's block of a sharded run).  Clean
+    fidelity checks that the retry timeout covers the longest reply horizon
+    (the flood's over gossip), as the JAX package does."""
     del key  # the fault masks are deterministic, as in the JAX package
-    require_ported(cfg)
-    n, d, p = cfg.n, cfg.ring_depth, cfg.paxos_n_proposers
+    d, p = cfg.ring_depth, cfg.paxos_n_proposers
+    start, n = (0, cfg.n) if rows is None else rows
     if cfg.fidelity == "clean":
         _, rt_hi = cfg.roundtrip_range()
         horizon = rt_hi
@@ -128,8 +122,8 @@ def init(cfg, key=None, *, device):
                 f">= the max reply horizon ({horizon} ms): clean-fidelity "
                 "correctness relies on abandoned windows draining before retry"
             )
-    alive, honest = fault_masks(cfg, n, device)
-    ids = _ids(n, device)
+    alive, honest = (m[start:start + n] for m in fault_masks(cfg, cfg.n, device))
+    ids = dv.row_ids(n, start, torch.device(device))
 
     def zi(*sh):
         return torch.zeros(sh, dtype=_I32, device=device)
@@ -174,23 +168,20 @@ def push_members(cfg) -> tuple:
         ("req_ticket", "max"), ("req_propose", "max"), ("req_commit", "max")))
 
 
-@functools.lru_cache(maxsize=8)
-def _ids(n: int, device) -> torch.Tensor:
-    """Node ids on ``device``, made once per (size, device)."""
-    return dv._global_ids(n, None, device)
-
-
 def _req_contrib(key, val, lo, hi, drop, ids, p, ref_skip, impl="threefry",
-                 inmask=None):
+                 inmask=None, axis=None):
     """Broadcast contribution of one request channel: per-node request
     values (nonzero only at proposer rows) → ``[B, N, P]`` values for a max
     push.  ``ref_skip`` drops the sender's first peer (the reference's
     iterator bug); ``inmask`` (``[N, P]`` bool) keeps the receivers whose
-    kregular in-table holds the proposer."""
+    kregular in-table holds the proposer.  Sharded, the proposers' values
+    are gathered and each rank draws its receiver rows."""
     dev = val.device
     n = val.shape[0]
-    val_g = val[:p]
-    d = delay_ops.sample_edge_delays(key, (n, p), lo, hi, dev, impl)
+    val_g = dv._gather(val, axis)[:p]  # [P] global proposer values
+    key = dv._shard_key(key, axis)
+    with dv.draw_rows(axis, -2):
+        d = delay_ops.sample_edge_delays(key, (n, p), lo, hi, dev, impl)
     prop_ids = torch.arange(p, dtype=_I32, device=dev)
     mask = (val_g[None, :] > 0) & (ids[:, None] != prop_ids[None, :])
     if inmask is not None:
@@ -199,23 +190,29 @@ def _req_contrib(key, val, lo, hi, drop, ids, p, ref_skip, impl="threefry",
         first_peer = torch.where(prop_ids == 0, 1, 0)
         mask = mask & (ids[:, None] != first_peer[None, :])
     if drop > 0.0:
-        mask = mask & threefry.bernoulli(threefry.fold_in(key, 0x0D20), 1.0 - drop,
-                                         (n, p), dev)
+        with dv.draw_rows(axis, -2):
+            mask = mask & threefry.bernoulli(threefry.fold_in(key, 0x0D20), 1.0 - drop,
+                                             (n, p), dev)
     hits = (d[None] == dv._bucket_iota(lo, hi, d.ndim, dev)).to(_I32)
     return hits * (mask.to(_I32) * val_g[None, :])[None]
 
 
 def _reply_contribs(key, ok_wire, no_wire, cmd_wire, lo, hi, drop, ids, p,
-                    impl="threefry"):
+                    impl="threefry", axis=None):
     """Unicast acceptor→proposer replies: per-(acceptor, proposer, type)
     wires → ``(ok [B, N, 3], no [B, N, 3], cmd [B, N])`` at the proposer
-    rows; each reply its own packet with its own delay draw."""
+    rows; each reply its own packet with its own delay draw.  Sharded, the
+    counts are summed and the payloads max-reduced over the ranks (the
+    repliers)."""
     dev = ok_wire.device
     n = ok_wire.shape[0]
-    d = delay_ops.sample_edge_delays(key, (n, p, 3), lo, hi, dev, impl)
+    key = dv._shard_key(key, axis)
+    with dv.draw_rows(axis, -3):
+        d = delay_ops.sample_edge_delays(key, (n, p, 3), lo, hi, dev, impl)
     if drop > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(key, 0x0D21), 1.0 - drop,
-                                  (n, p, 3), dev).to(_I32)
+        with dv.draw_rows(axis, -3):
+            keep = threefry.bernoulli(threefry.fold_in(key, 0x0D21), 1.0 - drop,
+                                      (n, p, 3), dev).to(_I32)
         ok_wire = ok_wire * keep
         no_wire = no_wire * keep
         cmd_wire = cmd_wire * keep[:, :, 0]
@@ -223,6 +220,7 @@ def _reply_contribs(key, ok_wire, no_wire, cmd_wire, lo, hi, drop, ids, p,
     ok_b = (hits * ok_wire[None]).sum(1, dtype=_I32)  # [B, P, 3]
     no_b = (hits * no_wire[None]).sum(1, dtype=_I32)
     cmd_b = (hits[:, :, :, 0] * cmd_wire[None]).amax(1)  # [B, P]
+    ok_b, no_b, cmd_b = dv._psum(ok_b, axis), dv._psum(no_b, axis), dv._pmax(cmd_b, axis)
     take = torch.clamp(ids, 0, p - 1).to(torch.int64)
     is_prop = (ids < p).to(_I32)
     return (ok_b[:, take, :] * is_prop[None, :, None],
@@ -248,15 +246,18 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
     the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
     that the config is ported.  ``topo_tables``: the kregular overlay's
     ``(in, out)`` tables when the caller holds them, else the config's
-    own; ``exchange`` raises."""
+    own; ``exchange``: the sharded overlay's, whose tables are already
+    this rank's rows (the in-table is read row-locally)."""
     n, p = cfg.n, cfg.paxos_n_proposers
+    axis = cfg.mesh_axis
     lo, hi = cfg.one_way_range()
     drop = cfg.faults.drop_prob
     clean = cfg.fidelity == "clean"
     eimpl = cfg.eff_edge_sampler
     c_enc = n + 1  # encoding base: val = ticket * c_enc + command + 1
     dev = state.t_max.device
-    ids = _ids(n, dev)
+    n_loc = state.t_max.shape[0]
+    ids = dv._global_ids(n_loc, axis, dev)
     alive, honest = state.alive, state.honest
 
     # ---- pop arrivals; crashed nodes process nothing ------------------------
@@ -275,12 +276,14 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
     # the proposer (a row-local [N, P] reachability mask over the same
     # O(N·P) delivery); windows that cannot reach a majority time out and
     # retry until gave_up
-    gd._unsharded(None, exchange)
     inmask = None
     if cfg.topology == "kregular":
-        inmask = (_inmask(n, cfg.degree, cfg.topo_seed, p, dev) if topo_tables is None
-                  else _inmask_of(gd.local_tables(cfg, None, tables=topo_tables,
-                                                  device=dev)[0], p))
+        if topo_tables is None and axis is None:
+            inmask = _inmask(n, cfg.degree, cfg.topo_seed, p, dev)
+        else:
+            inmask = _inmask_of(gd.local_tables(
+                cfg, None if axis is None or exchange is not None else ids,
+                tables=topo_tables, device=dev)[0], p)
 
     # ---- gossip decode: TTL values → new-request dedup + forward set --------
     gossip = cfg.topology == "gossip"
@@ -288,6 +291,8 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
     if gossip:
         h_enc = cfg.gossip_hops + 1
         nbrs = topology.neighbours(n, cfg.degree, cfg.seed, dev)
+        if axis is not None:
+            nbrs = nbrs.index_select(0, ids.to(torch.int64))
         fwd_vals, proc = [], []
         for ci, arr in enumerate((rt_t, rp_t, rc_t)):
             base, hops = arr // h_enc, arr % h_enc
@@ -451,22 +456,26 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         outs = (tk_val, pp_val, cm_val)
         sends = [v > 0 for v in outs]
 
-    # the tick's one host read: the gates of the four deliveries and the jitter
-    flags = torch.stack([any_req, new_window.any()] + [s.any() for s in sends]).tolist()
+    # the tick's one host read: the gates of the four deliveries and the
+    # jitter (agreed over the ranks: the deliveries hold collectives)
+    flags = dv._pmax(torch.stack([any_req, new_window.any()] + [s.any() for s in sends]),
+                     axis).tolist()
     any_reply, any_window, req_on = flags[0], flags[1], flags[2:]
     window_deadline = state.window_deadline
     if clean and any_window:
         # jittered deadline: identical timeouts would make dueling proposers
         # retry in lockstep forever (a symmetric livelock)
-        jitter = threefry.randint(chan_key(tkey, Channel.ELECTION), (n,), 0,
-                                  max(cfg.paxos_retry_timeout_ms // 2, 1), dev)
+        with dv.draw_rows(axis):
+            jitter = threefry.randint(dv._shard_key(chan_key(tkey, Channel.ELECTION), axis),
+                                      (n_loc,), 0, max(cfg.paxos_retry_timeout_ms // 2, 1),
+                                      dev)
         window_deadline = torch.where(
             new_window, t + cfg.paxos_retry_timeout_ms + jitter, window_deadline)
     pushes = []
     if any_reply:
         ok_c, no_c, cmd_c = _reply_contribs(chan_key(tkey, Channel.DELAY_REPLY), ok_w,
                                             no_w, cmd_wire, lo, hi, drop, ids, p,
-                                            impl=eimpl)
+                                            impl=eimpl, axis=axis)
         pushes += [(resp_ok, lo, ok_c, "add"), (resp_no, lo, no_c, "add"),
                    (resp_cmd, lo, cmd_c, "max")]
     for ring, val, chan, on in zip((req_ticket, req_propose, req_commit), outs, chans,
@@ -475,10 +484,10 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
             continue
         if gossip:
             contrib = dv.gossip_fwd(chan_key(tkey, chan), val, nbrs, n, lo, hi, drop,
-                                    impl=eimpl)
+                                    axis=axis, impl=eimpl)
         else:
             contrib = _req_contrib(chan_key(tkey, chan), val, lo, hi, drop, ids, p,
-                                   not clean, impl=eimpl, inmask=inmask)
+                                   not clean, impl=eimpl, inmask=inmask, axis=axis)
         pushes.append((ring, lo, contrib, "max"))
     ring_push_group(pushes, t)  # in place; no launch when nothing is pushed
 

@@ -20,8 +20,12 @@ exact vote table only), the kregular overlay (every channel delivers direct
 over the circulant in/out tables of topo/spec.py through the gather
 primitives of ops/gatherdeliv.py: O(N·K) a tick, equal to the full mesh at
 degree k = N-1) and the committee hierarchy's inner runs (the full mesh at
-the committee's size, topo/committee.py).  ``mesh_axis`` and the sharded
-overlay's neighbour exchange raise ``NotImplementedError`` naming slice 6.
+the committee's size, topo/committee.py).  Node-sharded (``mesh_axis``
+set, parallel/shard.py): the state holds this rank's rows, the delivery
+functions globalize sender-side quantities over the bound mesh, every gate
+and host read is agreed over the ranks, and :func:`finalize` combines the
+per-rank slot accumulators; the sharded overlay reads its neighbours'
+rows through the exchange (``exchange``, parallel/partition.py).
 
 PyTorch idiom: state and rings are mutable tensors.  The rings are updated in
 place (ops/ring.py), and ``t`` is a one-element int32 tensor on the device.
@@ -110,19 +114,13 @@ def queue_len(cfg) -> int:
     return min(cfg.pbft_max_rounds, cfg.pbft_max_slots)
 
 
-def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh_axis (node-sharded runs) comes with slice 6 of the port "
-            "(many GPUs)"
-        )
-
-
-def init(cfg, key=None, *, device):
+def init(cfg, key=None, *, device, rows=None):
+    """``(PbftState, PbftBufs)`` on ``device``; ``rows=(start, count)``
+    builds only those node rows (a rank's block of a sharded run), the
+    per-slot accumulators whole."""
     del key  # the fault masks are deterministic, as in the JAX package
-    require_ported(cfg)
     n, s = cfg.n, cfg.pbft_max_slots
+    start, nl = (0, n) if rows is None else rows
     w = eff_window(cfg)
     d = cfg.ring_depth
     if cfg.topology == "gossip" and w < s:
@@ -151,7 +149,7 @@ def init(cfg, key=None, *, device):
                 "byz_forge targets a concrete never-proposed slot; it "
                 "requires exact mode (pbft_window = 0 or >= pbft_max_slots)"
             )
-    alive, honest = fault_masks(cfg, n, device)
+    alive, honest = (m[start:start + nl] for m in fault_masks(cfg, n, device))
 
     def zi(*sh):
         return torch.zeros(sh, dtype=_I32, device=device)
@@ -164,30 +162,30 @@ def init(cfg, key=None, *, device):
 
     q = queue_len(cfg)
     state = PbftState(
-        v=torch.ones((n,), dtype=_I32, device=device),
-        leader=zi(n),
-        next_n=zi(n),
-        rounds_sent=zi(n),
-        slot_id=full((n, w), -1),
-        prepare_vote=zi(n, w),
-        commit_vote=zi(n, w),
-        prep_sent=zb(n, w),
-        committed_w=zb(n, w),
-        block_num=zi(n),
-        unattributed=zi(n),
-        view_changes=zi(n),
+        v=torch.ones((nl,), dtype=_I32, device=device),
+        leader=zi(nl),
+        next_n=zi(nl),
+        rounds_sent=zi(nl),
+        slot_id=full((nl, w), -1),
+        prepare_vote=zi(nl, w),
+        commit_vote=zi(nl, w),
+        prep_sent=zb(nl, w),
+        committed_w=zb(nl, w),
+        block_num=zi(nl),
+        unattributed=zi(nl),
+        view_changes=zi(nl),
         alive=alive,
         honest=honest,
-        seen_pp=zi(n, w),
-        seen_vc=zi(n),
-        link_busy=zi(n),
-        ppq_tick=full((n, q), _NEVER),
-        ppq_val=zi(n, q),
+        seen_pp=zi(nl, w),
+        seen_vc=zi(nl),
+        link_busy=zi(nl),
+        ppq_tick=full((nl, q), _NEVER),
+        ppq_val=zi(nl, q),
         slot_commits=zi(s),
         slot_commit_tick=full((s,), -1),
         slot_propose_tick=full((s,), _NEVER),
     )
-    bufs = PbftBufs(pp=zi(d, n, w), prep_rt=zi(d, n, w), commit=zi(d, n, w), vc=zi(d, n))
+    bufs = PbftBufs(pp=zi(d, nl, w), prep_rt=zi(d, nl, w), commit=zi(d, nl, w), vc=zi(d, nl))
     return state, bufs
 
 
@@ -203,6 +201,18 @@ def push_members(cfg) -> tuple:
     if cfg.queued_links and ser > 0:
         members.pop(2)
     return tuple(members)
+
+
+def finalize(state: PbftState, axis) -> PbftState:
+    """Combine the per-shard slot accumulators (once, after the run)."""
+    if axis is None:
+        return state
+    return dataclasses.replace(
+        state,
+        slot_commits=dv._psum(state.slot_commits, axis),
+        slot_commit_tick=dv._pmax(state.slot_commit_tick, axis),
+        slot_propose_tick=dv._pmin(state.slot_propose_tick, axis),
+    )
 
 
 def _scatter_drop(acc, idx, vals, reduce: str, ident: int):
@@ -240,7 +250,6 @@ def _scatter_window_events(acc_add, acc_max, acc_min, events, eff_sid, t, s):
 
 @dataclasses.dataclass(frozen=True)
 class _TickConsts:
-    ids: torch.Tensor       # [N] node ids
     windows: torch.Tensor   # [W] window indices
     zeros_rt: torch.Tensor  # [B2, N, W] skipped round-trip gate
     zeros_w: torch.Tensor   # [B, N, W] skipped commit / pre-prepare gates
@@ -248,15 +257,15 @@ class _TickConsts:
 
 
 @functools.lru_cache(maxsize=8)
-def _tick_consts(cfg, device) -> _TickConsts:
-    """What ``step`` needs that depends only on the config and the device,
-    made once per (config, device) rather than on every tick.  The zero
-    tensors are the results of skipped gates: they are only ever read."""
-    n, w = cfg.n, eff_window(cfg)
+def _tick_consts(cfg, device, n: int) -> _TickConsts:
+    """What ``step`` needs that depends only on the config, the device and
+    the row count ``n``, made once per (config, device, rows) rather than
+    on every tick.  The zero tensors are
+    the results of skipped gates: they are only ever read."""
+    w = eff_window(cfg)
     lo, hi = cfg.one_way_range()
     rt_lo, rt_hi = cfg.roundtrip_range()
     return _TickConsts(
-        ids=dv._global_ids(n, None, device),
         windows=torch.arange(w, dtype=_I32, device=device),
         zeros_rt=torch.zeros((rt_hi - rt_lo, n, w), dtype=_I32, device=device),
         zeros_w=torch.zeros((hi - lo, n, w), dtype=_I32, device=device),
@@ -270,11 +279,13 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
     that the config is ported.  ``topo_tables``: the kregular overlay's
     ``(in, out)`` tables when the caller holds them
-    (runner.make_topo_dyn_sim_fn), else the config's own; ``exchange`` (the
-    sharded overlay's neighbour exchange) raises."""
+    (runner.make_topo_dyn_sim_fn), else the config's own; ``exchange``:
+    the sharded overlay's neighbour exchange, whose tables are already
+    this rank's rows."""
     n, s = cfg.n, cfg.pbft_max_slots
     w = eff_window(cfg)
     exact = w == s
+    axis = cfg.mesh_axis
     lo, hi = cfg.one_way_range()
     rt_lo, _ = cfg.roundtrip_range()
     drop = cfg.faults.drop_prob
@@ -285,8 +296,9 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     ow_probs = delay_ops.uniform_probs(lo, hi)
     rt_probs = delay_ops.roundtrip_probs(lo, hi)
     dev = state.v.device
-    consts = _tick_consts(cfg, dev)
-    ids, windows, zeros_w = consts.ids, consts.windows, consts.zeros_w
+    n_loc = state.v.shape[0]
+    consts = _tick_consts(cfg, dev, n_loc)
+    ids, windows, zeros_w = dv._global_ids(n_loc, axis, dev), consts.windows, consts.zeros_w
     ser = cfg.serialization_ticks(cfg.pbft_block_bytes)
 
     # ---- pop this tick's arrivals; crashed nodes process nothing ------------
@@ -321,6 +333,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     if gossip:
         h_enc = cfg.gossip_hops + 1
         nbrs = topology.neighbours(n, cfg.degree, cfg.seed, dev)
+        if axis is not None:
+            nbrs = nbrs.index_select(0, ids.to(torch.int64))
         pp_base, pp_hops = pp_t // h_enc, pp_t % h_enc
         better = (pp_t > seen_pp) & state.alive[:, None]
         new_base = (pp_base > seen_pp // h_enc) & state.alive[:, None]
@@ -340,9 +354,12 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     # (no relay, no dedup state); with k below the commit quorum a node can
     # never hear enough votes, a stalling but valid scenario
     kreg = cfg.topology == "kregular"
-    gd._unsharded(None, exchange)
     if kreg:
-        nbr_in, nbr_out = gd.local_tables(cfg, None, tables=topo_tables, device=dev)
+        # unsharded, or with the exchange (whose operands ARE this rank's
+        # rows), the tables pass through whole; sharded, this rank's rows
+        nbr_in, nbr_out = gd.local_tables(
+            cfg, None if axis is None or exchange is not None else ids,
+            tables=topo_tables, device=dev)
 
     # ---- VIEW_CHANGE arrivals: adopt (v, leader) ----------------------------
     has_vc = vc_t > 0
@@ -351,7 +368,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     if queued:
         # leadership rotated: the new leader's links carry votes only, hence
         # are free; its busy registers start fresh
-        link_busy = torch.where(has_vc.any(), 0, link_busy)
+        link_busy = torch.where(dv._pmax(has_vc.any(), axis), 0, link_busy)
 
     # ---- PRE_PREPARE arrivals: evict stale tenant, store, broadcast PREPARE -
     got_pp = pp_t > 0  # [N, W] (any arrival re-broadcasts PREPARE, no dedup)
@@ -382,21 +399,20 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         if stat:
             # the overlay swaps only the per-sender peer count: a gather
             # over the out-table instead of total-minus-self
-            n_peers = (gd.out_counts(voters, nbr_out, ids) if kreg
-                       else voters.sum(dtype=_I32) - voters.to(_I32))
+            n_peers = (gd.out_counts(voters, nbr_out, ids, axis, exchange) if kreg
+                       else dv._psum(voters.sum(dtype=_I32), axis) - voters.to(_I32))
             return dv.push_roundtrip_reply_counts_stat(
-                k_rt, prep_active, n_peers, rt_probs, drop, mode=smode,
+                k_rt, prep_active, n_peers, rt_probs, drop, axis=axis, mode=smode,
                 # replies are per broadcast, i.e. per active (node, window)
                 expand=lambda c: c[:, None] * got_pp_i)
         rt = (gd.roundtrip_reply_counts_kreg(k_rt, prep_active, nbr_out, ids, lo, hi, drop,
-                                             peer_mask=voters, impl=eimpl)
+                                             peer_mask=voters, axis=axis, impl=eimpl,
+                                             xg=exchange)
               if kreg else
               dv.roundtrip_reply_counts_dense(k_rt, prep_active, lo, hi, drop,
-                                              peer_mask=voters, impl=eimpl))
+                                              peer_mask=voters, axis=axis, impl=eimpl))
         return rt[:, :, None] * got_pp_i[None, :, :]
 
-    rt_contrib = gated(prep_active.any(), prep_replies, consts.zeros_rt)
-    pushes = [(prep_rt, rt_lo, rt_contrib, "add")]
 
     # ---- PREPARE_RES arrivals → prepare_vote → COMMIT broadcast -------------
     pv = prepare_vote + prep_t
@@ -423,16 +439,16 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     def commits():
         if kreg:
             return (gd.push_bcast_slots_stat_kreg(k_cm, commit_mat, nbr_in, ids, ow_probs,
-                                                  drop, mode=smode)
+                                                  drop, axis=axis, mode=smode, xg=exchange)
                     if stat else
                     gd.bcast_slots_kreg(k_cm, commit_mat, nbr_in, ids, lo, hi, drop,
-                                        impl=eimpl))
-        return (dv.push_bcast_slots_stat(k_cm, commit_mat, ow_probs, drop, mode=smode)
+                                        axis=axis, impl=eimpl, xg=exchange))
+        return (dv.push_bcast_slots_stat(k_cm, commit_mat, ow_probs, drop, axis=axis,
+                                         mode=smode)
                 if stat else
-                dv.bcast_slots_dense(k_cm, commit_mat, lo, hi, drop, impl=eimpl))
+                dv.bcast_slots_dense(k_cm, commit_mat, lo, hi, drop, axis=axis,
+                                     impl=eimpl))
 
-    cm_contrib = gated((commit_mat > 0).any(), commits, zeros_w)
-    pushes.append((commit, lo, cm_contrib, "add"))
 
     # ---- COMMIT arrivals → commit_vote → finality ---------------------------
     cv = commit_vote + com_t
@@ -458,7 +474,12 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         & (next_n < min(cfg.pbft_max_rounds, s))
         & state.alive
     )
-    any_block = bool(send_block.any())  # one host read serves both gates below
+    # the tick's one host read (agreed over the ranks) serves the PREPARE
+    # and COMMIT gates and both block-tick gates below
+    rt_on, cm_on, any_block = dv._pmax(torch.stack(
+        [prep_active.any(), (commit_mat > 0).any(), send_block.any()]), axis).tolist()
+    pushes = [(prep_rt, rt_lo, prep_replies() if rt_on else consts.zeros_rt, "add"),
+              (commit, lo, commits() if cm_on else zeros_w, "add")]
     own_w = next_n % w
     own_onehot = (windows[None, :] == own_w[:, None]) & send_block[:, None]
     # the proposer learns its own window's tenant (it never hears its own
@@ -474,7 +495,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     if queued:
         if any_block:  # with no sender nothing is enqueued and nothing drawn
             ppq_tick, ppq_val, link_busy = _enqueue_blocks(
-                cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, t, k_pp)
+                cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, t, k_pp,
+                axis)
         # the blocks ride the serial pipes: the pp ring is not pushed
     elif gossip:
         # origin injection (TTL = gossip_hops) + this tick's relays, one
@@ -489,13 +511,14 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         def blocks():
             if kreg:
                 return (gd.bcast_window_value_max_stat_kreg(k_pp, pp_val, nbr_in, ow_probs,
-                                                            drop)
+                                                            drop, axis=axis, xg=exchange)
                         if stat else
                         gd.bcast_window_value_max_kreg(k_pp, pp_val, nbr_in, ids, lo, hi,
-                                                       drop, impl=eimpl))
-            return (dv.bcast_window_value_max_stat(k_pp, pp_val, ow_probs, drop)
+                                                       drop, axis=axis, impl=eimpl,
+                                                       xg=exchange))
+            return (dv.bcast_window_value_max_stat(k_pp, pp_val, ow_probs, drop, axis=axis)
                     if stat else
-                    dv.bcast_window_value_max_dense(k_pp, pp_val, lo, hi, drop,
+                    dv.bcast_window_value_max_dense(k_pp, pp_val, lo, hi, drop, axis=axis,
                                                     impl=eimpl))
 
         pp_contrib = gated(any_block, blocks, zeros_w)
@@ -512,8 +535,9 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     # sender this tick the draw is skipped (keys are per tick and channel, so
     # skipping consumes nothing) and trigger is all-false either way.
     if any_block:
-        u = threefry.randint(chan_key(tkey, Channel.VIEW_CHANGE), (n,), 0,
-                             cfg.pbft_view_change_den, dev)
+        with dv.draw_rows(axis):
+            u = threefry.randint(dv._shard_key(chan_key(tkey, Channel.VIEW_CHANGE), axis),
+                                 (n_loc,), 0, cfg.pbft_view_change_den, dev)
         trigger = send_block & (u < cfg.pbft_view_change_num)
     else:
         trigger = torch.zeros_like(send_block)
@@ -528,33 +552,36 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         vc_origin = (enc * h_enc + cfg.gossip_hops) * (enc > 0)
         seen_vc = torch.maximum(seen_vc, vc_origin)  # self-loop guard
         vc_out = torch.maximum(vc_origin, vc_fwd)
-        # both floods' gates in one host read
-        pp_on, vc_on = torch.stack([pp_out.any(), vc_out.any()]).tolist()
+        # both floods' gates in one host read (agreed over the ranks)
+        pp_on, vc_on = dv._pmax(torch.stack([pp_out.any(), vc_out.any()]), axis).tolist()
         pp_contrib = gated(
             pp_on,
-            lambda: dv.gossip_fwd(k_pp, pp_out, nbrs, n, lo, hi, drop, impl=eimpl),
+            lambda: dv.gossip_fwd(k_pp, pp_out, nbrs, n, lo, hi, drop, axis=axis,
+                                  impl=eimpl),
             zeros_w,
         )
         pushes.append((pp, lo + ser, pp_contrib, "max"))
         vc_contrib = gated(
             vc_on,
-            lambda: dv.gossip_fwd(k_vc, vc_out[:, None], nbrs, n, lo, hi, drop,
+            lambda: dv.gossip_fwd(k_vc, vc_out[:, None], nbrs, n, lo, hi, drop, axis=axis,
                                   impl=eimpl)[:, :, 0],
             consts.zeros_vc,
         )
     else:
         def view_changes_sent():
             if kreg:
-                return (gd.bcast_value_max_stat_kreg(k_vc, enc, nbr_in, ow_probs, drop)
+                return (gd.bcast_value_max_stat_kreg(k_vc, enc, nbr_in, ow_probs, drop,
+                                                     axis=axis, xg=exchange)
                         if stat else
                         gd.bcast_value_max_kreg(k_vc, trigger, enc, nbr_in, ids, lo, hi,
-                                                drop, impl=eimpl))
-            return (dv.bcast_value_max_stat(k_vc, enc, ow_probs, drop)
+                                                drop, axis=axis, impl=eimpl, xg=exchange))
+            return (dv.bcast_value_max_stat(k_vc, enc, ow_probs, drop, axis=axis)
                     if stat else
-                    dv.bcast_value_max_dense(k_vc, trigger, enc, lo, hi, drop,
+                    dv.bcast_value_max_dense(k_vc, trigger, enc, lo, hi, drop, axis=axis,
                                              impl=eimpl))
 
-        vc_contrib = gated(any_block and trigger.any(), view_changes_sent,
+        # with no block sender there is no trigger: no read, on any rank
+        vc_contrib = gated(any_block and dv.agree(trigger.any(), axis), view_changes_sent,
                            consts.zeros_vc)
     pushes.append((vc, lo, vc_contrib, "max"))
     ring_push_group(pushes, t)  # in place on all four rings
@@ -586,7 +613,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
 
 
 def _enqueue_blocks(cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, t,
-                    k_pp):
+                    k_pp, axis=None):
     """Serial-pipe send (the C++ engine's link_enqueue): the block reaches
     the (leader -> j) link after its scheduling delay ``d_j - prop``,
     transmits once the link is free, occupies it ``ser`` ticks, then
@@ -597,10 +624,12 @@ def _enqueue_blocks(cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, 
     lo, hi = cfg.one_way_range()
     ser = cfg.serialization_ticks(cfg.pbft_block_bytes)
     prop = cfg.link_delay_ms
-    val_sent = torch.where(send_block, next_n + 1, 0).amax()
-    sender = torch.where(send_block, ids, -1).amax()
+    # one block sender (runner._reject_cpp_only): its scalars globalize
+    # with a MAX over the ranks
+    val_sent = dv._pmax(torch.where(send_block, next_n + 1, 0).amax(), axis)
+    sender = dv._pmax(torch.where(send_block, ids, -1).amax(), axis)
     dest = (val_sent > 0) & (ids != sender)  # crashed peers get it and ignore it
-    d_j = threefry.randint(k_pp, (ids.shape[0],), lo, hi, ids.device)
+    d_j = threefry.randint(dv._shard_key(k_pp, axis), (ids.shape[0],), lo, hi, ids.device)
     start = torch.maximum(t + d_j - prop, link_busy)
     delivery = start + ser + prop
     link_busy = torch.where(dest, start + ser, link_busy)

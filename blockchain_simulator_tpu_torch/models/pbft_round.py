@@ -25,6 +25,13 @@ round's threefry key computed on the host before the loop.  Nothing in a
 round reads the device back to the host under the ``"normal"`` stat sampler
 (the ``"exact"`` sampler's rejection loops test their stop condition on the
 host once an iteration), so a CUDA graph can capture the loop.
+
+Node-sharded (``mesh_axis`` set, parallel/shard.py): the state holds this
+rank's rows, every cross-node reduction of a round (the slot, the trigger,
+the new leader, the voter and commit-sender totals, the last commit tick)
+is an all-reduce over the bound mesh, the draws use the shard's key, and
+:func:`finalize` combines the per-rank slot accumulators, as in the JAX
+function.  A sharded round reads nothing back to the host either.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ _NEVER = pbft_tick._NEVER
 _I32 = torch.int32
 
 GLOBAL_FIELDS = pbft_tick.GLOBAL_FIELDS
+finalize = pbft_tick.finalize  # the same per-shard slot accumulators
 
 
 @dataclasses.dataclass
@@ -101,18 +109,17 @@ def eligible(cfg) -> bool:
     )
 
 
-def init(cfg, key=None, *, device):
+def init(cfg, key=None, *, device, rows=None):
     """``(PbftRoundState, ())`` on ``device``; lane keys ``[B, 2]`` give
-    ``B`` lanes (module docstring).  The fault masks are deterministic, as
-    in the JAX package: the key only sets the lane count."""
-    if cfg.mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh_axis (node-sharded runs) comes with slice 6 of the port "
-            "(many GPUs)"
-        )
+    ``B`` lanes (module docstring); ``rows=(start, count)`` builds only
+    those node rows (a rank's block of a sharded run).  The fault masks are
+    deterministic, as in the JAX package: the key only sets the lane
+    count."""
     sh = (len(key),) if key is not None and np.ndim(key) == 2 else ()
-    n, s = cfg.n, cfg.pbft_max_slots
-    alive, honest = (m.expand(sh + (n,)).contiguous() for m in fault_masks(cfg, n, device))
+    s = cfg.pbft_max_slots
+    start, n = (0, cfg.n) if rows is None else rows
+    alive, honest = (m[start:start + n].expand(sh + (n,)).contiguous()
+                     for m in fault_masks(cfg, cfg.n, device))
 
     def full(dims, val):
         return torch.full(sh + dims, val, dtype=_I32, device=device)
@@ -179,13 +186,13 @@ class _RoundConsts:
 
 
 @functools.lru_cache(maxsize=8)
-def _round_consts(cfg, device) -> _RoundConsts:
+def _round_consts(cfg, device, n: int, base: int) -> _RoundConsts:
     lo, hi = cfg.one_way_range()
     rt_lo, rt_hi = cfg.roundtrip_range()
     b1, b2 = hi - lo, rt_hi - rt_lo
     w_arr = (b1 + b2 - 1) + b1 - 1
     return _RoundConsts(
-        ids=dv._global_ids(cfg.n, None, device),
+        ids=torch.arange(base, base + n, dtype=_I32, device=device),
         rt_iota=torch.arange(b2, dtype=_I32, device=device)[:, None],
         arr_iota=torch.arange(w_arr, dtype=_I32, device=device),
         d_iota=torch.arange(lo, hi, dtype=_I32, device=device)[:, None],
@@ -207,6 +214,7 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
     window (``cfg.ticks``) are masked, as the tick engine truncates a final
     round's wave mid-flight."""
     n, s = cfg.n, cfg.pbft_max_slots
+    axis = cfg.mesh_axis
     bt = cfg.pbft_block_interval_ms
     lo, hi = cfg.one_way_range()
     rt_lo, rt_hi = cfg.roundtrip_range()
@@ -220,7 +228,9 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
     t0 = r * bt
     t_end = cfg.ticks  # arrivals at tick >= t_end never land
     dev = state.v.device
-    consts = _round_consts(cfg, dev)
+    n_loc = state.v.shape[-1]
+    consts = _round_consts(cfg, dev, n_loc,
+                           0 if axis is None else dv.mesh_of(axis).row_base(n_loc))
     ids = consts.ids
     lanes = np.ndim(tkey) == 2  # [B, N] state, [B] round scalars
 
@@ -228,7 +238,7 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
     send = ((state.leader == ids)
             & (state.next_n < min(cfg.pbft_max_rounds, s))
             & state.alive)
-    slot_p1 = torch.where(send, state.next_n + 1, 0).amax(-1)  # 0 = none
+    slot_p1 = dv._pmax(torch.where(send, state.next_n + 1, 0).amax(-1), axis)  # 0 = none
     active = slot_p1 > 0
     rounds_sent = state.rounds_sent + send
     next_n = torch.where(send, state.next_n + 1, state.next_n)
@@ -240,28 +250,29 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
                     _NEVER),
         "amin", _NEVER)
 
-    u = threefry.randint(chan_key(tkey, Channel.VIEW_CHANGE), (n,), 0,
-                         cfg.pbft_view_change_den, dev)
+    u = threefry.randint(dv._shard_key(chan_key(tkey, Channel.VIEW_CHANGE), axis), (n_loc,),
+                         0, cfg.pbft_view_change_den, dev)
     trigger = send & (u < cfg.pbft_view_change_num)
-    any_trigger = trigger.any(-1)[..., None]
-    new_leader = torch.where(trigger, (state.leader + 1) % n, 0).amax(-1)[..., None]
+    any_trigger = dv._pmax(trigger.any(-1), axis)[..., None]
+    new_leader = dv._pmax(torch.where(trigger, (state.leader + 1) % n, 0).amax(-1),
+                          axis)[..., None]
     view_changes = state.view_changes + trigger
     v = torch.where(any_trigger, state.v + 1, state.v)
     leader = torch.where(any_trigger, new_leader, state.leader)
 
     # ---- B. PRE_PREPARE arrivals + PREPARE round trips ----------------------
     k_pp = chan_key(tkey, Channel.DELAY_BCAST2)
-    d_j = threefry.randint(k_pp, (n,), lo, hi, dev)
+    d_j = threefry.randint(dv._shard_key(k_pp, axis), (n_loc,), lo, hi, dev)
     recv = active[..., None] & state.alive & ~send & (t0 + ser + d_j < t_end)
     if drop > 0.0:
-        recv = recv & threefry.bernoulli(threefry.fold_in(k_pp, 0x0D0D),
-                                         1.0 - drop, (n,), dev)
+        recv = recv & threefry.bernoulli(dv._shard_key(threefry.fold_in(k_pp, 0x0D0D), axis),
+                                         1.0 - drop, (n_loc,), dev)
     voters = state.alive & state.honest
     vi = voters.to(_I32)
-    n_voters = vi.sum(-1, keepdim=True, dtype=_I32)
+    n_voters = dv._psum(vi.sum(-1, keepdim=True, dtype=_I32), axis)
     rt_counts = dv.roundtrip_reply_counts_stat(
         chan_key(tkey, Channel.DELAY_ROUNDTRIP), recv, n_voters - vi, rt_probs,
-        drop, mode=smode,
+        drop, axis=axis, mode=smode,
     )  # [B2, ..., N]: bucket k lands at t0 + ser + d_j + rt_lo + k
     rt_land = (t0 + ser + rt_lo + d_j[None] + _col(consts.rt_iota, d_j.ndim + 1)) < t_end
     rt_counts = rt_counts * rt_land.to(_I32)
@@ -275,15 +286,17 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
     oh_d = (d_j[None] == _col(consts.d_iota, d_j.ndim + 1)).to(_I32)  # [B1, ..., N]
     cs = commit_send.to(_I32)
     send_at = _shift_sum(cs[None] * oh_d[:, None], b1)  # [W_send, ..., N]
-    totals = send_at.sum(-1, keepdim=True, dtype=_I32)
+    totals = dv._psum(send_at.sum(-1, keepdim=True, dtype=_I32), axis)
     k_cm = chan_key(tkey, Channel.DELAY_BCAST)
     m_all = torch.where(state.alive[None], totals - send_at, 0)
     if lanes:  # the samplers take the lane axis first
         m_all = m_all.movedim(1, 0)
     if drop > 0.0:
-        m_all = torch.round(delay_ops.binom(threefry.fold_in(k_cm, 0x0D12), m_all,
-                                            1.0 - drop, smode)).to(_I32)
-    cnt_all = delay_ops.sample_bucket_counts(k_cm, m_all, ow_probs, smode)
+        m_all = torch.round(delay_ops.binom(
+            dv._shard_key(threefry.fold_in(k_cm, 0x0D12), axis), m_all,
+            1.0 - drop, smode)).to(_I32)
+    cnt_all = delay_ops.sample_bucket_counts(dv._shard_key(k_cm, axis), m_all, ow_probs,
+                                             smode)
     if lanes:
         cnt_all = cnt_all.movedim(1, 2)  # [B1, W_send, B, N]
     arrivals = _shift_sum(cnt_all, b1)  # [W_arr, ..., N]: bucket i lands at
@@ -293,14 +306,15 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
     crossed_c, n_cross_c = _crossing_loop(arrivals, cfg.pbft_commit_need, clean)
     first_commit = crossed_c.any(0) & active[..., None]
     block_num = state.block_num + torch.where(active[..., None], n_cross_c, 0)
-    last_tick = torch.where(crossed_c, arr_tick, -1).amax(dim=(0, -1))
-    n_first = first_commit.sum(-1, dtype=_I32)
+    last_tick = dv._pmax(torch.where(crossed_c, arr_tick, -1).amax(dim=(0, -1)), axis)
+    n_first = first_commit.sum(-1, dtype=_I32)  # this rank's; finalize sums them
     slot_commits = pbft_tick._scatter_drop(
         state.slot_commits, slot_idx,
         torch.where(active, n_first, 0)[..., None], "sum", 0)
     slot_commit_tick = pbft_tick._scatter_drop(
         state.slot_commit_tick, slot_idx,
-        torch.where(active & (n_first > 0), last_tick, -1)[..., None], "amax", -1)
+        torch.where(active & (dv._psum(n_first, axis) > 0), last_tick, -1)[..., None],
+        "amax", -1)
 
     return dataclasses.replace(
         state,

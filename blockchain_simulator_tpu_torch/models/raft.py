@@ -23,8 +23,11 @@ kregular overlay (every channel direct over the circulant tables of
 topo/spec.py through ops/gatherdeliv.py: broadcasts reach out-neighbours,
 replies gather back requester-side, the edge arm's ``vreq`` ring is
 ``[D, N, K]`` with the sender identity in the in-slot; equal to the full
-mesh at degree k = N-1).  ``mesh_axis`` raises ``NotImplementedError``
-naming slice 6.
+mesh at degree k = N-1).  Node-sharded (``mesh_axis`` set,
+parallel/shard.py): the state holds this rank's rows, sender-side
+quantities are globalized over the bound mesh (ops/delivery.py), and every
+host read whose branch holds a collective is agreed over the ranks; a
+branch with only local work (a re-armed timer's draw) reads its own rows.
 
 *Shards.*  ``init`` given lane keys ``[S, 2]`` builds ``S`` independent
 instances side by side, ``jax.vmap(raft.init)`` over the keys (the mixed
@@ -58,8 +61,8 @@ ring whose values are all >= 0 changes nothing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -124,22 +127,14 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(RaftState))
 BUF_FIELDS = tuple(f.name for f in dataclasses.fields(RaftBufs))
 
 
-def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the arms later slices bring."""
-    if cfg.mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh_axis (node-sharded runs) comes with slice 6 of the port "
-            "(many GPUs)"
-        )
-
-
-def init(cfg, key=None, *, device):
+def init(cfg, key=None, *, device, rows=None):
     """``(RaftState, RaftBufs)`` on ``device``.  The initial election
     timeouts U[election_lo, election_hi) are drawn from ``key``
     (``threefry.key(cfg.seed)`` when None); crashed nodes never start one.
     Lane keys ``[S, 2]`` give ``S`` shards (module docstring): state
-    ``[S, N, ...]``, rings ``[D, S, N, ...]``."""
-    require_ported(cfg)
+    ``[S, N, ...]``, rings ``[D, S, N, ...]``.  ``rows=(start, count)``
+    builds only those node rows (a rank's block of a sharded run), each
+    timeout the one the whole draw gives its row."""
     k = threefry.key(cfg.seed) if key is None else np.asarray(key, np.int64)
     sh = (len(k),) if k.ndim == 2 else ()
     if sh and (cfg.topology != "full" or cfg.queued_links):
@@ -148,9 +143,10 @@ def init(cfg, key=None, *, device):
             "links (the mixed shard sim's arms); gossip and queued links run "
             "one instance"
         )
-    n, d, b = cfg.n, cfg.ring_depth, cfg.raft_max_blocks
-    alive, honest = (m.expand(sh + (n,)).contiguous()
-                     for m in fault_masks(cfg, n, device))
+    d, b = cfg.ring_depth, cfg.raft_max_blocks
+    start, n = (0, cfg.n) if rows is None else rows
+    alive, honest = (m[start:start + n].expand(sh + (n,)).contiguous()
+                     for m in fault_masks(cfg, cfg.n, device))
 
     def zi(*dims):  # every state field gets the shard axis first
         return torch.zeros(sh + dims, dtype=_I32, device=device)
@@ -164,8 +160,11 @@ def init(cfg, key=None, *, device):
     def ring(*dims):  # slot-major: the shard axis after the slots
         return torch.zeros((d,) + sh + dims, dtype=_I32, device=device)
 
-    deadline = threefry.randint(threefry.fold_in(k, Channel.ELECTION), (n,),
-                                cfg.raft_election_lo_ms, cfg.raft_election_hi_ms, device)
+    with (contextlib.nullcontext() if rows is None
+          else threefry.row_view(-1, start, cfg.n)):
+        deadline = threefry.randint(threefry.fold_in(k, Channel.ELECTION), (n,),
+                                    cfg.raft_election_lo_ms, cfg.raft_election_hi_ms,
+                                    device)
     state = RaftState(
         is_leader=zb(n),
         has_voted=zb(n),
@@ -197,7 +196,7 @@ def init(cfg, key=None, *, device):
     elif cfg.topology == "kregular":
         vreq = ring(n, cfg.degree + 1)  # the in-slot, not a global column
     else:
-        vreq = ring(n, n)
+        vreq = ring(n, cfg.n)  # a column a sender
     bufs = RaftBufs(
         vreq=vreq,
         vres_ok=ring(n),
@@ -231,25 +230,26 @@ def push_members(cfg) -> tuple:
             ("hb_bad", "add", rt_hi - rt_lo, rt_lo + ser))
 
 
-@functools.lru_cache(maxsize=8)
-def _ids(n: int, device) -> torch.Tensor:
-    """Node ids on ``device``, made once per (size, device)."""
-    return dv._global_ids(n, None, device)
+def _rearm(cfg, tkey, channel: int, t, n_loc: int, device, axis=None):
+    """``t`` + a fresh election timeout per node, U[election_lo, election_hi)
+    (sharded: the rank's rows, on the shard's key)."""
+    with dv.draw_rows(axis):
+        return t + threefry.randint(dv._shard_key(chan_key(tkey, channel), axis), (n_loc,),
+                                    cfg.raft_election_lo_ms, cfg.raft_election_hi_ms,
+                                    device)
 
 
-def _rearm(cfg, tkey, channel: int, t, n: int, device):
-    """``t`` + a fresh election timeout per node, U[election_lo, election_hi)."""
-    return t + threefry.randint(chan_key(tkey, channel), (n,), cfg.raft_election_lo_ms,
-                                cfg.raft_election_hi_ms, device)
-
-
-def _reply_counts(grant_to, wire, has_req, n: int):
+def _reply_counts(grant_to, wire, has_req, n: int, axis=None):
     """Per-candidate reply counts: ``zeros(n).at[grant_to].add(wire)``, in
     each shard.  Rows with no request carry no wire, so they scatter into
-    one extra slot that is cut off."""
+    one extra slot that is cut off.  Sharded: summed over the ranks, each
+    keeping its candidates' rows."""
     idx = torch.where(has_req, grant_to, n).to(torch.int64)
     c = torch.zeros(wire.shape[:-1] + (n + 1,), dtype=_I32, device=wire.device)
-    return c.scatter_add_(-1, idx, wire.to(_I32))[..., :n]
+    c = c.scatter_add_(-1, idx, wire.to(_I32))[..., :n]
+    if axis is None:
+        return c
+    return dv._rank_rows(dv._psum(c, axis), wire.shape[-1], axis).contiguous()
 
 
 def _shut(gate, contrib):
@@ -269,9 +269,10 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     ``[S, 2]`` for a state with a shard axis (module docstring).  ``init``
     has checked that the config is ported.  ``topo_tables``: the kregular
     overlay's ``(in, out, inslot)`` tables when the caller holds them, else
-    the config's own; ``exchange`` (the sharded overlay's neighbour
-    exchange) raises."""
+    the config's own; ``exchange``: the sharded overlay's neighbour
+    exchange, whose tables are already this rank's rows."""
     n = cfg.n
+    axis = cfg.mesh_axis
     # shard form: the per-shard gate masks of _shut (None: one instance)
     sharded = state.is_leader.ndim == 2
 
@@ -288,7 +289,8 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     ow_probs = delay_ops.uniform_probs(lo, hi)
     rt_probs = delay_ops.roundtrip_probs(lo, hi)
     dev = state.is_leader.device
-    ids = _ids(n, dev)
+    n_loc = state.is_leader.shape[-1]
+    ids = dv._global_ids(n_loc, axis, dev)
     ser = cfg.serialization_ticks(cfg.raft_block_bytes)
     # queued links: with ser == 0 the pipe is never busy and queued equals
     # constant latency, so the plain path runs
@@ -324,6 +326,8 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     if gossip:
         h_enc = cfg.gossip_hops + 1
         nbrs = topology.neighbours(n, cfg.degree, cfg.seed, dev)
+        if axis is not None:
+            nbrs = nbrs.index_select(0, ids.to(torch.int64))
 
         def _decode(arr, seen):
             base, hops = arr // h_enc, arr % h_enc
@@ -340,10 +344,10 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     # requester-side (the inslot cross-index); a candidate only hears its
     # in-neighbours' votes, so elections need k >= majority_need - 1
     kreg = cfg.topology == "kregular"
-    gd._unsharded(None, exchange)
     if kreg:
-        nbr_in, nbr_out, inslot = gd.local_tables(cfg, None, inslot=True,
-                                                  tables=topo_tables, device=dev)
+        nbr_in, nbr_out, inslot = gd.local_tables(
+            cfg, None if axis is None or exchange is not None else ids, inslot=True,
+            tables=topo_tables, device=dev)
 
     # ---- heartbeat arrivals (follower side) ---------------------------------
     got_hb = (plain_t > 0) | (prop_t > 0)
@@ -356,7 +360,7 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     elif bool(got_hb.any()):
         # re-arm the election timer: real failure detection
         election_deadline = torch.where(
-            got_hb, _rearm(cfg, tkey, Channel.ELECTION, t, n, dev),
+            got_hb, _rearm(cfg, tkey, Channel.ELECTION, t, n_loc, dev, axis),
             state.election_deadline)
     else:
         election_deadline = state.election_deadline
@@ -371,8 +375,8 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
 
         def ack_pushes():
             k_ack = chan_key(tkey, Channel.DELAY_REPLY2)
-            mok = _reply_counts(ack_to, got_prop & honest & alive, got_prop, n)
-            mbad = _reply_counts(ack_to, got_prop & ~honest & alive, got_prop, n)
+            mok = _reply_counts(ack_to, got_prop & honest & alive, got_prop, n, axis)
+            mbad = _reply_counts(ack_to, got_prop & ~honest & alive, got_prop, n, axis)
             if drop > 0.0:
                 kd = threefry.fold_in(k_ack, 0x0D18)
                 mok = dv._thinned(kd, mok, 1.0 - drop, smode)
@@ -394,14 +398,14 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
         # candidate id rides the flood encoding
         grant_to = (vreq_t - 1) % n if gossip else vreq_t - 1
         has_req = (vreq_t > 0) & (grant_to != ids)
-        if bool(has_req.any()):
+        if dv.agree(has_req.any(), axis):
             if gossip:
                 # term-style release: the dedup register admits only strictly
                 # newer elections, so every processed request is a grant, and
                 # granting re-arms the election timeout (standard Raft)
                 grant = has_req & alive
                 election_deadline = torch.where(
-                    grant, _rearm(cfg, tkey, Channel.ELECTION + 300, t, n, dev),
+                    grant, _rearm(cfg, tkey, Channel.ELECTION + 300, t, n_loc, dev, axis),
                     election_deadline)
             else:
                 grant = has_req & can_grant
@@ -411,30 +415,35 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
             ok_wire = (grant & honest) | (deny & ~honest)
             no_wire = (deny & honest) | (grant & ~honest)
             if kreg:  # candidate c gathers the wires addressed to it
-                mok = gd.reply_counts_by_target_kreg(ok_wire, grant_to, nbr_out, ids)
-                mno = gd.reply_counts_by_target_kreg(no_wire, grant_to, nbr_out, ids)
+                mok = gd.reply_counts_by_target_kreg(ok_wire, grant_to, nbr_out, ids, axis,
+                                                     exchange)
+                mno = gd.reply_counts_by_target_kreg(no_wire, grant_to, nbr_out, ids, axis,
+                                                     exchange)
             else:
-                mok = _reply_counts(grant_to, ok_wire, has_req, n)
-                mno = _reply_counts(grant_to, no_wire, has_req, n)
-            if drop > 0.0:
-                kd = threefry.fold_in(k_vr, 0x0D17)
-                mok = dv._thinned(kd, mok, 1.0 - drop, smode)
-                mno = dv._thinned(threefry.fold_in(kd, 1), mno, 1.0 - drop, smode)
-            g = gate(has_req)
-            pushes.append((vres_ok, lo, _shut(g, dv.push_bucket_counts(
-                threefry.fold_in(k_vr, 7), mok, ow_probs, smode)), "add"))
-            pushes.append((vres_no, lo, _shut(g, dv.push_bucket_counts(
-                threefry.fold_in(k_vr, 8), mno, ow_probs, smode)), "add"))
+                mok = _reply_counts(grant_to, ok_wire, has_req, n, axis)
+                mno = _reply_counts(grant_to, no_wire, has_req, n, axis)
+            # the JAX step draws these counts with the tick's keys as they
+            # are (no rank folded in), at this rank's rows
+            with dv.draw_rows(axis):
+                if drop > 0.0:
+                    kd = threefry.fold_in(k_vr, 0x0D17)
+                    mok = dv._thinned(kd, mok, 1.0 - drop, smode)
+                    mno = dv._thinned(threefry.fold_in(kd, 1), mno, 1.0 - drop, smode)
+                g = gate(has_req)
+                pushes.append((vres_ok, lo, _shut(g, dv.push_bucket_counts(
+                    threefry.fold_in(k_vr, 7), mok, ow_probs, smode)), "add"))
+                pushes.append((vres_no, lo, _shut(g, dv.push_bucket_counts(
+                    threefry.fold_in(k_vr, 8), mno, ow_probs, smode)), "add"))
     else:
         # vreq_t[i, j] = 1 iff candidate j's request reaches i this tick (the
         # overlay: j is i's in-slot, rows sorted); concurrent same-tick
         # requests: the vote goes to the lowest id
         has_req = vreq_t > 0
         any_req = has_req.any(-1)
-        if bool(any_req.any()):
+        if dv.agree(any_req.any(), axis):
             first = has_req.to(torch.uint8).argmax(-1)  # lowest j with a request
             granting = any_req & can_grant
-            cols = _ids(vreq_t.shape[-1], dev)
+            cols = dv._global_ids(vreq_t.shape[-1], None, dev)
             grant_mask = ((cols == first[..., None]) & granting[..., None]).to(_I32)
             deny_mask = has_req.to(_I32) - grant_mask
             has_voted = has_voted | granting
@@ -446,8 +455,10 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
             def unicast(kk, wire):
                 if kreg:  # slot-indexed wires gather back through inslot
                     return gd.unicast_reply_counts_kreg(kk, wire, nbr_in, nbr_out, inslot,
-                                                        ids, lo, hi, drop, impl=eimpl)
-                return dv.unicast_reply_counts_dense(kk, wire, lo, hi, drop, impl=eimpl)
+                                                        ids, lo, hi, drop, axis=axis,
+                                                        impl=eimpl, xg=exchange)
+                return dv.unicast_reply_counts_dense(kk, wire, lo, hi, drop, axis=axis,
+                                                     impl=eimpl)
 
             pushes.append((vres_ok, lo, _shut(g, unicast(threefry.fold_in(k_vr, 7),
                                                          ok_wire)), "add"))
@@ -474,8 +485,8 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     if queued:
         # leadership changed: the new leader's links carry votes only, hence
         # are free; in-flight deliveries keep their ring slots
-        lead_prev = torch.where(state.is_leader & alive, ids, -1).amax()
-        lead_new = torch.where(is_leader & alive, ids, -1).amax()
+        lead_prev = dv._pmax(torch.where(state.is_leader & alive, ids, -1).amax(), axis)
+        lead_new = dv._pmax(torch.where(is_leader & alive, ids, -1).amax(), axis)
         link_busy = torch.where(lead_new != lead_prev, 0, link_busy)
 
     # ---- gossip: leader step-down on a newer election (see my_base) ---------
@@ -490,7 +501,7 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
             proposal_tick = torch.where(resign, DISARM, proposal_tick)
             # back to follower: re-arm the election timer
             election_deadline = torch.where(
-                resign, _rearm(cfg, tkey, Channel.ELECTION + 200, t, n, dev),
+                resign, _rearm(cfg, tkey, Channel.ELECTION + 200, t, n_loc, dev, axis),
                 election_deadline)
             # a resigned leader abandons its open ack window
             hb_succ_in = torch.where(resign, 0, hb_succ_in)
@@ -525,47 +536,7 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     if not gossip:
         next_hb = torch.where(block_num >= b_max, DISARM, next_hb)
 
-    # ---- timer: sendVote ----------------------------------------------------
-    fire = (t >= election_deadline) & (election_deadline != DISARM) & ~is_leader & alive
-    elections = state.elections
-    my_base = state.my_base
-    k_vq = chan_key(tkey, Channel.DELAY_BCAST)
-    floods = []  # gossip: (ring, lo, key, out value) of the tick's floods
-    if bool(fire.any()):
-        has_voted = has_voted | fire  # self-vote latch
-        election_deadline = torch.where(
-            fire, _rearm(cfg, tkey, Channel.ELECTION + 100, t, n, dev), election_deadline)
-        elections = elections + fire
-        fire_i = fire.to(_I32)
-        if gossip:
-            # a fresh election restarts the reply count (stale replies
-            # drained long ago: reply horizon << timeout)
-            vote_success = torch.where(fire, 0, vote_success)
-            vote_failed = torch.where(fire, 0, vote_failed)
-            # flood origin: full TTL, marked seen so the self-loop copy is
-            # inert; the candidate backs its own (newest) election
-            base_v = ((t + 1) * n + ids + 1) * fire_i
-            origin_v = (base_v * h_enc + cfg.gossip_hops) * (base_v > 0)
-            seen_vreq = torch.maximum(seen_vreq, origin_v)
-            my_base = torch.maximum(my_base, base_v)
-            vreq_fwd = torch.maximum(origin_v, vreq_fwd)
-        elif stat:
-            vq_contrib = (gd.bcast_value_max_stat_kreg(k_vq, (ids + 1) * fire_i, nbr_in,
-                                                       ow_probs, drop)
-                          if kreg else
-                          dv.bcast_value_max_stat(k_vq, (ids + 1) * fire_i, ow_probs, drop))
-        else:
-            vq_contrib = (gd.bcast_matrix_kreg(k_vq, fire, fire_i, nbr_in, ids, lo, hi, drop,
-                                               impl=eimpl)
-                          if kreg else
-                          dv.bcast_matrix_dense(k_vq, fire, fire_i, lo, hi, drop,
-                                                impl=eimpl))
-        if not gossip:
-            pushes.append((vreq, lo, _shut(gate(fire), vq_contrib), "max"))
-    if gossip:
-        floods.append((vreq, lo, k_vq, vreq_fwd))
-
-    # ---- timer: sendHeartBeat -----------------------------------------------
+    # ---- timer: sendHeartBeat (state first; its gates read with sendVote's) -
     hb_fire = is_leader & (t >= next_hb) & (next_hb != DISARM) & alive
     # setProposal fires exactly once; round == max clears add_change_value
     set_prop = (t >= proposal_tick) & (proposal_tick != DISARM)
@@ -585,12 +556,57 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
         hb_cnt = torch.where(prop_send, 0, hb_cnt)
         hb_open = hb_open | prop_send
 
+    # ---- timer: sendVote ----------------------------------------------------
+    fire = (t >= election_deadline) & (election_deadline != DISARM) & ~is_leader & alive
+    elections = state.elections
+    my_base = state.my_base
+    k_vq = chan_key(tkey, Channel.DELAY_BCAST)
+    floods = []  # gossip: (ring, lo, key, out value) of the tick's floods
+    if gossip:
+        fire_on = dv.agree(fire.any(), axis)
+    else:  # the election's and the heartbeats' gates in one host read (agreed)
+        fire_on, any_plain, any_prop = dv._pmax(
+            torch.stack([fire.any(), plain_send.any(), prop_send.any()]), axis).tolist()
+    if fire_on:
+        has_voted = has_voted | fire  # self-vote latch
+        election_deadline = torch.where(
+            fire, _rearm(cfg, tkey, Channel.ELECTION + 100, t, n_loc, dev, axis),
+            election_deadline)
+        elections = elections + fire
+        fire_i = fire.to(_I32)
+        if gossip:
+            # a fresh election restarts the reply count (stale replies
+            # drained long ago: reply horizon << timeout)
+            vote_success = torch.where(fire, 0, vote_success)
+            vote_failed = torch.where(fire, 0, vote_failed)
+            # flood origin: full TTL, marked seen so the self-loop copy is
+            # inert; the candidate backs its own (newest) election
+            base_v = ((t + 1) * n + ids + 1) * fire_i
+            origin_v = (base_v * h_enc + cfg.gossip_hops) * (base_v > 0)
+            seen_vreq = torch.maximum(seen_vreq, origin_v)
+            my_base = torch.maximum(my_base, base_v)
+            vreq_fwd = torch.maximum(origin_v, vreq_fwd)
+        elif stat:
+            vq_contrib = (gd.bcast_value_max_stat_kreg(k_vq, (ids + 1) * fire_i, nbr_in,
+                                                       ow_probs, drop, axis=axis, xg=exchange)
+                          if kreg else
+                          dv.bcast_value_max_stat(k_vq, (ids + 1) * fire_i, ow_probs, drop,
+                                                  axis=axis))
+        else:
+            vq_contrib = (gd.bcast_matrix_kreg(k_vq, fire, fire_i, nbr_in, ids, lo, hi, drop,
+                                               axis=axis, impl=eimpl, xg=exchange)
+                          if kreg else
+                          dv.bcast_matrix_dense(k_vq, fire, fire_i, lo, hi, drop, axis=axis,
+                                                impl=eimpl))
+        if not gossip:
+            pushes.append((vreq, lo, _shut(gate(fire), vq_contrib), "max"))
+    if gossip:
+        floods.append((vreq, lo, k_vq, vreq_fwd))
+
     k_hb = chan_key(tkey, Channel.DELAY_BCAST2)
     k_rt = chan_key(tkey, Channel.DELAY_ROUNDTRIP)
     voters = alive & honest
     liars = alive & ~honest
-    if not gossip:
-        any_plain, any_prop = torch.stack([plain_send.any(), prop_send.any()]).tolist()
     if gossip:
         # plain heartbeats flood with the tick as the monotone base; proposals
         # carry the block, re-serialized on every hop (store-and-forward)
@@ -604,13 +620,14 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
         seen_prop = torch.maximum(seen_prop, origin_p)
         floods.append((hb_prop, lo + ser, threefry.fold_in(k_hb, 3),
                        torch.maximum(origin_p, prop_fwd)))
-        # the floods' and the acks' gates in one host read
-        *flood_on, any_ack = torch.stack(
-            [out.any() for *_, out in floods] + [got_prop.any()]).tolist()
+        # the floods' and the acks' gates in one host read (agreed)
+        *flood_on, any_ack = dv._pmax(torch.stack(
+            [out.any() for *_, out in floods] + [got_prop.any()]), axis).tolist()
         for (ring, off, key, out), on in zip(floods, flood_on):
             if on:
                 pushes.append((ring, off, dv.gossip_fwd(key, out[:, None], nbrs, n, lo,
-                                                        hi, drop, impl=eimpl)[:, :, 0],
+                                                        hi, drop, axis=axis,
+                                                        impl=eimpl)[:, :, 0],
                                "max"))
         if any_ack:
             pushes += ack_pushes()
@@ -618,23 +635,25 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
         if any_plain or any_prop:
             link_busy = _queued_sends(cfg, prop_send, plain_send, any_prop, voters, liars,
                                       ids, link_busy, hb_prop, hb_plain, hb_ok, hb_bad,
-                                      t, k_hb, k_rt)
+                                      t, k_hb, k_rt, axis)
     else:
         if any_plain:
             # the stat mode stays exact: this channel has O(1) senders (the leader)
             if kreg:
                 plain_contrib = (
                     gd.bcast_counts_stat_kreg(k_hb, plain_send, nbr_in, ids, ow_probs, drop,
-                                              mode="exact")
+                                              axis=axis, mode="exact", xg=exchange)
                     if stat else
                     gd.bcast_counts_kreg(k_hb, plain_send, nbr_in, ids, lo, hi, drop,
-                                         impl=eimpl))
+                                         axis=axis, impl=eimpl, xg=exchange))
             else:
                 plain_contrib = (
-                    dv.bcast_counts_stat(k_hb, plain_send.sum(-1, keepdim=True, dtype=_I32),
-                                         plain_send, ow_probs, drop, mode="exact")
+                    dv.bcast_counts_stat(
+                        k_hb, dv._psum(plain_send.sum(-1, keepdim=True, dtype=_I32), axis),
+                        plain_send, ow_probs, drop, axis=axis, mode="exact")
                     if stat else
-                    dv.bcast_counts_dense(k_hb, plain_send, lo, hi, drop, impl=eimpl))
+                    dv.bcast_counts_dense(k_hb, plain_send, lo, hi, drop, axis=axis,
+                                          impl=eimpl))
             pushes.append((hb_plain, lo, _shut(gate(plain_send), plain_contrib), "add"))
         if any_prop:
             g = gate(prop_send)
@@ -642,15 +661,16 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
             value = (ids + 1) * prop_send.to(_I32)
             if kreg:
                 prop_contrib = (
-                    gd.bcast_value_max_stat_kreg(k_p, value, nbr_in, ow_probs, drop)
+                    gd.bcast_value_max_stat_kreg(k_p, value, nbr_in, ow_probs, drop,
+                                                 axis=axis, xg=exchange)
                     if stat else
                     gd.bcast_value_max_kreg(k_p, prop_send, value, nbr_in, ids, lo, hi, drop,
-                                            impl=eimpl))
+                                            axis=axis, impl=eimpl, xg=exchange))
             else:
                 prop_contrib = (
-                    dv.bcast_value_max_stat(k_p, value, ow_probs, drop) if stat else
-                    dv.bcast_value_max_dense(k_p, prop_send, value, lo, hi, drop,
-                                             impl=eimpl))
+                    dv.bcast_value_max_stat(k_p, value, ow_probs, drop, axis=axis) if stat
+                    else dv.bcast_value_max_dense(k_p, prop_send, value, lo, hi, drop,
+                                                  axis=axis, impl=eimpl))
             pushes.append((hb_prop, lo + ser, _shut(g, prop_contrib), "max"))
             # proposal acks: follower state never affects the SUCCESS reply, so
             # the round trip is short-circuited; Byzantine followers flip to
@@ -661,23 +681,26 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
                 # out-table gathers (equal at k = N-1, same keys and chain)
                 def peer_counts(peers):
                     if kreg:
-                        return gd.out_counts(peers, nbr_out, ids)
+                        return gd.out_counts(peers, nbr_out, ids, axis, exchange)
                     peers_i = peers.to(_I32)
-                    return peers_i.sum(-1, keepdim=True, dtype=_I32) - peers_i
+                    return dv._psum(peers_i.sum(-1, keepdim=True, dtype=_I32), axis) - peers_i
 
                 ok_counts = dv.push_roundtrip_reply_counts_stat(
-                    k_rt, prop_send, peer_counts(voters), rt_probs, drop, mode=smode)
+                    k_rt, prop_send, peer_counts(voters), rt_probs, drop, axis=axis,
+                    mode=smode)
                 bad_counts = (dv.push_roundtrip_reply_counts_stat(
-                    k_bad, prop_send, peer_counts(liars), rt_probs, drop, mode=smode)
+                    k_bad, prop_send, peer_counts(liars), rt_probs, drop, axis=axis,
+                    mode=smode)
                     if liars_exist else None)
             else:
                 def acks(kk, peers):
                     if kreg:
                         return gd.roundtrip_reply_counts_kreg(
                             kk, prop_send, nbr_out, ids, lo, hi, drop, peer_mask=peers,
-                            impl=eimpl)
+                            axis=axis, impl=eimpl, xg=exchange)
                     return dv.roundtrip_reply_counts_dense(
-                        kk, prop_send, lo, hi, drop, peer_mask=peers, impl=eimpl)
+                        kk, prop_send, lo, hi, drop, peer_mask=peers, axis=axis,
+                        impl=eimpl)
 
                 ok_counts = acks(k_rt, voters)
                 bad_counts = acks(k_bad, liars) if liars_exist else None
@@ -717,7 +740,7 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
 
 
 def _queued_sends(cfg, prop_send, plain_send, any_prop, voters, liars, ids, link_busy,
-                  hb_prop, hb_plain, hb_ok, hb_bad, t, k_hb, k_rt):
+                  hb_prop, hb_plain, hb_ok, hb_bad, t, k_hb, k_rt, axis=None):
     """Serial-pipe send (the C++ engine's link_enqueue) of this tick's
     heartbeat: the packet reaches the (leader -> j) link after its scheduling
     delay ``d_j - prop``, transmits when the link frees (a proposal occupies
@@ -727,35 +750,44 @@ def _queued_sends(cfg, prop_send, plain_send, any_prop, voters, liars, ids, link
     nothing is pointed at row 0 with the identity value (0, which leaves a
     ring of values >= 0 unchanged under add and max).  Each follower's ack
     departs at its delivery tick over a link that is never busy and lands in
-    the leader's column.  Returns the new ``link_busy``."""
+    the leader's column.  Returns the new ``link_busy``.  Sharded: the
+    sender scalars are MAX-reduced, the rows are this rank's columns, and
+    the leader's ack histograms are summed over the ranks into its column
+    on the rank that owns it."""
     lo, hi = cfg.one_way_range()
     ser = cfg.serialization_ticks(cfg.raft_block_bytes)
     prop_ms = cfg.link_delay_ms
     dev = ids.device
     n = ids.shape[0]
-    prop_val = torch.where(prop_send, ids + 1, 0).amax()
-    plain_on = plain_send.to(_I32).amax()
-    sender = torch.where(prop_send | plain_send, ids, -1).amax()
+    prop_val = dv._pmax(torch.where(prop_send, ids + 1, 0).amax(), axis)
+    plain_on = dv._pmax(plain_send.to(_I32).amax(), axis)
+    sender = dv._pmax(torch.where(prop_send | plain_send, ids, -1).amax(), axis)
     dest = ids != sender  # a sender exists this tick; crashed peers still
     # reserve the pipe (the reservation is sender-side)
-    d_j = threefry.randint(threefry.fold_in(k_hb, 7), (n,), lo, hi, dev)
+    d_j = threefry.randint(dv._shard_key(threefry.fold_in(k_hb, 7), axis), (n,), lo, hi,
+                           dev)
     ser_s = torch.where(prop_val > 0, ser, 0)
     start = torch.maximum(t + d_j - prop_ms, link_busy)
     delivery = start + ser_s + prop_ms
     link_busy = torch.where(dest, start + ser_s, link_busy)
     dd = hb_prop.shape[0]
-    flat = torch.where(dest, delivery % dd, 0).to(torch.int64) * n + ids
+    cols = (ids - ids[0]).to(torch.int64)  # this rank's ring columns
+    flat = torch.where(dest, delivery % dd, 0).to(torch.int64) * n + cols
     hb_prop.view(-1).scatter_reduce_(0, flat, torch.where(dest, prop_val, 0), "amax")
     hb_plain.view(-1).scatter_add_(0, flat, (dest & (plain_on > 0)).to(_I32))
     if any_prop:
-        d2 = threefry.randint(threefry.fold_in(k_rt, 9), (n,), lo, hi, dev)
+        d2 = threefry.randint(dv._shard_key(threefry.fold_in(k_rt, 9), axis), (n,), lo, hi,
+                              dev)
         ack_slot = torch.remainder(delivery + d2, dd)
-        col = sender.reshape(1).to(torch.int64)  # the single leader's column
+        col = (sender - ids[0]).reshape(1).to(torch.int64)  # the single leader's column
+        owned = bool(((col >= 0) & (col < n)).item()) if axis is not None else True
         for ring, peers in ((hb_ok, voters), (hb_bad, liars)):
             hist = torch.zeros((dd + 1,), dtype=_I32, device=dev)
             hist.scatter_add_(0, torch.where(dest & peers, ack_slot, dd).to(torch.int64),
                               torch.ones_like(ids))
-            ring.index_add_(1, col, hist[:dd, None])
+            hist = dv._psum(hist, axis)
+            if owned:
+                ring.index_add_(1, col, hist[:dd, None])
     return link_busy
 
 

@@ -40,6 +40,13 @@ that is its whole time, on the card the device may still be working, and
 the caller's next sync (``runner.final_state``'s) waits for it.  Neither
 counter adds a sync of its own.
 
+Node-sharded (``cfg.mesh_axis`` set, parallel/shard.py): the prefix runs
+on the sharded tick engine, and the handoff's leader scalars are
+all-reduced (SUM for the counts, MAX for the leader row's values) before
+the one host read, so every rank reads the same check and takes the same
+arm; the scan is replicated O(1) work, and :func:`materialize` writes each
+rank's own rows.
+
 The documented divergence of the JAX path carries over unchanged: when
 replication completes inside the window, this path ends at completion,
 while the tick engine churns elections afterwards (the ``elections`` metric
@@ -58,6 +65,7 @@ import torch
 from blockchain_simulator_tpu_torch.models import raft as raft_tick
 from blockchain_simulator_tpu_torch.models.base import stack_samples, tick_loop
 from blockchain_simulator_tpu_torch.ops import delay as delay_ops
+from blockchain_simulator_tpu_torch.ops import delivery as dv
 from blockchain_simulator_tpu_torch.utils import prng, threefry
 from blockchain_simulator_tpu_torch.utils.prng import Channel, chan_key
 
@@ -137,11 +145,15 @@ def handoff(cfg, state):
     """The checked handoff in every shard of a post-prefix ``[S, m]``
     tick-engine state: ``jax.vmap`` of the JAX check.  The ``[S, 8]`` check
     values are read to the host in one copy.  Returns ``(ok, Handoff)``,
-    ``ok`` a host bool array ``[S]``."""
+    ``ok`` a host bool array ``[S]``.  Sharded (``cfg.mesh_axis``), the
+    counts are summed and the leader-row values max-reduced over the ranks
+    first, so every rank reads the same values."""
+    axis = cfg.mesh_axis
     t_e = prefix_ticks(cfg)
     hb = cfg.raft_heartbeat_ms
     rt_hi = cfg.roundtrip_range()[1]
-    ids = raft_tick._ids(cfg.n, state.is_leader.device)
+    n_loc = state.is_leader.shape[-1]
+    ids = dv._global_ids(n_loc, axis, state.is_leader.device)
     lead_mask = state.is_leader & state.alive
     voters = (state.alive & state.honest).to(_I32)
 
@@ -149,16 +161,18 @@ def handoff(cfg, state):
         """Leader-row value (max over the leader set, a singleton when ok)."""
         return torch.where(lead_mask, x.to(_I32), fill).amax(-1)
 
-    vals = torch.stack([
-        lead_mask.sum(-1, dtype=_I32),
+    sums = dv._psum(torch.stack([lead_mask.sum(-1, dtype=_I32),
+                                 voters.sum(-1, dtype=_I32)], dim=1), axis)
+    maxes = dv._pmax(torch.stack([
         torch.where(lead_mask, ids, -1).amax(-1),
         lval(state.next_hb, -1),
         lval(state.proposal_tick, -1),
         lval(state.block_num, 0),
         lval(state.round, 0),
         lval(state.leader_tick, -1),
-        voters.sum(-1, dtype=_I32) - lval(voters, 0),
-    ], dim=1)
+        lval(voters, 0),
+    ], dim=1), axis)
+    vals = torch.cat([sums[:, :1], maxes[:, :6], sums[:, 1:] - maxes[:, 6:]], dim=1)
     host = vals.cpu().numpy().astype(np.int64)  # the run's one host read
     n_leaders, hb0, p_start, lead_tick = host[:, 0], host[:, 2], host[:, 3], host[:, 6]
     ok = (
@@ -170,7 +184,7 @@ def handoff(cfg, state):
         # waves may be in flight in the rings the scan would discard
         & (p_start != DISARM)
     )
-    row = torch.where(lead_mask[..., None], state.block_tick, -1).amax(-2)
+    row = dv._pmax(torch.where(lead_mask[..., None], state.block_tick, -1).amax(-2), axis)
     return ok, Handoff(lead=vals[:, 1], hb0=hb0, p_start=vals[:, 3], bn0=vals[:, 4],
                        rnd0=vals[:, 5], bt0=row, ok_cnt=vals[:, 7].to(torch.float32))
 
@@ -294,7 +308,8 @@ def materialize(cfg, state, h: Handoff, scan_out):
     stored value.  Tensor ops on the state's device (no host read)."""
     hs, open_, bn, rnd, add_on, stopped, bt = (x[:, None] for x in scan_out)
     lead = h.lead[:, None]
-    onehot = raft_tick._ids(cfg.n, state.is_leader.device) == lead
+    n_loc = state.is_leader.shape[-1]
+    onehot = dv._global_ids(n_loc, cfg.mesh_axis, state.is_leader.device) == lead
     return dataclasses.replace(
         state,
         block_num=torch.where(onehot, bn, state.block_num),

@@ -17,8 +17,8 @@ does.  The round path and the heartbeat scan push nothing.
 
 Registry discipline (utils/aotcache.py): the probed programs are their own
 ``consobs-*`` entries keyed ``(cfg, pcfg, ...)`` and the disarmed entries
-are untouched.  The mesh twin (``probed_mesh_fn``) comes with the many-GPU
-slice.
+are untouched.  The mesh twin (``probed_mesh_fn``) comes with the sweep
+axis of the port (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -188,9 +188,10 @@ def probed_batched_fn(cfg, pcfg: schema.ProbeConfig, multi_seed: bool = False):
 
 
 def probed_mesh_fn(cfg, pcfg: schema.ProbeConfig, mesh):
-    """The armed twin of the sweeps' mesh program: comes with slice 6 of the
-    port (many GPUs; ROADMAP.md queue A item 6)."""
+    """The armed twin of the sweeps' mesh program: comes with the sweep axis
+    of the port (ROADMAP.md queue A item 7)."""
+    from blockchain_simulator_tpu_torch.parallel.mesh import SWEEP_AXIS_ITEM
+
     del cfg, pcfg
     raise NotImplementedError(
-        f"probed_mesh_fn over a device mesh ({mesh!r}) comes with slice 6 of the port "
-        "(many GPUs; ROADMAP.md queue A item 6)")
+        f"probed_mesh_fn over a device mesh ({mesh!r}) comes with {SWEEP_AXIS_ITEM}")

@@ -9,9 +9,15 @@ materialising edges.  Every output is bit-equal to the JAX function on the
 same key.
 
 Senders never deliver to themselves; ``send`` masks are already fault-masked
-by the caller; ``drop_prob`` models lossy edges.  The JAX functions take a
-mesh ``axis`` for sharded runs; the port is single-device in this slice and
-raises on a non-None axis (sharding comes with the many-GPU slice).
+by the caller; ``drop_prob`` models lossy edges.
+
+SPMD: every function takes ``axis``, the name of the mesh axis the node
+dimension is sharded over (None: unsharded).  Sharded, the receiver rows
+stay local while sender-side quantities are globalized with the bound
+mesh's collectives (parallel/mesh.py: all_gather for masks and values,
+all_reduce SUM / MAX for totals), and every draw uses the shard's key (the
+rank folded in), at the shard's shape: the JAX function inside
+``shard_map``, bit for bit.
 
 The JAX package's ``push_*`` functions sample and combine each bucket straight
 into its ring slice; here they return the stacked contribution instead, which
@@ -27,6 +33,9 @@ run over the trailing node axes, so one code serves both forms.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
@@ -40,24 +49,76 @@ from blockchain_simulator_tpu_torch.utils import threefry, xla_math
 _I32 = torch.int32
 
 
-def _unsharded(axis):
-    if axis is not None:
-        raise NotImplementedError(
-            f"sharded delivery (axis={axis!r}) comes with the many-GPU slice "
-            "of the port; run unsharded (mesh_axis=None)"
-        )
+def mesh_of(axis):
+    """The mesh ``axis`` names (parallel/mesh.bound)."""
+    from blockchain_simulator_tpu_torch.parallel.mesh import bound
+
+    return bound(axis)
 
 
 def _shard_key(key, axis):
-    """The key a shard samples with (unsharded: the key itself)."""
-    _unsharded(axis)
-    return key
+    """Decorrelate per-shard sampling: each edge is drawn once, by the
+    shard that consumes it (unsharded, or a mesh in global view: the key
+    itself)."""
+    if axis is None:
+        return key
+    mesh = mesh_of(axis)
+    return key if mesh.n_glob is not None else threefry.fold_in(key, mesh.rank)
+
+
+def draw_rows(axis, dim: int = -1):
+    """The context a node-row draw runs in: on a mesh in global view
+    (parallel/mesh.NodeMesh.global_view), the draw's ``dim`` (counted from
+    the end) is this rank's block of the global node axis, and the rank
+    draws exactly those rows of the single-device draw
+    (utils/threefry.row_view); otherwise nothing changes."""
+    if axis is None or mesh_of(axis).n_glob is None:
+        return contextlib.nullcontext()
+    mesh = mesh_of(axis)
+    return threefry.row_view(dim, mesh.rows(mesh.n_glob)[0], mesh.n_glob)
+
+
+def _gather(x, axis):
+    """Local ``[n_loc, ...]`` -> global ``[N, ...]`` along the node axis."""
+    return x if axis is None else mesh_of(axis).all_gather(x)
+
+
+def _psum(x, axis):
+    return x if axis is None else mesh_of(axis).psum(x)
+
+
+def _pmax(x, axis):
+    return x if axis is None else mesh_of(axis).pmax(x)
+
+
+def _pmin(x, axis):
+    return x if axis is None else mesh_of(axis).pmin(x)
+
+
+def agree(pred, axis) -> bool:
+    """A host-read gate predicate, agreed over the mesh (MAX) when sharded,
+    so that every rank takes the same branch."""
+    return bool(pred) if axis is None else mesh_of(axis).agree(pred)
+
+
+def _rank_rows(x, n_loc: int, axis, dim: int = -1):
+    """This shard's block of a global node axis ``dim`` (unsharded: ``x``)."""
+    if axis is None:
+        return x
+    return x.narrow(dim, mesh_of(axis).row_base(n_loc), n_loc)
 
 
 def _global_ids(n_loc: int, axis, device):
-    """Global node ids of this shard's rows (unsharded: ``arange(n)``)."""
-    _unsharded(axis)
-    return torch.arange(n_loc, dtype=_I32, device=device)
+    """Global node ids of this shard's rows (unsharded: ``arange(n)``),
+    made once per (rows, device): callers only read them."""
+    base = 0 if axis is None else mesh_of(axis).row_base(n_loc)
+    return row_ids(int(n_loc), base, torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def row_ids(n: int, base: int, device) -> torch.Tensor:
+    """Node ids ``base .. base + n - 1`` (int32) on ``device``, made once."""
+    return torch.arange(base, base + n, dtype=_I32, device=device)
 
 
 def _bucket_iota(lo: int, hi: int, ndim: int, device):
@@ -69,20 +130,25 @@ def _bucket_iota(lo: int, hi: int, ndim: int, device):
 
 def _edge_hits(key, send, lo: int, hi: int, drop_prob: float = 0.0, axis=None,
                send_global=None, impl: str = "threefry"):
-    """[B, N_send, N_recv] 0/1 int32 delivery indicators, self-edges
-    removed.  ``send_global`` lets callers reuse an already-reduced sender
-    mask; ``impl`` selects the per-edge bit source."""
-    _unsharded(axis)
+    """[B, N_send_global, N_recv_local] 0/1 int32 delivery indicators,
+    self-edges removed.  Delays are drawn receiver-side (each edge's delay
+    is consumed by one shard).  ``send_global`` lets callers reuse an
+    already-gathered sender mask; ``impl`` selects the per-edge bit
+    source."""
     dev = send.device
-    n = send.shape[-1]
-    send_g = send if send_global is None else send_global
-    d = sample_edge_delays(key, (n, n), lo, hi, dev, impl)
-    ids = torch.arange(n, device=dev)
-    notself = ids[:, None] != ids[None, :]
+    n_loc = send.shape[-1]
+    send_g = _gather(send, axis) if send_global is None else send_global
+    n_glob = send_g.shape[-1]
+    k = _shard_key(key, axis)
+    with draw_rows(axis, -1):
+        d = sample_edge_delays(k, (n_glob, n_loc), lo, hi, dev, impl)
+    notself = (torch.arange(n_glob, device=dev)[:, None]
+               != _global_ids(n_loc, axis, dev)[None, :])
     mask = send_g.to(_I32)[..., :, None] * notself.to(_I32)
     if drop_prob > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(key, 0x0D0D),
-                                  1.0 - drop_prob, (n, n), dev)
+        with draw_rows(axis, -1):
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0D),
+                                      1.0 - drop_prob, (n_glob, n_loc), dev)
         mask = mask * keep.to(_I32)
     return (d[None] == _bucket_iota(lo, hi, d.ndim, dev)).to(_I32) * mask[None]
 
@@ -98,7 +164,7 @@ def bcast_value_max_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
     """Broadcast of a per-sender value (>0; 0 = empty), max-combined at the
     receiver.  Returns [B, N]."""
     hits = _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl)
-    return (hits * value.to(_I32)[None, ..., None]).amax(-2)
+    return (hits * _gather(value, axis).to(_I32)[None, ..., None]).amax(-2)
 
 
 def bcast_slots_dense(key, slot_mat, lo, hi, drop_prob=0.0, axis=None,
@@ -112,10 +178,11 @@ def bcast_slots_dense(key, slot_mat, lo, hi, drop_prob=0.0, axis=None,
     2**31 (a count is at most n * byz_copies), and float64 holds integers
     exactly to 2**53.  TF32 applies to float32 only, so no process-wide
     matmul flag matters here."""
-    slot_g = slot_mat.to(_I32)
-    send = slot_g.amax(1) > 0
-    hits = _edge_hits(key, send, lo, hi, drop_prob, axis, send_global=send,
-                      impl=impl)  # [B, N_send, N_recv] 0/1
+    slot_g = _gather(slot_mat.to(_I32), axis)
+    send = slot_mat.amax(1) > 0
+    hits = _edge_hits(key, send, lo, hi, drop_prob, axis,
+                      send_global=slot_g.amax(1) > 0,
+                      impl=impl)  # [B, N_send_global, N_recv] 0/1
     prod = torch.matmul(hits.transpose(1, 2).to(torch.float64),
                         slot_g.to(torch.float64))
     return prod.to(_I32)
@@ -130,10 +197,10 @@ def bcast_window_value_max_dense(key, value_mat, lo, hi, drop_prob=0.0, axis=Non
     The JAX form materialises ``[B, N, N, W]`` (768 MB of int32 at n = 1000,
     W = 64); this reduces one window at a time over ``[B, N, N]`` instead —
     the same max."""
-    vm = value_mat.to(_I32)  # [N_send, W]
-    send = vm.amax(1) > 0
-    hits = _edge_hits(key, send, lo, hi, drop_prob, axis, send_global=send,
-                      impl=impl)  # [B, N_send, N_recv] 0/1
+    vm = _gather(value_mat.to(_I32), axis)  # [N_send_global, W]
+    send = value_mat.amax(1) > 0
+    hits = _edge_hits(key, send, lo, hi, drop_prob, axis, send_global=vm.amax(1) > 0,
+                      impl=impl)  # [B, N_send_global, N_recv] 0/1
     b, n, w = hits.shape[0], hits.shape[2], vm.shape[1]
     out = torch.empty((b, n, w), dtype=_I32, device=vm.device)
     for wi in range(w):
@@ -146,22 +213,29 @@ def roundtrip_reply_counts_dense(key, send, lo, hi, drop_prob=0.0, peer_mask=Non
     """Short-circuited request/reply round trip: sender i broadcasts, every
     peer (``peer_mask``) replies at once, the reply travels back with an
     independent delay.  Returns reply counts at the original sender:
-    [B2, N], offset 2*lo, B2 = 2*(hi-lo)-1."""
-    _unsharded(axis)
+    [B2, N], offset 2*lo, B2 = 2*(hi-lo)-1.  Sharded, the sender consumes
+    both legs' delays, so they are drawn sender-side over the gathered peer
+    axis."""
     dev = send.device
-    n = send.shape[-1]
-    peers = torch.ones((n,), dtype=torch.bool, device=dev) if peer_mask is None else peer_mask
-    d1 = sample_edge_delays(threefry.fold_in(key, 1), (n, n), lo, hi, dev, impl)
-    d2 = sample_edge_delays(threefry.fold_in(key, 2), (n, n), lo, hi, dev, impl)
+    n_loc = send.shape[-1]
+    peers = (torch.ones((n_loc,), dtype=torch.bool, device=dev) if peer_mask is None
+             else peer_mask)
+    peers_g = _gather(peers, axis)
+    n_glob = peers_g.shape[-1]
+    k = _shard_key(key, axis)
+    with draw_rows(axis, -2):
+        d1 = sample_edge_delays(threefry.fold_in(k, 1), (n_loc, n_glob), lo, hi, dev, impl)
+        d2 = sample_edge_delays(threefry.fold_in(k, 2), (n_loc, n_glob), lo, hi, dev, impl)
     total = d1 + d2  # delay until the reply reaches the sender
-    ids = torch.arange(n, device=dev)
-    notself = ids[:, None] != ids[None, :]
+    notself = (_global_ids(n_loc, axis, dev)[:, None]
+               != torch.arange(n_glob, device=dev)[None, :])
     mask = (send.to(_I32)[..., :, None] * notself.to(_I32)
-            * peers.to(_I32)[..., None, :])
+            * peers_g.to(_I32)[..., None, :])
     if drop_prob > 0.0:
         # either leg can drop
-        keep = threefry.bernoulli(threefry.fold_in(key, 0x0D0E),
-                                  (1.0 - drop_prob) ** 2, (n, n), dev)
+        with draw_rows(axis, -2):
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0E),
+                                      (1.0 - drop_prob) ** 2, (n_loc, n_glob), dev)
         mask = mask * keep.to(_I32)
     lo2 = 2 * lo
     nb = 2 * (hi - lo) - 1
@@ -174,20 +248,28 @@ def unicast_reply_counts_dense(key, reply, lo, hi, drop_prob=0.0, axis=None,
     """Route per-(replier, requester) reply counts back to each requester:
     ``reply[r, c]`` replies travel from node r to node c, one delay per
     edge.  Returns [B, N] indexed by requester.  An integer product over the
-    ``[B, N, N]`` bucket mask, summed: exact."""
-    _unsharded(axis)
+    ``[B, N, N]`` bucket mask, summed: exact.  Sharded, the repliers'
+    contributions are summed over the shards (all_reduce) and each shard
+    keeps its requesters' columns."""
     dev = reply.device
     n_loc, n_glob = reply.shape[-2:]
-    d = sample_edge_delays(key, (n_loc, n_glob), lo, hi, dev, impl)
-    notself = torch.arange(n_loc, device=dev)[:, None] != torch.arange(n_glob, device=dev)[None, :]
+    k = _shard_key(key, axis)
+    with draw_rows(axis, -2):
+        d = sample_edge_delays(k, (n_loc, n_glob), lo, hi, dev, impl)
+    notself = (_global_ids(n_loc, axis, dev)[:, None]
+               != torch.arange(n_glob, device=dev)[None, :])
     mask = notself.to(_I32)
     if drop_prob > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(key, 0x0D0F), 1.0 - drop_prob,
-                                  (n_loc, n_glob), dev)
+        with draw_rows(axis, -2):
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0F), 1.0 - drop_prob,
+                                      (n_loc, n_glob), dev)
         mask = mask * keep.to(_I32)
     r = reply.to(_I32) * mask
     hit = (d[None] == _bucket_iota(lo, hi, d.ndim, dev)).to(_I32)
-    return (r[None] * hit).sum(-2, dtype=_I32)
+    out_g = (r[None] * hit).sum(-2, dtype=_I32)  # [B, N_glob]
+    if axis is None:
+        return out_g
+    return _rank_rows(_psum(out_g, axis), n_loc, axis).contiguous()
 
 
 def bcast_matrix_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
@@ -198,7 +280,8 @@ def bcast_matrix_dense(key, send, value, lo, hi, drop_prob=0.0, axis=None,
     contiguous (the JAX function's ``swapaxes`` view, materialised once, as
     the ring push takes contiguous contributions)."""
     hits = _edge_hits(key, send, lo, hi, drop_prob, axis, impl=impl)  # [B, send, recv]
-    return (hits * value.to(_I32)[None, ..., None]).transpose(-1, -2).contiguous()
+    value_g = _gather(value, axis)
+    return (hits * value_g.to(_I32)[None, ..., None]).transpose(-1, -2).contiguous()
 
 
 # --------------------------------------------------------------------------- #
@@ -219,9 +302,10 @@ def bcast_counts_stat(key, n_senders, is_sender, probs: np.ndarray, drop_prob=0.
     Returns [B, N].  With lane keys, ``n_senders`` is ``[S, 1]``."""
     k = _shard_key(key, axis)
     m = torch.as_tensor(n_senders, dtype=_I32, device=is_sender.device) - is_sender.to(_I32)
-    if drop_prob > 0.0:
-        m = _thinned(threefry.fold_in(k, 0x0D10), m, 1.0 - drop_prob, mode)
-    return sample_bucket_counts(k, m, probs, mode)
+    with draw_rows(axis, -1):
+        if drop_prob > 0.0:
+            m = _thinned(threefry.fold_in(k, 0x0D10), m, 1.0 - drop_prob, mode)
+        return sample_bucket_counts(k, m, probs, mode)
 
 
 def _slots_stat_m(key, slot_mat, drop_prob, axis, mode):
@@ -229,9 +313,10 @@ def _slots_stat_m(key, slot_mat, drop_prob, axis, mode):
     broadcast: totals over senders minus the receiver's own."""
     k = _shard_key(key, axis)
     sm = slot_mat.to(_I32)
-    m = sm.sum(0, dtype=_I32)[None, :] - sm  # [N, S]
+    m = _psum(sm.sum(0, dtype=_I32), axis)[None, :] - sm  # [N, S]
     if drop_prob > 0.0:
-        m = _thinned(threefry.fold_in(k, 0x0D12), m, 1.0 - drop_prob, mode)
+        with draw_rows(axis, -2):
+            m = _thinned(threefry.fold_in(k, 0x0D12), m, 1.0 - drop_prob, mode)
     return k, m
 
 
@@ -240,7 +325,8 @@ def bcast_slots_stat(key, slot_mat, probs: np.ndarray, drop_prob=0.0, axis=None,
     """Stat version of bcast_slots_dense: multinomial arrival counts per
     (receiver, slot).  Returns [B, N, S]."""
     k, m = _slots_stat_m(key, slot_mat, drop_prob, axis, mode)
-    return sample_bucket_counts(k, m, probs, mode)
+    with draw_rows(axis, -2):
+        return sample_bucket_counts(k, m, probs, mode)
 
 
 def _delay_logits(probs: np.ndarray, device):
@@ -256,13 +342,15 @@ def bcast_value_max_stat(key, value, probs: np.ndarray, drop_prob=0.0, axis=None
     k = _shard_key(key, axis)
     dev = value.device
     n = value.shape[-1]
-    vmax = value.to(_I32).amax(-1, keepdim=True)
+    vmax = _pmax(value.to(_I32).amax(-1, keepdim=True), axis)
     nb = len(probs)
-    d = threefry.categorical(k, _delay_logits(probs, dev), (n,), dev)
+    with draw_rows(axis, -2):  # the noise is [N, B]
+        d = threefry.categorical(k, _delay_logits(probs, dev), (n,), dev)
     sent = (vmax > 0).to(_I32)
     if drop_prob > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D13), 1.0 - drop_prob,
-                                  (n,), dev)
+        with draw_rows(axis, -1):
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D13), 1.0 - drop_prob,
+                                      (n,), dev)
         sent = sent * keep.to(_I32)
     return (d[None] == _bucket_iota(0, nb, d.ndim, dev)).to(_I32) * (sent * vmax)[None]
 
@@ -277,13 +365,15 @@ def bcast_window_value_max_stat(key, value_mat, probs: np.ndarray, drop_prob=0.0
     vm = value_mat.to(_I32)
     dev = vm.device
     n, w = vm.shape
-    vmax = vm.amax(0)  # [W]
+    vmax = _pmax(vm.amax(0), axis)  # [W]
     nb = len(probs)
-    d = threefry.categorical(k, _delay_logits(probs, dev), (n, w), dev)
+    with draw_rows(axis, -3):  # the noise is [N, W, B]
+        d = threefry.categorical(k, _delay_logits(probs, dev), (n, w), dev)
     recv = (vmax[None, :] > 0) & (vm < vmax[None, :])
     if drop_prob > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D14), 1.0 - drop_prob,
-                                  (n, w), dev)
+        with draw_rows(axis, -2):
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D14), 1.0 - drop_prob,
+                                      (n, w), dev)
         recv = recv & keep
     val = recv.to(_I32) * vmax[None, :]
     return (d[None] == _bucket_iota(0, nb, d.ndim, dev)).to(_I32) * val[None]
@@ -295,7 +385,8 @@ def _roundtrip_stat_m(key, send, n_peers, drop_prob, axis, mode):
     k = _shard_key(key, axis)
     m = send.to(_I32) * torch.as_tensor(n_peers, dtype=_I32, device=send.device)
     if drop_prob > 0.0:
-        m = _thinned(threefry.fold_in(k, 0x0D11), m, (1.0 - drop_prob) ** 2, mode)
+        with draw_rows(axis, -1):
+            m = _thinned(threefry.fold_in(k, 0x0D11), m, (1.0 - drop_prob) ** 2, mode)
     return k, m
 
 
@@ -305,7 +396,8 @@ def roundtrip_reply_counts_stat(key, send, n_peers, rt_probs: np.ndarray,
     ``n_peers`` replies spread over the round-trip distribution.  Returns
     [B2, N]."""
     k, m = _roundtrip_stat_m(key, send, n_peers, drop_prob, axis, mode)
-    return sample_bucket_counts(k, m, rt_probs, mode)
+    with draw_rows(axis, -1):
+        return sample_bucket_counts(k, m, rt_probs, mode)
 
 
 def push_bucket_counts(key, m, probs: np.ndarray, mode: str = "exact",
@@ -323,7 +415,8 @@ def push_bcast_slots_stat(key, slot_mat, probs: np.ndarray, drop_prob=0.0,
     """The contribution the JAX ``push_bcast_slots_stat`` adds to its ring
     (equal to :func:`bcast_slots_stat`)."""
     k, m = _slots_stat_m(key, slot_mat, drop_prob, axis, mode)
-    return push_bucket_counts(k, m, probs, mode)
+    with draw_rows(axis, -2):
+        return push_bucket_counts(k, m, probs, mode)
 
 
 def push_roundtrip_reply_counts_stat(key, send, n_peers, rt_probs: np.ndarray,
@@ -332,7 +425,8 @@ def push_roundtrip_reply_counts_stat(key, send, n_peers, rt_probs: np.ndarray,
     """The contribution the JAX ``push_roundtrip_reply_counts_stat`` adds to
     its ring: the stat round-trip counts, each bucket through ``expand``."""
     k, m = _roundtrip_stat_m(key, send, n_peers, drop_prob, axis, mode)
-    return push_bucket_counts(k, m, rt_probs, mode, expand)
+    with draw_rows(axis, -1):
+        return push_bucket_counts(k, m, rt_probs, mode, expand)
 
 
 # --------------------------------------------------------------------------- #
@@ -349,7 +443,9 @@ def gossip_fwd(key, fwd_vals, nbrs, n_glob: int, lo: int, hi: int, drop_prob=0.0
     (sender, edge, lane).  The JAX function's scatter-max over the flat
     ``(bucket, receiver)`` index takes duplicate indices and self-loops;
     max is order-free, so one ``scatter_reduce_("amax")`` into zeros is
-    bit-equal to it."""
+    bit-equal to it.  Sharded (``nbrs`` the shard's rows): each shard
+    scatters its senders' forwards into the global row space, the shards'
+    results are max-reduced, and each keeps its own rows."""
     k = _shard_key(key, axis)
     dev = fwd_vals.device
     n, p = fwd_vals.shape
@@ -366,4 +462,7 @@ def gossip_fwd(key, fwd_vals, nbrs, n_glob: int, lo: int, hi: int, drop_prob=0.0
     flat = torch.zeros(((hi - lo) * n_glob * p,), dtype=_I32, device=dev)
     flat.scatter_reduce_(0, flat_idx.reshape(-1), vals.reshape(-1), "amax",
                          include_self=True)
-    return flat.reshape(hi - lo, n_glob, p)
+    out = flat.reshape(hi - lo, n_glob, p)
+    if axis is None:
+        return out
+    return _rank_rows(_pmax(out, axis), n, axis, dim=1).contiguous()

@@ -18,13 +18,20 @@ equals the dense run bit for bit, and at any degree it equals the JAX
 function.
 
 The tables are int64 tensors on the run's device (topo/spec.device_tables
-converts them once per config and device).  The JAX functions also take a
-mesh ``axis`` and an exchange ``xg=`` (the owner-bucketed neighbour
-exchange of its sharded programs); both belong to the many-GPU slice of the
-port and raise ``NotImplementedError`` here.  The JAX ``push_*`` function
+converts them once per config and device).  The JAX ``push_*`` function
 pushes straight into its ring; the port's returns the contribution, which
 the caller hands to the tick's one grouped ring push, as ops/delivery.py
 does.
+
+SPMD: the convention of ops/delivery.py.  ``axis`` names the mesh axis
+(None: unsharded): receiver rows stay local and cross-row neighbour reads
+globalize the sender-side values with an all_gather (:func:`_nbr_rows`),
+or, with ``xg=`` (parallel/partition.NeighborExchange, the sharded
+overlay's), with one owner-bucketed all_to_all a read.  The sharded overlay
+runs its mesh in global view (parallel/partition.partition's explicit
+shardings): the keys are the single-device program's and every draw here
+is this rank's rows of the single-device draw (ops/delivery.draw_rows),
+so the run equals the single-device run bit for bit.
 """
 
 from __future__ import annotations
@@ -38,16 +45,6 @@ from blockchain_simulator_tpu_torch.topo import spec as topo_spec
 from blockchain_simulator_tpu_torch.utils import threefry
 
 _I32 = torch.int32
-
-
-def _unsharded(axis, xg):
-    dv._unsharded(axis)
-    if xg is not None:
-        raise NotImplementedError(
-            "the neighbour exchange (xg=, owner-bucketed all_to_all over a node "
-            "mesh) comes with the many-GPU slice of the port (slice 6); run "
-            "unsharded (xg=None)"
-        )
 
 
 # ------------------------------------------------------------- tables -------
@@ -103,9 +100,12 @@ def _nbr_rows(x, idx_loc, axis=None, xg=None, kind="in", col=None):
     of shape ``[N, K, ...]``, or with ``col`` (``[N, K]`` column picks into
     a 2-D ``x``) the elementwise ``x.reshape(-1)[idx_loc * x.shape[1] +
     col]``, in int64 (at n = 10^6 the flat index passes 2^31 for wide
-    ``x``).  ``kind`` names the table the ids follow (the exchange's plan)."""
-    del kind
-    _unsharded(axis, xg)
+    ``x``).  ``kind`` names the table the ids follow (the exchange's plan).
+    Sharded: ``x`` is globalized with an all_gather first, or with ``xg``
+    only the owner-bucketed rows travel."""
+    if xg is not None:
+        return xg(x, kind=kind, col=col)
+    x = dv._gather(x, axis)
     idx = idx_loc.to(torch.int64)
     if col is None:
         return x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
@@ -148,11 +148,13 @@ def _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis, impl):
     dev = src_act.device
     n_loc, k1 = nbr_in_loc.shape
     k = dv._shard_key(key, axis)
-    d = sample_edge_delays(k, (k1, n_loc), lo, hi, dev, impl)
-    mask = src_act.T * _notself(nbr_in_loc, ids).T
-    if drop > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0D), 1.0 - drop, (k1, n_loc), dev)
-        mask = mask * keep.to(_I32)
+    with dv.draw_rows(axis, -1):
+        d = sample_edge_delays(k, (k1, n_loc), lo, hi, dev, impl)
+        mask = src_act.T * _notself(nbr_in_loc, ids).T
+        if drop > 0.0:
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0D), 1.0 - drop, (k1, n_loc),
+                                      dev)
+            mask = mask * keep.to(_I32)
     return (d[None] == dv._bucket_iota(lo, hi, d.ndim, dev)).to(_I32) * mask[None]
 
 
@@ -223,14 +225,16 @@ def roundtrip_reply_counts_kreg(key, send, nbr_out_loc, ids, lo, hi, drop=0.0,
     peers = torch.ones((n_loc,), dtype=torch.bool, device=dev) if peer_mask is None \
         else peer_mask
     k = dv._shard_key(key, axis)
-    d1 = sample_edge_delays(threefry.fold_in(k, 1), (n_loc, k1), lo, hi, dev, impl)
-    d2 = sample_edge_delays(threefry.fold_in(k, 2), (n_loc, k1), lo, hi, dev, impl)
+    with dv.draw_rows(axis, -2):
+        d1 = sample_edge_delays(threefry.fold_in(k, 1), (n_loc, k1), lo, hi, dev, impl)
+        d2 = sample_edge_delays(threefry.fold_in(k, 2), (n_loc, k1), lo, hi, dev, impl)
     total = d1 + d2
     mask = (send.to(_I32)[:, None] * _notself(nbr_out_loc, ids)
             * _nbr_rows(peers.to(_I32), nbr_out_loc, axis, xg, "out"))
     if drop > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0E), (1.0 - drop) ** 2,
-                                  (n_loc, k1), dev)
+        with dv.draw_rows(axis, -2):
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0E), (1.0 - drop) ** 2,
+                                      (n_loc, k1), dev)
         mask = mask * keep.to(_I32)
     lo2 = 2 * lo
     nb = 2 * (hi - lo) - 1
@@ -249,11 +253,13 @@ def unicast_reply_counts_kreg(key, reply_slots, nbr_in_loc, nbr_out_loc,
     dev = reply_slots.device
     n_loc, k1 = reply_slots.shape
     k = dv._shard_key(key, axis)
-    d = sample_edge_delays(k, (n_loc, k1), lo, hi, dev, impl)
-    mask = _notself(nbr_in_loc, ids)
-    if drop > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0F), 1.0 - drop, (n_loc, k1), dev)
-        mask = mask * keep.to(_I32)
+    with dv.draw_rows(axis, -2):
+        d = sample_edge_delays(k, (n_loc, k1), lo, hi, dev, impl)
+        mask = _notself(nbr_in_loc, ids)
+        if drop > 0.0:
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0F), 1.0 - drop, (n_loc, k1),
+                                      dev)
+            mask = mask * keep.to(_I32)
     r = reply_slots.to(_I32) * mask
     rv = _nbr_rows(r, nbr_out_loc, axis, xg, "out", col=inslot_loc)
     dd = _nbr_rows(d, nbr_out_loc, axis, xg, "out", col=inslot_loc)
@@ -283,9 +289,10 @@ def bcast_counts_stat_kreg(key, send, nbr_in_loc, ids, probs: np.ndarray,
     is_sender``.  [B, N]."""
     k = dv._shard_key(key, axis)
     m = in_counts(send, nbr_in_loc, ids, axis, xg)
-    if drop > 0.0:
-        m = dv._thinned(threefry.fold_in(k, 0x0D10), m, 1.0 - drop, mode)
-    return sample_bucket_counts(k, m, probs, mode)
+    with dv.draw_rows(axis, -1):
+        if drop > 0.0:
+            m = dv._thinned(threefry.fold_in(k, 0x0D10), m, 1.0 - drop, mode)
+        return sample_bucket_counts(k, m, probs, mode)
 
 
 def push_bcast_slots_stat_kreg(key, slot_mat, nbr_in_loc, ids, probs: np.ndarray,
@@ -296,9 +303,10 @@ def push_bcast_slots_stat_kreg(key, slot_mat, nbr_in_loc, ids, probs: np.ndarray
     k = dv._shard_key(key, axis)
     vals = _nbr_rows(slot_mat.to(_I32), nbr_in_loc, axis, xg)       # [N, K, S]
     m = (vals * _notself(nbr_in_loc, ids)[:, :, None]).sum(1, dtype=_I32)
-    if drop > 0.0:
-        m = dv._thinned(threefry.fold_in(k, 0x0D12), m, 1.0 - drop, mode)
-    return dv.push_bucket_counts(k, m, probs, mode)
+    with dv.draw_rows(axis, -2):
+        if drop > 0.0:
+            m = dv._thinned(threefry.fold_in(k, 0x0D12), m, 1.0 - drop, mode)
+        return dv.push_bucket_counts(k, m, probs, mode)
 
 
 def bcast_value_max_stat_kreg(key, value, nbr_in_loc, probs: np.ndarray,
@@ -312,10 +320,13 @@ def bcast_value_max_stat_kreg(key, value, nbr_in_loc, probs: np.ndarray,
     n_loc = value.shape[0]
     vmax = _nbr_rows(value.to(_I32), nbr_in_loc, axis, xg).amax(1)
     nb = len(probs)
-    d = threefry.categorical(k, dv._delay_logits(probs, dev), (n_loc,), dev)
+    with dv.draw_rows(axis, -2):  # the noise is [N, B]
+        d = threefry.categorical(k, dv._delay_logits(probs, dev), (n_loc,), dev)
     sent = (vmax > 0).to(_I32)
     if drop > 0.0:
-        keep = threefry.bernoulli(threefry.fold_in(k, 0x0D13), 1.0 - drop, (n_loc,), dev)
+        with dv.draw_rows(axis, -1):
+            keep = threefry.bernoulli(threefry.fold_in(k, 0x0D13), 1.0 - drop, (n_loc,),
+                                      dev)
         sent = sent * keep.to(_I32)
     return (d[None] == dv._bucket_iota(0, nb, d.ndim, dev)).to(_I32) * (sent * vmax)[None]
 
@@ -333,10 +344,12 @@ def bcast_window_value_max_stat_kreg(key, value_mat, nbr_in_loc,
     n_loc, w = vm.shape
     vmax = _nbr_rows(vm, nbr_in_loc, axis, xg).amax(1)                # [N, W]
     nb = len(probs)
-    d = threefry.categorical(k, dv._delay_logits(probs, dev), (n_loc, w), dev)
+    with dv.draw_rows(axis, -3):  # the noise is [N, W, B]
+        d = threefry.categorical(k, dv._delay_logits(probs, dev), (n_loc, w), dev)
     recv = (vmax > 0) & (vm < vmax)
     if drop > 0.0:
-        recv = recv & threefry.bernoulli(threefry.fold_in(k, 0x0D14), 1.0 - drop,
-                                         (n_loc, w), dev)
+        with dv.draw_rows(axis, -2):
+            recv = recv & threefry.bernoulli(threefry.fold_in(k, 0x0D14), 1.0 - drop,
+                                             (n_loc, w), dev)
     val = recv.to(_I32) * vmax
     return (d[None] == dv._bucket_iota(0, nb, d.ndim, dev)).to(_I32) * val[None]

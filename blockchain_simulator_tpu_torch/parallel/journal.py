@@ -48,7 +48,7 @@ device: a chunk that fails on the card fails there, typed
 in the journal.
 
 Only ``mesh=None`` is ported: a mesh descriptor in :func:`chunk_key` needs
-the many-GPU slice (ROADMAP.md queue A item 6).
+the sweep axis of the port (ROADMAP.md queue A item 7).
 """
 
 from __future__ import annotations
@@ -86,9 +86,11 @@ def chunk_key(canon, index: int, points, mesh=None,
     from blockchain_simulator_tpu_torch.utils import obs
 
     if mesh is not None:
+        from blockchain_simulator_tpu_torch.parallel.mesh import SWEEP_AXIS_ITEM
+
         raise NotImplementedError(
             "chunk_key over a device mesh (its mesh descriptor) comes with "
-            "slice 6 of the port (many GPUs; ROADMAP.md queue A item 6)")
+            f"{SWEEP_AXIS_ITEM}")
     ident = {
         "canon": obs.config_hash(canon),
         "index": int(index),

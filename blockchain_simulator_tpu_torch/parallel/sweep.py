@@ -59,9 +59,10 @@ and rows are the JAX package's, so either package resumes the other's
 journal.  ``probe=`` (obsim/schema.ProbeConfig) dispatches the armed twin
 (obsim/build.probed_batched_fn) and adds each row's ``"probe"`` summary.
 
-Kept out, each raising ``NotImplementedError`` naming its slice: the
-node-sharded topology programs (``sharded_topo_sim_fn``,
-``run_sharded_topo``) and ``mesh=``: slice 6 (many GPUs).
+The node-sharded topology programs (:func:`sharded_topo_sim_fn`,
+:func:`run_sharded_topo`) run on every rank of a node mesh
+(parallel/mesh.py).  Kept out, raising ``NotImplementedError`` naming its
+item: ``mesh=`` on the sweeps (the sweep axis).
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 from blockchain_simulator_tpu_torch import runner
 from blockchain_simulator_tpu_torch.models.base import (
@@ -90,7 +92,9 @@ from blockchain_simulator_tpu_torch.parallel import journal as journal_mod
 from blockchain_simulator_tpu_torch.utils import aotcache, health, obs, telemetry, threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
-MANY_GPUS = "slice 6 of the port (many GPUs)"
+from blockchain_simulator_tpu_torch.parallel.mesh import NODES_AXIS, SWEEP_AXIS_ITEM
+
+MANY_GPUS = SWEEP_AXIS_ITEM
 
 
 def _refuse(what: str, where: str):
@@ -184,28 +188,148 @@ def dyn_batched_fn(cfg: SimConfig):
 
 
 def sharded_topo_sim_fn(cfg: SimConfig, mesh, layout: str = "exchange"):
-    """The node-dim mesh-sharded topology program of a kregular or committee
-    config (JAX's ``sharded_topo_sim_fn``: the overlay tables or the
-    committee stack partitioned over a ``nodes`` axis).  Other topologies
-    raise ``ValueError`` as in the JAX package; the mesh arms come with the
-    many-GPU slice.  One card runs a kregular or committee config through
-    :func:`runner.make_dyn_sim_fn` / ``make_topo_dyn_sim_fn``."""
-    del layout
+    """Node-dim mesh-sharded topology program: ``sim(key, n_crashed,
+    n_byzantine) -> final_state`` for a kregular or committee config with
+    the overlay partitioned over the mesh's ``nodes`` axis (JAX's
+    ``sharded_topo_sim_fn``).  Call it on every rank of the mesh.  ``cfg``
+    must already be fault-canonical (models/base.canonical_fault_cfg).
+
+    Three arms, as in the JAX package:
+
+    - **mesh of one rank**: the single-device program
+      (runner.make_dyn_sim_fn) itself, so the degenerate case is
+      bit-identical by construction.
+    - **kregular, nodes > 1**: the tick engine with the ``[N, K]`` overlay
+      tables as operands (runner.make_topo_dyn_sim_fn) through
+      parallel/partition.partition's global view: each rank steps its block
+      of ``ceil(n / ranks)`` rows, draws exactly its rows of the
+      single-device draws, and the run equals the single-device run bit for
+      bit.  Two data-movement layouts: ``"exchange"`` (the default) gives
+      each rank its rows of the tables and reads the neighbours' rows
+      through a parallel/partition.NeighborExchange (one owner-bucketed
+      all_to_all a read; plans from topo/spec.owner_bucket_plan over the
+      tables zero-padded to a multiple of the ranks, as JAX pads them);
+      ``"regather"`` gives every rank the whole tables and all-gathers the
+      neighbours' rows (the pre-exchange behaviour, kept as a comparator).
+    - **committee, nodes > 1**: the stacked committee axis is sharded
+      (``committees % ranks == 0``): each rank runs its committees
+      (topo/committee.stacked_body) with the keys of their GLOBAL committee
+      index, and the stacked finals are gathered."""
+    from blockchain_simulator_tpu_torch.models import base as base_model
+    from blockchain_simulator_tpu_torch.ops import gatherdeliv as gd
+    from blockchain_simulator_tpu_torch.parallel import partition
+    from blockchain_simulator_tpu_torch.parallel.partition import P
+
     if cfg.topology not in ("kregular", "committee"):
         raise ValueError(
             f"sharded_topo_sim_fn shards the sparse/hierarchical overlays; "
             f"topology={cfg.topology!r} has no node-dim topo structure "
             "(dense configs ride parallel/shard.py, gossip is unsharded)"
         )
-    _refuse(f"sharded_topo_sim_fn over a mesh ({mesh!r})", MANY_GPUS)
+    dev = mesh.device
+    if partition.mesh_size(mesh) == 1:
+        single = make_dyn_sim_fn(cfg)
+
+        def sim1(key, n_crashed, n_byzantine):
+            return single(key, n_crashed, n_byzantine, dev)
+
+        return sim1
+    n_shards = int(dict(mesh.shape).get(NODES_AXIS, 1))
+    if n_shards <= 1:
+        raise ValueError(
+            "sharded_topo_sim_fn partitions the node dimension: the mesh "
+            f"needs nodes > 1 (got shape {dict(mesh.shape)}); sweep-axis "
+            "meshes belong to mesh_dyn_batched_fn")
+    proto = base_model.get_protocol(cfg.protocol)
+
+    if cfg.topology == "committee":
+        from blockchain_simulator_tpu_torch.topo import committee
+
+        c, m = cfg.committees, cfg.n // cfg.committees
+        if c % n_shards != 0:
+            raise ValueError(
+                f"committees={c} not divisible by {n_shards} node shards "
+                "(the committee stack shards whole committees)")
+        meta = proto.init(committee.inner_cfg(cfg), device="meta")[0]
+        out_specs = partition.match_partition_rules(
+            partition.node_dim_rules(), base_model.stack_lanes([meta] * c))
+        lane = P(NODES_AXIS)
+
+        def body(keys, alive_cm, honest_cm):
+            return committee.stacked_body(cfg, keys.numpy(), alive_cm, honest_cm)
+
+        shmapped = partition.partition(body, mesh, in_specs=(lane, lane, lane),
+                                       out_specs=out_specs)
+
+        def sim_committee(key, n_crashed, n_byzantine):
+            alive, honest = base_model.dyn_fault_masks(cfg.n, int(n_crashed),
+                                                       int(n_byzantine), dev)
+            keys = torch.as_tensor(committee._committee_keys(np.asarray(key, np.int64), c))
+            return shmapped(keys, alive.reshape(c, m), honest.reshape(c, m))
+
+        return sim_committee
+
+    if layout not in ("exchange", "regather"):
+        raise ValueError(
+            f"sharded_topo_sim_fn layout must be 'exchange' or 'regather', "
+            f"got {layout!r}")
+    tables = gd.table_operands(cfg, inslot=runner.topo_tables_inslot(cfg))
+    # the exchange plans need whole blocks: zero-pad the table rows to the
+    # next multiple of the ranks (pad rows are never read: every read
+    # indexes ids < n; each rank cuts its block to its state rows)
+    pad = (-cfg.n) % n_shards
+    if pad:
+        tables = tuple(np.pad(t, ((0, pad),) + ((0, 0),) * (t.ndim - 1)) for t in tables)
+    if layout == "exchange":
+        from blockchain_simulator_tpu_torch.topo import spec as topo_spec
+
+        xspec = partition.ExchangeSpec(mesh, cfg.n)
+        plans = ()
+        for tab in (tables[0], tables[1]):  # "in", "out" (xspec.kinds)
+            plans += topo_spec.owner_bucket_plan(tab, n_shards)
+        inner_fn = runner.make_topo_dyn_sim_fn(cfg, exchange_spec=xspec)
+        table_spec = P(NODES_AXIS)
+    else:
+        plans = ()
+        inner_fn = runner.make_topo_dyn_sim_fn(cfg, axis=NODES_AXIS)
+        table_spec = P()
+    operands = tuple(torch.as_tensor(np.asarray(t, np.int64), device=dev)
+                     for t in tables + plans)
+    meta_state, _ = proto.init(cfg, device="meta")
+    out_specs = partition.match_partition_rules(
+        partition.node_dim_rules(getattr(proto, "GLOBAL_FIELDS", ())), meta_state)
+    # the global view needs a node-sharded operand: the node ids carry n
+    ids = torch.arange(cfg.n, device=dev)
+
+    def fn(ids_loc, key, n_crashed, n_byzantine, *ops):
+        del ids_loc
+        return inner_fn(key, n_crashed, n_byzantine, *ops, device=dev)
+
+    p = partition.partition(
+        fn, mesh,
+        in_shardings=(P(NODES_AXIS), P(), P(), P())
+        + (table_spec,) * len(tables) + (P(NODES_AXIS),) * len(plans),
+        out_shardings=out_specs)
+
+    def sim(key, n_crashed, n_byzantine):
+        return p(ids, key, n_crashed, n_byzantine, *operands)
+
+    return sim
 
 
 def run_sharded_topo(cfg: SimConfig, mesh, seed: int | None = None):
-    """One kregular or committee run sharded over ``mesh`` (JAX's
-    ``run_sharded_topo``): refused with :func:`sharded_topo_sim_fn`; on one
-    card use ``runner.run_simulation``."""
-    del seed
-    sharded_topo_sim_fn(canonical_fault_cfg(cfg), mesh)
+    """Run one kregular or committee simulation node-dim-sharded over
+    ``mesh`` (:func:`sharded_topo_sim_fn`), on every rank of it; returns
+    the same metrics dict as ``runner.run_simulation``, bit-equal to it at
+    any mesh size."""
+    from blockchain_simulator_tpu_torch.utils.sync import force_sync
+
+    canon = canonical_fault_cfg(cfg)
+    sim = sharded_topo_sim_fn(canon, mesh)
+    nc = cfg.faults.resolved_n_crashed(cfg.n)
+    nb = cfg.faults.n_byzantine
+    final = force_sync(sim(threefry.key(cfg.seed if seed is None else seed), nc, nb))
+    return sim_metrics(cfg, final)
 
 
 @aotcache.cached_factory("multi-seed-tick")
@@ -424,7 +548,7 @@ def run_dyn_points(canon: SimConfig, points, record: bool = True,
     ``with_index=True`` returns ``(rows, meta)``: ``meta["rows"][i]`` maps
     output row ``i`` to its point (``point``, ``seed``, ``key``, ``cached``)
     and ``meta`` carries ``dispatches``, ``lanes``, ``pad`` and the
-    per-chunk trail ``chunks``.  ``mesh=`` raises (slice 6)."""
+    per-chunk trail ``chunks``.  ``mesh=`` raises (the sweep axis)."""
     _refuse_mesh(mesh)
     points = list(points)
     meta = {"rows": [], "chunks": [], "lanes": 0, "dispatches": 0, "pad": 0}

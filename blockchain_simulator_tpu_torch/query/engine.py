@@ -166,7 +166,8 @@ def run_query(cfg: SimConfig, spec: spec_mod.QuerySpec, journal=None,
     ``cached_steps``, ``steps``, ``lanes``, ``pad``,
     ``monotonicity_violations``) is equal across a fresh run, a
     kill-resume and a pure journal replay of the same query, and to the JAX
-    package's answer.  ``mesh=`` raises (slice 6 of the port)."""
+    package's answer.  ``mesh=`` raises (the sweep axis of the port,
+    ROADMAP.md queue A item 7)."""
     sweep._refuse_mesh(mesh)
     lo, hi = spec_mod.resolve_domain(spec, cfg)
     st = _Search(cfg, spec, journal=journal, multi_seed=multi_seed, device=device)

@@ -182,6 +182,17 @@ def _reject_cpp_only(cfg: SimConfig) -> None:
                 )
 
 
+def _reject_mesh_axis(cfg: SimConfig) -> None:
+    """A config with ``mesh_axis`` set is a node-sharded body's: it runs on
+    every rank of a node mesh, never through the single-device runner."""
+    if cfg.mesh_axis is not None:
+        raise NotImplementedError(
+            f"mesh_axis={cfg.mesh_axis!r} is a node-sharded config: run it on every "
+            "rank of a node mesh (parallel/shard.run_sharded; kregular and committee "
+            "configs: parallel/sweep.run_sharded_topo); the single-device runner "
+            "takes mesh_axis=None")
+
+
 @aotcache.cached_factory("sim")
 def make_sim_fn(cfg: SimConfig):
     """``sim(seed, device) -> final state``: the phase-blocked fast path
@@ -189,6 +200,7 @@ def make_sim_fn(cfg: SimConfig):
     ticks from ``proto.init``.  Built once a config (the ``"sim"`` registry
     entry, utils/aotcache.py)."""
     _reject_cpp_only(cfg)
+    _reject_mesh_axis(cfg)
     if cfg.topology == "committee":
         from blockchain_simulator_tpu_torch.topo import committee
 
@@ -288,6 +300,7 @@ def make_dyn_sim_fn(cfg: SimConfig):
     canon = base_model.canonical_fault_cfg(cfg)
     check_batchable(canon)
     _reject_cpp_only(canon)
+    _reject_mesh_axis(canon)
     if canon.topology == "committee":
         from blockchain_simulator_tpu_torch.topo import committee
 
@@ -312,16 +325,26 @@ def topo_tables_inslot(cfg: SimConfig) -> bool:
     return cfg.protocol == "raft"
 
 
-def make_topo_dyn_sim_fn(cfg: SimConfig, exchange_spec=None):
+def make_topo_dyn_sim_fn(cfg: SimConfig, exchange_spec=None, axis=None):
     """The tables-as-arguments twin of :func:`make_dyn_sim_fn` for the
     kregular overlay: ``sim(key, n_crashed, n_byzantine, *tables, device)
     -> final state``, where ``tables`` are the full ``[N, K]`` overlay
     tables (ops/gatherdeliv.table_operands: ``(in, out)``, plus ``inslot``
     for Raft, :func:`topo_tables_inslot`), numpy or tensors.  They go to the
     device once a run and every tick reads them there; at equal values the
-    run equals :func:`make_dyn_sim_fn`'s.  ``exchange_spec`` (the sharded
-    programs' owner-bucketed exchange plans) belongs to the many-GPU slice
-    and raises."""
+    run equals :func:`make_dyn_sim_fn`'s.
+
+    Sharded (the body of parallel/sweep.sharded_topo_sim_fn, run inside
+    parallel/partition.partition with its mesh bound in global view):
+    ``axis`` names the bound mesh axis, and the sim builds only this rank's
+    rows of the init (the draws at their global indices), steps them with
+    ``mesh_axis=axis`` and returns this rank's final rows.  With
+    ``exchange_spec`` (a parallel/partition.ExchangeSpec; it implies the
+    nodes axis) the tables
+    are this rank's rows and the sim takes the exchange plans after them,
+    ``sim(key, nc, nb, *tables, *plans, device)``; without it every rank
+    holds the whole tables and neighbour rows are all-gathered (the
+    "regather" layout)."""
     from blockchain_simulator_tpu_torch.ops import gatherdeliv as gd
 
     canon = base_model.canonical_fault_cfg(cfg)
@@ -334,28 +357,49 @@ def make_topo_dyn_sim_fn(cfg: SimConfig, exchange_spec=None):
             "(committee shards its stacked axis instead — parallel/sweep."
             "sharded_topo_sim_fn routes it)"
         )
-    if exchange_spec is not None:
-        raise NotImplementedError(
-            "exchange_spec (the owner-bucketed neighbour exchange of the "
-            "node-sharded overlay) comes with slice 6 of the port (many GPUs)")
     use_round_schedule(canon)  # validates schedule='round' (kregular: tick)
     inslot = topo_tables_inslot(canon)
     n_tables = 3 if inslot else 2
+    n_plans = 0 if exchange_spec is None else exchange_spec.n_operands
+    if exchange_spec is not None and axis is None:
+        from blockchain_simulator_tpu_torch.parallel.mesh import NODES_AXIS
+
+        axis = NODES_AXIS
     proto = get_protocol(canon.protocol)
 
     def sim(key, n_crashed, n_byzantine, *tables, device):
-        if len(tables) != n_tables:
+        if len(tables) != n_tables + n_plans:
             raise ValueError(f"{canon.protocol} kregular sim takes {n_tables} overlay "
-                             f"tables, got {len(tables)}")
+                             f"tables and {n_plans} exchange plans, got {len(tables)}")
+        tables, plans = tables[:n_tables], tables[n_tables:]
         dev = torch.device(device)
-        tabs = gd.local_tables(canon, None, inslot=inslot, tables=tables, device=dev)
         key = np.asarray(key, np.int64)
-        state, bufs = proto.init(canon, threefry.fold_in(key, _INIT_FOLD), device=dev)
+        rows = None
+        if axis is not None:
+            from blockchain_simulator_tpu_torch.parallel.mesh import bound
+
+            rows = bound(axis).rows(canon.n)
+        state, bufs = proto.init(canon, threefry.fold_in(key, _INIT_FOLD), device=dev,
+                                 rows=rows)
+        start, n_loc = (0, canon.n) if rows is None else rows
         state = base_model.apply_fault_masks(
-            canon, state, *base_model.dyn_fault_masks(canon.n, int(n_crashed),
-                                                      int(n_byzantine), dev))
-        return base_model.tick_loop(dyn_step_cfg(canon, n_byzantine), state, bufs, key, 0,
-                                    canon.ticks, topo_tables=tabs)[0]
+            canon, state, *(m[start:start + n_loc] for m in base_model.dyn_fault_masks(
+                canon.n, int(n_crashed), int(n_byzantine), dev)))
+        step_cfg = dyn_step_cfg(canon, n_byzantine)
+        xg = None
+        if axis is not None:
+            step_cfg = step_cfg.with_(mesh_axis=axis)
+            if exchange_spec is not None:
+                # the tables are this rank's rows of the padded tables: cut
+                # them to its rows of the state
+                tables = tuple(t[:state.alive.shape[-1]] for t in tables)
+                xg = exchange_spec.build(*(gd._as_index(p, dev) for p in plans))
+        tabs = gd.local_tables(canon, None, inslot=inslot, tables=tables, device=dev)
+        final = base_model.tick_loop(step_cfg, state, bufs, key, 0, canon.ticks,
+                                     topo_tables=tabs, exchange=xg)[0]
+        if axis is not None and hasattr(proto, "finalize"):
+            final = proto.finalize(final, axis)
+        return final
 
     return sim
 
@@ -413,6 +457,7 @@ def make_segment_fn(cfg: SimConfig, n_ticks: int):
     derive from the absolute tick, so segments chained end to end equal one
     uninterrupted run (the checkpoint substrate)."""
     _reject_cpp_only(cfg)
+    _reject_mesh_axis(cfg)
     if cfg.topology == "committee":
         raise ValueError(
             "segmented/checkpointed execution steps the flat (state, bufs) "

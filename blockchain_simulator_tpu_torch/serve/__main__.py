@@ -32,8 +32,8 @@ With ``--journal PATH`` batched flushes journal their rows in the
 durable-sweep journal (parallel/journal.py): a restarted daemon answers a
 WAL-replayed batch whose rows were already computed from the journal, and a
 ``query`` request's refinement steps journal there too.  ``--mesh-sweep`` >
-0 (a sweep mesh over many GPUs) comes with a later slice of the port and
-exits 2.
+0 (a sweep mesh over many GPUs) comes with the sweep axis of the port
+(ROADMAP.md queue A item 7) and exits 2.
 """
 
 from __future__ import annotations
@@ -337,8 +337,8 @@ def main(argv=None) -> int:
                         "rides the READY line/stats")
     p.add_argument("--mesh-sweep", type=int, default=0, metavar="N",
                    help="shard batched dispatches over an N-device sweep "
-                        "mesh (comes with slice 6 of the port, many GPUs; "
-                        "> 0 exits 2)")
+                        "mesh (comes with the sweep axis of the port, "
+                        "ROADMAP.md queue A item 7; > 0 exits 2)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device every dispatch runs on: cuda (the default; "
                         "without a card the daemon exits before READY, it "

@@ -60,7 +60,8 @@ journal compacts at startup keyed on the pending admissions.  ``"query"``
 requests (serve/schema.py) each run the adaptive search (query/engine.py)
 on a worker thread of their own, which selects the server's device first.
 Not ported yet: ``mesh=`` (batches sharded over many GPUs), refused with
-``NotImplementedError`` naming its slice.
+``NotImplementedError`` naming its item (the sweep axis, ROADMAP.md queue
+A item 7).
 """
 
 from __future__ import annotations
@@ -970,7 +971,7 @@ class ScenarioServer:
                                 if self._journal is not None else None),
                 },
                 # the batched-dispatch mesh: single-device (None) until the
-                # many-GPU slice
+                # sweep axis of the port
                 "mesh": None,
                 "device": str(self.device),
             }

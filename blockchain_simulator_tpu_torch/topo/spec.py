@@ -144,8 +144,7 @@ def owner_bucket_plan(table, n_shards: int, capacity: int | None = None):
     ``pos[i, j]`` where ``table[i, j]`` lands in the receiver's concatenated
     ``[D * C]`` exchange buffer.  A ``capacity`` below the required C raises
     ``ValueError``: overflow is checked, never a silent truncation.  The
-    plan is numpy; the exchange that ships it belongs to the many-GPU
-    slice."""
+    plan is numpy; parallel/partition.NeighborExchange ships it."""
     table = np.asarray(table)
     n_pad, _k = table.shape
     if n_shards < 1 or n_pad % n_shards:

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from blockchain_simulator_tpu_torch.utils import threefry
 from blockchain_simulator_tpu_torch.utils.threefry import lane_tensor
 
 MASK = 0xFFFFFFFF
@@ -69,6 +70,21 @@ def bits(key, shape, device) -> torch.Tensor:
     k = np.asarray(key, np.int64)
     if k.shape[-1:] != (4,) or k.ndim > 2:
         raise ValueError("expected one rbg key of 4 words, or a [G, 4] stack")
+    view = threefry.view_index(shape, device)
+    if view is not None:
+        # a row view (threefry.row_view): each element's word of its block
+        # in the full array, the block computed for that element alone
+        if k.ndim != 1:
+            raise ValueError("a row view draws with one key, not a key stack")
+        w = [int(x) & MASK for x in k]
+        blk, word = view >> 2, view & 3
+        c0 = w[2] + blk
+        c1 = w[3] + (c0 >> 32)
+        c2 = w[0] + (c1 >> 32)
+        c3 = w[1] + (c2 >> 32)
+        out = torch.stack(philox4x32(w[0], w[1], c0 & MASK, c1 & MASK, c2 & MASK,
+                                     c3 & MASK), dim=-1)
+        return out.gather(-1, word[..., None])[..., 0]
     count = math.prod(shape)
     nblocks = (count + 3) // 4
     i = torch.arange(nblocks, dtype=torch.int64, device=device)

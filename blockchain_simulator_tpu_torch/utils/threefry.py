@@ -39,6 +39,7 @@ finished lanes the same way).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -95,6 +96,10 @@ def fold_in(k, data) -> np.ndarray:
     keys ``k`` (``(..., 2)``) and the integers ``data``: one key per element
     (shape ``broadcast(k.shape[:-1], data.shape) + (2,)``)."""
     k = _keys(k)
+    if k.shape == (2,) and np.ndim(data) == 0:
+        # one key and one integer, the per-tick case: Python ints are ~10x
+        # cheaper than 0-d numpy arrays through the 20 rounds
+        return np.array(threefry2x32(int(k[0]), int(k[1]), 0, int(data) & MASK), np.int64)
     d = np.asarray(data, np.int64) & MASK
     y1, y2 = threefry2x32(k[..., 0], k[..., 1], np.zeros_like(d), d)
     return np.stack(np.broadcast_arrays(y1, y2), axis=-1)
@@ -104,6 +109,9 @@ def split(k, num: int = 2) -> np.ndarray:
     """``jax.random.split(k, num)`` (partitionable form): ``[..., num, 2]``
     for keys ``[..., 2]``."""
     k = _keys(k)
+    if k.shape == (2,) and num <= 8:  # one key, few children: Python ints
+        k1, k2 = int(k[0]), int(k[1])
+        return np.array([threefry2x32(k1, k2, 0, c) for c in range(num)], np.int64)
     cnt = np.arange(num, dtype=np.int64)
     y1, y2 = threefry2x32(k[..., 0, None], k[..., 1, None], cnt >> 32, cnt & MASK)
     return np.stack([y1, y2], axis=-1)
@@ -118,11 +126,62 @@ def lane_tensor(words: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+_VIEW = []  # the active row views (:func:`row_view`), innermost last
+
+
+@contextlib.contextmanager
+def row_view(dim: int, start: int, total: int):
+    """Draw every array inside the block as a block of rows of a larger one:
+    a draw of ``shape`` returns ``jax.random`` bits of the shape with
+    ``shape[dim]`` replaced by ``total``, narrowed to rows ``start ..
+    start + shape[dim]`` along ``dim`` (a negative dim, counted from the
+    end, so it holds through the samplers' added leading axes).  With
+    ``jax_threefry_partitionable`` an element's bits depend on its index in
+    the full array only, so a rank computes exactly its rows' bits and no
+    others (the global-view draws of the sharded overlay,
+    parallel/sweep.sharded_topo_sim_fn)."""
+    _VIEW.append((int(dim), int(start), int(total)))
+    try:
+        yield
+    finally:
+        _VIEW.pop()
+
+
+def view_index(shape, device):
+    """The flat indices, in the full array of the active :func:`row_view`,
+    of a draw of ``shape`` (int64, ``shape``); ``None`` without a view."""
+    if not _VIEW:
+        return None
+    dim, start, total = _VIEW[-1]
+    shape = tuple(int(s) for s in shape)
+    if not -len(shape) <= dim < 0:
+        raise ValueError(f"row view dim {dim} outside a draw of shape {shape}")
+    full = list(shape)
+    full[dim] = total
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        ar = torch.arange(shape[d], dtype=torch.int64, device=device)
+        if d == len(shape) + dim:
+            ar = ar + start
+        idx = idx + (ar * stride).reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= full[d]
+    return idx
+
+
 def bits(k, shape, device) -> torch.Tensor:
     """32-bit ``jax.random.bits(k, shape)`` as an int64 tensor of uint32
-    values on ``device``; lane keys ``[L, 2]`` give ``[L, *shape]``."""
+    values on ``device``; lane keys ``[L, 2]`` give ``[L, *shape]``.
+    Inside a :func:`row_view`, the bits of those rows of the full array."""
     shape = tuple(int(s) for s in shape)
     k = _keys(k)
+    view = view_index(shape, device)
+    if view is not None:
+        if k.ndim != 1:
+            raise ValueError("a row view draws with one key, not lane keys")
+        k1, k2 = _words(k)
+        y1, y2 = threefry2x32(k1, k2, view >> 32, view & MASK)
+        return y1 ^ y2
     cnt = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     if k.ndim == 1:
         k1, k2 = _words(k)

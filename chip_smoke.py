@@ -228,6 +228,20 @@ Phases (any failure raises, and the script exits non-zero):
               of the template's edge tick engine are counted (set to 0 just
               before the drill, read just after).
 
+41. shard-nccl — the node-sharded engine (parallel/shard.py) through
+              parallel/multihost.main with NCCL at world size 1 (the card's
+              machine has one GPU; NCCL refuses two ranks on one card), in a
+              process of its own started before phase 25 and read after
+              phase 35: config 2 (PBFT, n = 1,000, 2,500 ms, edge) and the
+              bench headline (bench._cfg: PBFT, n = 100,000, stat, the round
+              path) cut to 200 rounds, one multihost.main each with
+              --report.  Metrics and every state digest equal JAX's run over
+              a 1-device mesh (golden/shard_s0.json); config 2 launches the
+              ring kernel once a tick on the rank's local rings (counted in
+              the child, set to 0 just before the run); the collectives the
+              mesh issued a tick / round, the runs' walls.  A mesh of one
+              rank moves no data between ranks.
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -264,6 +278,8 @@ TRACE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "trace_s0.js
 SERVE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "serve_s0.json"
 OBSIM_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "obsim_query_s0.json"
 CHAOS_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "chaos_fleet_s0.json"
+SHARD_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "shard_s0.json"
+SHARD_RUNS = ("config2", "headline_200")  # shard-nccl's golden entries, in run order
 # fleet-kill9: the golden's requests the victim holds, then one after the restart
 KILL9_IDS = ("f0-s0", "f1-s1", "f2-s2")
 KILL9_POST_ID = "f5-s2"
@@ -2938,6 +2954,124 @@ def phase_fleet_kill9(card: str, fleet: dict):
             "replayed_on_restart": rec["ready"]["replayed"], "access_log_lines": len(log)}
 
 
+def shard_child(d: str) -> int:
+    """shard-nccl's own process (:func:`start_shard_nccl` runs it): one
+    ``python -m blockchain_simulator_tpu_torch.parallel.multihost --device
+    cuda --num-processes 1 --report`` a golden entry of
+    golden/shard_s0.json, one after the other; writes ``d/shard.json`` with
+    each run's exit code, its JSON line, the tail of its stderr and its
+    process wall."""
+    import os
+    import socket
+
+    entries = json.loads(SHARD_GOLDEN.read_text())["entries"]
+    out = {}
+    for name in SHARD_RUNS:
+        kw = entries[name]["config"]
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cmd = [sys.executable, "-m", "blockchain_simulator_tpu_torch.parallel.multihost",
+               "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+               "--process-id", "0", "--device", "cuda", "--report",
+               "--protocol", kw["protocol"], "--n", str(kw["n"]),
+               "--sim-ms", str(kw["sim_ms"]), "--config", json.dumps(kw)]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=HERE,
+                              env=dict(os.environ, PYTHONPATH=str(HERE)))
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        out[name] = {"rc": proc.returncode, "line": json.loads(lines[-1]) if lines else None,
+                     "stderr": proc.stderr[-3000:], "process_s": time.perf_counter() - t}
+    with open(os.path.join(d, "shard.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_shard_nccl(d: str) -> dict:
+    """Start :func:`shard_child` before phase 25: its two runs go beside
+    phases 25-35 (it shares no process-wide state with them; it adds a
+    second process on the card)."""
+    import os
+
+    code = (f"import sys; sys.path.insert(0, {str(HERE)!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.shard_child({d!r}))")
+    err = open(os.path.join(d, "shard_child.err"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.DEVNULL,
+                            stderr=err, cwd=HERE, process_group=0)
+    return {"proc": proc, "err": err, "t0": time.perf_counter(), "dir": d}
+
+
+def stop_shard_nccl(shard: dict) -> None:
+    """Kill shard-nccl's process group if it still runs (a failed phase)."""
+    import os
+    import signal
+
+    if shard["proc"].poll() is None:
+        os.killpg(shard["proc"].pid, signal.SIGKILL)
+        shard["proc"].wait()
+    shard["err"].close()
+
+
+def phase_shard_nccl(card: str, shard: dict):
+    """Read :func:`shard_child`'s runs: every metric and state digest equal
+    to golden/shard_s0.json, config 2's ring-push launches one a tick;
+    collectives a tick (config 2) and a round (the headline)."""
+    import os
+
+    t0 = time.perf_counter()
+    rc = shard["proc"].wait(timeout=900)
+    waited = time.perf_counter() - t0
+    elapsed = time.perf_counter() - shard["t0"]
+    path = os.path.join(shard["dir"], "shard.json")
+    if rc != 0 or not os.path.exists(path):
+        shard["err"].seek(0)
+        raise AssertionError(f"shard-nccl: the child exited {rc}:\n"
+                             f"{shard['err'].read()[-3000:]}")
+    with open(path) as f:
+        runs = json.load(f)
+    entries = json.loads(SHARD_GOLDEN.read_text())["entries"]
+    rep = {}
+    for name in SHARD_RUNS:
+        run, want = runs[name], entries[name]
+        line = run["line"]
+        if run["rc"] != 0 or line is None:
+            raise AssertionError(f"shard-nccl: {name} exited {run['rc']}:\n{run['stderr']}")
+        if line.pop("process_count") != 1:
+            raise AssertionError(f"shard-nccl: {name} ran on more than one rank")
+        line.pop("device_count")
+        digests = line.pop("state_sha256")
+        extra = {k: line.pop(k)
+                 for k in ("collectives", "launches", "pushes", "wall_s", "split_s")}
+        if line != want["metrics"] or digests != want["state_sha256"]:
+            bad = sorted(k for k in digests if digests[k] != want["state_sha256"].get(k))
+            raise AssertionError(f"shard-nccl: {name} differs from the golden: {line} "
+                                 f"vs {want['metrics']}; digests {bad}")
+        rep[name] = dict(extra, process_s=run["process_s"])
+    c2, hl = rep["config2"], rep["headline_200"]
+    ticks = entries["config2"]["config"]["sim_ms"]
+    rounds = entries["headline_200"]["config"]["pbft_max_rounds"]
+    if c2["launches"] != ticks or c2["pushes"] != 4 * ticks:
+        raise AssertionError(f"shard-nccl: config 2 launched the ring kernel "
+                             f"{c2['launches']} times ({c2['pushes']} pushes) in "
+                             f"{ticks} ticks")
+    if sum(c2["collectives"].values()) == 0:
+        raise AssertionError("shard-nccl: config 2 issued no collective through NCCL")
+    c2_tick = {k: v / ticks for k, v in c2["collectives"].items()}
+    hl_round = {k: v / rounds for k, v in hl["collectives"].items()}
+    print(f"shard-nccl on {card}: multihost.main, NCCL world size 1, in its own process "
+          f"beside phases 25-35; config 2 (n = 1,000, 2,500 ms, edge) wall "
+          f"{c2['wall_s']:.3f} s, ring_push launches {c2['launches']}, pushes "
+          f"{c2['pushes']}, collectives a tick {c2_tick}, split {c2['split_s']}; headline "
+          f"cut to {rounds} rounds (n = 100,000, round path) wall {hl['wall_s']:.3f} s, "
+          f"collectives a round {hl_round}, split {hl['split_s']}; metrics and digests equal golden/shard_s0.json; processes "
+          f"{c2['process_s']:.3f} s + {hl['process_s']:.3f} s, {waited:.3f} s of "
+          f"{elapsed:.3f} s waited for here", flush=True)
+    return {"wall_s": elapsed, "waited_s": waited, "config2": c2, "headline_200": hl,
+            "config2_collectives_per_tick": c2_tick,
+            "headline_collectives_per_round": hl_round,
+            "launches": c2["launches"], "pushes": c2["pushes"]}
+
+
 def phase_chaos_drill(card: str):
     """The JAX package's drill template on the card (:data:`CARD_DRILLS`),
     each scenario twice under the golden's seed: summaries equal JAX's and
@@ -3045,22 +3179,28 @@ def main() -> int:
     kreg_equal = phase_kreg_equal(dev, card)
     print(f"sparse-topology phases (topo-kernel, kreg-1m, committee-100k, kreg-raft-paxos, "
           f"kreg-equal): {time.perf_counter() - t_topo:.3f} s", flush=True)
-    t_trace = time.perf_counter()
-    traced = {"cli_trace_round": phase_cli_trace_round(dev, card),
-              "cli_trace_tick": phase_cli_trace_tick(dev, card),
-              "trace_hb": phase_trace_hb(dev, card),
-              "trace_mixed": phase_trace_mixed(dev, card),
-              "trace_committee": phase_trace_committee(dev, card),
-              "profile": phase_profile(dev, card),
-              "entry": phase_entry(card)}
-    print(f"trace phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
-                                                 for k, v in traced.items())
-          + f"; together {time.perf_counter() - t_trace:.3f} s", flush=True)
-    t_serve = time.perf_counter()
-    served = serving_phases(dev, card, config4["wall_s"])
-    print(f"serving phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
-                                                   for k, v in served.items())
-          + f"; together {time.perf_counter() - t_serve:.3f} s", flush=True)
+    with tempfile.TemporaryDirectory() as shard_dir:
+        shard = start_shard_nccl(shard_dir)  # it runs beside phases 25-35
+        try:
+            t_trace = time.perf_counter()
+            traced = {"cli_trace_round": phase_cli_trace_round(dev, card),
+                      "cli_trace_tick": phase_cli_trace_tick(dev, card),
+                      "trace_hb": phase_trace_hb(dev, card),
+                      "trace_mixed": phase_trace_mixed(dev, card),
+                      "trace_committee": phase_trace_committee(dev, card),
+                      "profile": phase_profile(dev, card),
+                      "entry": phase_entry(card)}
+            print(f"trace phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
+                                                         for k, v in traced.items())
+                  + f"; together {time.perf_counter() - t_trace:.3f} s", flush=True)
+            t_serve = time.perf_counter()
+            served = serving_phases(dev, card, config4["wall_s"])
+            print(f"serving phases on {card}: " + ", ".join(f"{k} {v['wall_s']:.3f} s"
+                                                           for k, v in served.items())
+                  + f"; together {time.perf_counter() - t_serve:.3f} s", flush=True)
+            sharded = phase_shard_nccl(card, shard)
+        finally:
+            stop_shard_nccl(shard)
     with tempfile.TemporaryDirectory() as fleet_dir:
         fleet = start_fleet_kill9(fleet_dir)  # it runs beside phases 36-38 and 40
         try:
@@ -3144,7 +3284,8 @@ def main() -> int:
                              "trace_committee": traced["trace_committee"]["launches"],
                              "serve_tick": served["serve_tick"]["launches"],
                              "obsim_tick": durable["obsim_tick"]["launches"],
-                             "chaos_drill": fleet_paths["chaos_drill"]["launches"]},
+                             "chaos_drill": fleet_paths["chaos_drill"]["launches"],
+                             "shard_tick": sharded["launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
@@ -3162,7 +3303,8 @@ def main() -> int:
                            "trace_committee": traced["trace_committee"]["pushes"],
                            "serve_tick": served["serve_tick"]["pushes"],
                            "obsim_tick": durable["obsim_tick"]["pushes"],
-                           "chaos_drill": fleet_paths["chaos_drill"]["pushes"]},
+                           "chaos_drill": fleet_paths["chaos_drill"]["pushes"],
+                           "shard_tick": sharded["pushes"]},
     }]
     # the script's own wall, from its start (the interpreter's start and
     # import of this module before it are not in it): the 1,200 s limit's
@@ -3176,7 +3318,8 @@ def main() -> int:
                                 "drop_sweep": drop, "checkpoint": ckpt,
                                 "kreg_1m": kreg_1m, "committee_100k": committee,
                                 "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal,
-                                **traced, **served, **durable, "fleet": fleet_paths}}),
+                                **traced, **served, **durable, "fleet": fleet_paths,
+                                "shard_nccl": sharded}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

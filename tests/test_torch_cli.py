@@ -6,8 +6,9 @@ Each case runs the same flags through both CLIs in this process, the port
 with ``--device cpu``: the exit codes must be equal, and so must the
 metrics lines apart from the manifest's backend fields (the config hash
 included) and the trace file's name; ``--trace`` files must hold JAX's
-arrays, dtypes included.  Where the port refuses what JAX runs (``--shards``
-> 1, slice 6), it exits 2 naming the slice.
+arrays, dtypes included.  ``--shards`` > 1 runs node-sharded over gloo
+ranks on the CPU (parallel/multihost.py) and prints JAX's line; with
+``--trace`` it exits 2, as JAX's does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from blockchain_simulator_tpu.utils import trace as jtrace
 from blockchain_simulator_tpu_torch import cli as tcli
 from blockchain_simulator_tpu_torch.utils import obs as tobs
 from blockchain_simulator_tpu_torch.utils import trace as ttrace
+from test_torch_multihost import rank_slots
 from test_torch_obs import BACKEND_FIELDS
 from test_torch_pbft import _cfgs, release_jax_executables, REPO  # noqa: F401 (autouse fixture)
 
@@ -128,8 +130,14 @@ def test_refusals_exit_2_like_jax(capsys, argv, err):
     ["--protocol", "pbft", "--n", "16", "--shards", "4", "--trace", "x.npz"],
 ])
 def test_shards_exit_2_naming_slice_6(capsys, argv):
-    assert tcli.main(argv + ["--device", "cpu"]) == 2
-    assert "slice 6" in capsys.readouterr().err
+    """``--shards 4`` runs now (4 gloo ranks on the CPU) and prints the JAX
+    command line's ``--shards 4`` line; with ``--trace`` both exit 2."""
+    if "--trace" in argv:
+        rc, _, tlines, msg = run_both(capsys, *argv)
+        assert rc == 2 and tlines == [] and "unsharded" in msg
+    else:
+        with rank_slots(4):
+            assert_same_lines(capsys, *argv)
 
 
 def test_bad_protocol_rejected():

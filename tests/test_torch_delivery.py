@@ -66,7 +66,8 @@ def test_rbg_sampler_is_a_later_slice():
 def test_ids_and_bucket_iota():
     _eq(tdv._global_ids(9, None, "cpu"), jdv._global_ids(9, None))
     _eq(tdv._bucket_iota(LO, HI, 2, "cpu"), jdv._bucket_iota(LO, HI, 2))
-    with pytest.raises(NotImplementedError):
+    # a mesh axis is bound only inside a sharded body (parallel/partition.py)
+    with pytest.raises(RuntimeError, match="not bound"):
         tdv._global_ids(9, "nodes", "cpu")
 
 
@@ -166,13 +167,16 @@ def test_bcast_matrix_dense(n, drop):
 
 
 def test_dense_helpers_refuse_a_mesh_axis():
+    """A mesh axis is bound only inside a sharded body (parallel/
+    partition.partition; the sharded arms are tests/test_torch_shard.py's):
+    outside one, naming it raises."""
     send = torch.ones(4, dtype=torch.bool)
     tk = threefry.key(0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not bound"):
         tdv.bcast_counts_dense(tk, send, RAFT_LO, RAFT_HI, axis="nodes")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not bound"):
         tdv.unicast_reply_counts_dense(tk, torch.ones((4, 4), dtype=torch.int32),
                                        RAFT_LO, RAFT_HI, axis="nodes")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not bound"):
         tdv.bcast_matrix_dense(tk, send, send.to(torch.int32), RAFT_LO, RAFT_HI,
                                axis="nodes")

@@ -3,7 +3,8 @@ journaled path of ``parallel/sweep.py``) held to the JAX package.
 
 - **Keys and checksums**: ``dyn_chunk_keys``, ``chunk_key`` (with ``n_out``),
   the probe (``+p<W>[m]``) and query (``+q<step>``) namespaces and
-  ``row_checksum`` equal JAX's, byte for byte; a mesh raises (slice 6).
+  ``row_checksum`` equal JAX's, byte for byte; a mesh raises (the sweep
+  axis, ROADMAP.md queue A item 7).
 - **The file**: torn tails (read past, and repaired before the next
   append), a corrupted row checksum demoting its chunk, duplicate lines,
   compaction; the port's reader and JAX's agree on every file.
@@ -103,9 +104,9 @@ def test_keys_and_checksums_equal_jax():
                 {"a": -1.0, "b": 10028.0, "c": 1e-7}):
         assert tjournal.row_checksum(row) == jjournal.row_checksum(row)
         assert tjournal.row_checksum(json.loads(json.dumps(row))) == tjournal.row_checksum(row)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="sweep axis"):
         tjournal.chunk_key(tcanon(tcfg), 0, tpts, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="sweep axis"):
         tsweep.dyn_chunk_keys(tcfg, _fcs(TFault), SEEDS, mesh=object())
 
 

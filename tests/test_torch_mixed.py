@@ -338,7 +338,7 @@ def test_lane_edge_helpers_equal_vmap(impl):
     (dict(n=16), ValueError, "shard size"),
     (dict(queued_links=True), NotImplementedError, "queued_links"),
     (dict(schedule="round"), ValueError, "mixed"),  # edge delivery
-    (dict(mesh_axis="nodes"), NotImplementedError, "slice 6"),
+    (dict(mesh_axis="nodes"), NotImplementedError, "run_sharded"),
 ])
 def test_refusals_match_jax(kw, exc, match):
     jcfg, tcfg = _cfgs(**dict(BASE, sim_ms=100, **kw))

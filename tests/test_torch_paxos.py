@@ -125,9 +125,10 @@ def test_state_fields_match_jax():
 
 
 @pytest.mark.parametrize("kw, slice_no", [
-    # the kregular overlay runs now; node-sharding it does not
-    (dict(topology="kregular", degree=4, mesh_axis="nodes"), "slice 6"),
-    (dict(mesh_axis="nodes"), "slice 6"),
+    # node-sharded configs run on a node mesh (parallel/shard.py), never
+    # through the single-device runner
+    (dict(topology="kregular", degree=4, mesh_axis="nodes"), "run_sharded"),
+    (dict(mesh_axis="nodes"), "run_sharded"),
 ])
 def test_unported_paxos_arms_raise(kw, slice_no):
     cfg = tconfig.SimConfig(protocol="paxos", n=8, sim_ms=50, **kw)

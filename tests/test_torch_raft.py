@@ -221,11 +221,11 @@ def test_step_pushes_one_group_of_the_members_that_fire(monkeypatch, delivery):
 
 
 @pytest.mark.parametrize("kw, slice_no", [
-    # raft gossip and the mixed sim's Raft shards run now; sharded shards do not
-    (dict(protocol="mixed", mixed_shards=2, mesh_axis="nodes"), "slice 6"),
-    # the kregular overlay runs now; node-sharding it does not
-    (dict(topology="kregular", degree=4, mesh_axis="nodes"), "slice 6"),
-    (dict(mesh_axis="nodes"), "slice 6"),
+    # node-sharded configs run on a node mesh (parallel/shard.py), never
+    # through the single-device runner
+    (dict(protocol="mixed", mixed_shards=2, mesh_axis="nodes"), "run_sharded"),
+    (dict(topology="kregular", degree=4, mesh_axis="nodes"), "run_sharded"),
+    (dict(mesh_axis="nodes"), "run_sharded"),
 ])
 def test_unported_raft_arms_raise(kw, slice_no):
     cfg = tconfig.SimConfig(**dict(dict(protocol="raft", n=8, sim_ms=50), **kw))

@@ -519,14 +519,15 @@ def test_default_device_is_the_card(monkeypatch):
     assert "CUDA" in proc.stderr
 
 
-# the journal arms are ported; over a device mesh they still raise
+# the journal arms are ported; over a device mesh they still raise (the
+# sweep axis, ROADMAP.md queue A item 7)
 REFUSED = {
     "journal_path": (lambda: ScenarioServer(journal_path="j", mesh=object(), device="cpu",
-                                            start=False), "slice 6"),
-    "mesh": (lambda: ScenarioServer(mesh=object(), device="cpu", start=False), "slice 6"),
+                                            start=False), "sweep axis"),
+    "mesh": (lambda: ScenarioServer(mesh=object(), device="cpu", start=False), "sweep axis"),
     "run_batch_journal": (lambda: tdispatch.run_batch([parse_request(dict(OPS), "r")], 1,
                                                       journal=object(), mesh=object(),
-                                                      device="cpu"), "slice 6"),
+                                                      device="cpu"), "sweep axis"),
 }
 
 
@@ -538,8 +539,8 @@ def test_later_slices_refused(arm):
 
 
 @pytest.mark.parametrize("argv,match", [(["--journal", "j.jsonl", "--mesh-sweep", "2"],
-                                         "slice 6"),
-                                        (["--mesh-sweep", "2"], "slice 6")])
+                                         "sweep axis"),
+                                        (["--mesh-sweep", "2"], "sweep axis")])
 def test_daemon_refusals_exit_2(capsys, argv, match):
     assert serve_main(argv + ["--device", "cpu"]) == 2
     assert match in capsys.readouterr().err

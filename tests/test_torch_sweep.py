@@ -410,19 +410,19 @@ def test_normal_tick_batch_raises():
 
 # journal=, supervise=, dyn_chunk_keys and probe= are ported
 # (tests/test_torch_journal.py, test_torch_obsim.py); over a device mesh
-# each of them still raises, naming the many-GPU slice
+# each of them still raises, naming the sweep axis (ROADMAP.md queue A item 7)
 REFUSED = {
     "journal": (lambda cfg: tsweep.run_fault_sweep(cfg, [cfg.faults], [0], journal=object(),
-                                                   mesh=object(), device="cpu"), "slice 6"),
+                                                   mesh=object(), device="cpu"), "sweep axis"),
     "supervise": (lambda cfg: tsweep.run_byzantine_sweep(cfg, [0], supervise=object(),
                                                          mesh=object(), device="cpu"),
-                  "slice 6"),
+                  "sweep axis"),
     "chunk_keys": (lambda cfg: tsweep.dyn_chunk_keys(cfg, [cfg.faults], [0], mesh=object()),
-                   "slice 6"),
+                   "sweep axis"),
     "mesh": (lambda cfg: tsweep.run_seed_sweep(cfg, [0, 1], mesh=object(), device="cpu"),
-             "slice 6"),
+             "sweep axis"),
     "probe": (lambda cfg: tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=object(), mesh=object(),
-                                                device="cpu"), "slice 6"),
+                                                device="cpu"), "sweep axis"),
 }
 
 

@@ -379,17 +379,27 @@ def test_stat_primitives_equal_jax(mode, drop):
 
 
 def test_primitives_refuse_exchange_and_axis():
-    """The neighbour exchange (``xg=``) and a mesh ``axis`` belong to the
-    many-GPU slice."""
+    """The neighbour exchange (``xg=``) and a mesh ``axis`` are the sharded
+    overlay's (tests/test_torch_exchange.py runs them over ranks): a given
+    exchange carries every cross-row read, with the same values as the
+    gather, and an axis that no sharded body binds is refused."""
     x = _inputs(0)
     _, ttabs = _tables_both()
     send, tids = torch.as_tensor(x["send"]), torch.arange(N, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tgd.bcast_counts_kreg(threefry.key(0), send, ttabs[0], tids, LO, HI, xg=object())
-    with pytest.raises(NotImplementedError, match="many-GPU"):
-        tgd.bcast_counts_kreg(threefry.key(0), send, ttabs[0], tids, LO, HI, axis="nodes")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tgd.in_counts(send, ttabs[0], tids, xg=object())
+    reads = []
+
+    def xg(v, kind="in", col=None):
+        reads.append(kind)
+        return tgd._nbr_rows(v, ttabs[0] if kind == "in" else ttabs[1], col=col)
+
+    key = threefry.key(0)
+    assert torch.equal(tgd.bcast_counts_kreg(key, send, ttabs[0], tids, LO, HI, xg=xg),
+                       tgd.bcast_counts_kreg(key, send, ttabs[0], tids, LO, HI))
+    assert torch.equal(tgd.in_counts(send, ttabs[0], tids, xg=xg),
+                       tgd.in_counts(send, ttabs[0], tids))
+    assert reads == ["in", "in"]
+    with pytest.raises(RuntimeError, match="not bound"):
+        tgd.bcast_counts_kreg(key, send, ttabs[0], tids, LO, HI, axis="nodes")
 
 
 # --------------------------------------------------------------------------- #
@@ -555,22 +565,17 @@ def test_committee_checkpoints_refuse_as_jax(tmp_path):
 
 
 def test_sharded_topo_and_exchange_refuse():
-    """The node-sharded topology programs and the exchange plans belong to
-    the many-GPU slice; a dense config is a ValueError in both packages."""
-    for kw in (RUNS["pbft_edge"], RUNS["committee_pbft"]):
-        cfg = tconfig.SimConfig(**kw)
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            tsweep.sharded_topo_sim_fn(cfg, mesh="nodes:2")
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            tsweep.run_sharded_topo(cfg, mesh="nodes:2")
+    """The node-sharded topology programs and the exchange run on a node
+    mesh now (tests/test_torch_exchange.py); what they still refuse: a
+    dense config (a ValueError in both packages), a committee config for
+    the tables-as-operands program, and a ``mesh_axis`` config through the
+    single-device runner."""
     with pytest.raises(ValueError):
         tsweep.sharded_topo_sim_fn(tconfig.SimConfig(protocol="pbft", n=8), mesh="nodes:2")
     kcfg = tconfig.SimConfig(**RUNS["raft_edge"])
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        trunner.make_topo_dyn_sim_fn(kcfg, exchange_spec=object())
     with pytest.raises(ValueError):
         trunner.make_topo_dyn_sim_fn(tconfig.SimConfig(**RUNS["committee_pbft"]))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="run_sharded"):
         trunner.run_simulation(kcfg.with_(mesh_axis="nodes"), device="cpu")
     # committee probes are ported (utils/trace.py): the taps only read, and
     # the committees' series stack [C, ticks]
