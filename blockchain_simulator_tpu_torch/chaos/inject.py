@@ -24,8 +24,9 @@ schedule bit-for-bit.  This module is a copy of the JAX package's.
 
 Registered sites in the port (grep ``chaos_point(`` for ground truth):
 
-- ``sweep.dyn_dispatch`` — parallel/sweep._dispatch_dyn_points, before
-  the batched dispatch (the sweeps' and the server's shared batched path);
+- ``sweep.dyn_dispatch`` — parallel/sweep._local_rows, before the
+  batched dispatch (the sweeps' and the server's shared batched path;
+  over a grid of ranks, before this rank's part of it);
 - ``serve.solo_dispatch`` — serve/dispatch._solo_metrics, before the solo
   program runs (ctx carries ``req_id`` so poison can target one request);
 - ``serve.batcher`` — the ScenarioServer batcher loop, once per iteration

@@ -284,22 +284,26 @@ def _run_observed(args, cfg, seeds, dev, emit) -> int:
 
 def _run_sharded(args, cfg, seeds, emit) -> int:
     """``--shards W``: W rank processes of one group run the node-sharded
-    simulation (parallel/multihost.launch); rank 0's metrics are printed."""
+    simulation (parallel/multihost.launch); rank 0's metrics are printed.
+    With ``--seeds`` the ranks run the seed sweep over a nodes mesh of W
+    (parallel/sweep.run_seed_sweep ``mesh=``, as JAX's command line does),
+    one line a seed; the sweep already appended each row to the run log."""
     from blockchain_simulator_tpu_torch.parallel import multihost
-    from blockchain_simulator_tpu_torch.parallel.mesh import SWEEP_AXIS_ITEM
 
-    if len(seeds) > 1:
-        return _error(f"--seeds with --shards (a seed sweep over a mesh) comes with "
-                      f"{SWEEP_AXIS_ITEM}")
     try:
-        m = multihost.launch(multihost.run_sharded_multihost, args.shards,
-                             args=(cfg, None, seeds[0]), device=args.device)[0]
+        if len(seeds) > 1:
+            rows = multihost.launch(multihost.run_seed_sweep_multihost, args.shards,
+                                    args=(cfg, seeds), device=args.device)[0]
+        else:
+            rows = [multihost.launch(multihost.run_sharded_multihost, args.shards,
+                                     args=(cfg, None, seeds[0]), device=args.device)[0]]
     except (ValueError, NotImplementedError) as e:
         return _error(e)
     except RuntimeError as e:  # too few cards, or a rank failed
         print(f"error: {e}", file=sys.stderr)
         return 1
-    emit(m, cfg)
+    for m in rows:
+        emit(m, cfg, append=len(seeds) == 1)
     return 0
 
 

@@ -29,7 +29,9 @@ host once an iteration), so a CUDA graph can capture the loop.
 Node-sharded (``mesh_axis`` set, parallel/shard.py): the state holds this
 rank's rows, every cross-node reduction of a round (the slot, the trigger,
 the new leader, the voter and commit-sender totals, the last commit tick)
-is an all-reduce over the bound mesh, the draws use the shard's key, and
+is an all-reduce over the bound mesh, the draws use the shard's key (on
+a mesh in global view, parallel/sweep.mesh_dyn_batched_fn's nodes arm:
+this rank's rows of the single-device draws, ops/delivery.draw_rows), and
 :func:`finalize` combines the per-rank slot accumulators, as in the JAX
 function.  A sharded round reads nothing back to the host either.
 """
@@ -192,7 +194,7 @@ def _round_consts(cfg, device, n: int, base: int) -> _RoundConsts:
     b1, b2 = hi - lo, rt_hi - rt_lo
     w_arr = (b1 + b2 - 1) + b1 - 1
     return _RoundConsts(
-        ids=torch.arange(base, base + n, dtype=_I32, device=device),
+        ids=dv.row_ids(n, base, device),
         rt_iota=torch.arange(b2, dtype=_I32, device=device)[:, None],
         arr_iota=torch.arange(w_arr, dtype=_I32, device=device),
         d_iota=torch.arange(lo, hi, dtype=_I32, device=device)[:, None],
@@ -250,8 +252,9 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
                     _NEVER),
         "amin", _NEVER)
 
-    u = threefry.randint(dv._shard_key(chan_key(tkey, Channel.VIEW_CHANGE), axis), (n_loc,),
-                         0, cfg.pbft_view_change_den, dev)
+    with dv.draw_rows(axis):
+        u = threefry.randint(dv._shard_key(chan_key(tkey, Channel.VIEW_CHANGE), axis),
+                             (n_loc,), 0, cfg.pbft_view_change_den, dev)
     trigger = send & (u < cfg.pbft_view_change_num)
     any_trigger = dv._pmax(trigger.any(-1), axis)[..., None]
     new_leader = dv._pmax(torch.where(trigger, (state.leader + 1) % n, 0).amax(-1),
@@ -262,11 +265,13 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
 
     # ---- B. PRE_PREPARE arrivals + PREPARE round trips ----------------------
     k_pp = chan_key(tkey, Channel.DELAY_BCAST2)
-    d_j = threefry.randint(dv._shard_key(k_pp, axis), (n_loc,), lo, hi, dev)
+    with dv.draw_rows(axis):
+        d_j = threefry.randint(dv._shard_key(k_pp, axis), (n_loc,), lo, hi, dev)
     recv = active[..., None] & state.alive & ~send & (t0 + ser + d_j < t_end)
     if drop > 0.0:
-        recv = recv & threefry.bernoulli(dv._shard_key(threefry.fold_in(k_pp, 0x0D0D), axis),
-                                         1.0 - drop, (n_loc,), dev)
+        with dv.draw_rows(axis):
+            recv = recv & threefry.bernoulli(
+                dv._shard_key(threefry.fold_in(k_pp, 0x0D0D), axis), 1.0 - drop, (n_loc,), dev)
     voters = state.alive & state.honest
     vi = voters.to(_I32)
     n_voters = dv._psum(vi.sum(-1, keepdim=True, dtype=_I32), axis)
@@ -291,12 +296,13 @@ def step_round(cfg, state: PbftRoundState, r: int, tkey):
     m_all = torch.where(state.alive[None], totals - send_at, 0)
     if lanes:  # the samplers take the lane axis first
         m_all = m_all.movedim(1, 0)
-    if drop > 0.0:
-        m_all = torch.round(delay_ops.binom(
-            dv._shard_key(threefry.fold_in(k_cm, 0x0D12), axis), m_all,
-            1.0 - drop, smode)).to(_I32)
-    cnt_all = delay_ops.sample_bucket_counts(dv._shard_key(k_cm, axis), m_all, ow_probs,
-                                             smode)
+    with dv.draw_rows(axis):  # the node axis of m_all is its last
+        if drop > 0.0:
+            m_all = torch.round(delay_ops.binom(
+                dv._shard_key(threefry.fold_in(k_cm, 0x0D12), axis), m_all,
+                1.0 - drop, smode)).to(_I32)
+        cnt_all = delay_ops.sample_bucket_counts(dv._shard_key(k_cm, axis), m_all, ow_probs,
+                                                 smode)
     if lanes:
         cnt_all = cnt_all.movedim(1, 2)  # [B1, W_send, B, N]
     arrivals = _shift_sum(cnt_all, b1)  # [W_arr, ..., N]: bucket i lands at

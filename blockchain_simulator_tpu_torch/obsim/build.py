@@ -17,8 +17,8 @@ does.  The round path and the heartbeat scan push nothing.
 
 Registry discipline (utils/aotcache.py): the probed programs are their own
 ``consobs-*`` entries keyed ``(cfg, pcfg, ...)`` and the disarmed entries
-are untouched.  The mesh twin (``probed_mesh_fn``) comes with the sweep
-axis of the port (ROADMAP.md queue A item 7).
+are untouched.  The mesh twin (``probed_mesh_fn``) is the armed program of
+one sweep row, arm for arm with parallel/sweep.mesh_dyn_batched_fn.
 """
 
 from __future__ import annotations
@@ -47,6 +47,37 @@ def _operands(key, n_crashed, n_byzantine):
     if key.ndim == 2:
         return key, np.asarray(n_crashed, np.int64), np.asarray(n_byzantine, np.int64)
     return key, int(n_crashed), int(n_byzantine)
+
+
+def hb_reduce(cfg, pcfg: schema.ProbeConfig):
+    """The Raft heartbeat path's ``reduce_fn`` (models/raft_hb.scan_from_init
+    ``probe=``): both branches reduce to one shape, the window count clamped
+    to the SHORTER branch's sample count (prefix ticks + heartbeats against
+    the full ticks), with the liveness lag when monitors are armed."""
+    from blockchain_simulator_tpu_torch.models import raft_hb
+
+    m_fast = raft_hb.prefix_ticks(cfg) + raft_hb.n_hb_steps(cfg)
+    w_eff = max(1, min(pcfg.windows, m_fast, cfg.ticks))
+
+    def reduce_fn(series):
+        m = next(iter(series.values())).shape[-1]
+        red = {"series": taps.window(series, m, w_eff)}
+        if pcfg.monitors:
+            red["liveness_lag"] = taps.liveness_lag(series[schema.PROGRESS_FIELD["raft"]])
+        return red
+
+    return reduce_fn
+
+
+def hb_probes(cfg, pcfg: schema.ProbeConfig, final, red) -> dict:
+    """The heartbeat path's probe pytree from its final state and reduced
+    series."""
+    probes = {"series": red["series"]}
+    if pcfg.monitors:
+        mon = taps.monitors(cfg, final)
+        mon["liveness_lag"] = red["liveness_lag"]
+        probes["monitors"] = mon
+    return probes
 
 
 def make_probed_dyn_sim_fn(cfg, pcfg: schema.ProbeConfig):
@@ -87,33 +118,15 @@ def make_probed_dyn_sim_fn(cfg, pcfg: schema.ProbeConfig):
             from blockchain_simulator_tpu_torch.models import raft as raft_tick
             from blockchain_simulator_tpu_torch.models import raft_hb
 
-            # both branches reduce to one shape: the window count clamped to
-            # the SHORTER branch's sample count (prefix ticks + heartbeats
-            # against the full ticks)
-            m_fast = raft_hb.prefix_ticks(cfg) + raft_hb.n_hb_steps(cfg)
-            w_eff = max(1, min(pcfg.windows, m_fast, cfg.ticks))
-
-            def reduce_fn(series):
-                m = next(iter(series.values())).shape[-1]
-                red = {"series": taps.window(series, m, w_eff)}
-                if pcfg.monitors:
-                    red["liveness_lag"] = taps.liveness_lag(
-                        series[schema.PROGRESS_FIELD["raft"]])
-                return red
-
-            probe = (functools.partial(taps.sample, cfg), taps.raft_steady_sample, reduce_fn)
+            probe = (functools.partial(taps.sample, cfg), taps.raft_steady_sample,
+                     hb_reduce(cfg, pcfg))
 
             def sim_hb(key, n_crashed, n_byzantine, device):
                 key, nc, nb = _operands(key, n_crashed, n_byzantine)
                 state, bufs = init(raft_tick.init, key, nc, nb, device)
                 final, red = raft_hb.scan_from_init(dyn_step_cfg(cfg, nb), state, bufs, key,
                                                     probe=probe)
-                probes = {"series": red["series"]}
-                if pcfg.monitors:
-                    mon = taps.monitors(cfg, final)
-                    mon["liveness_lag"] = red["liveness_lag"]
-                    probes["monitors"] = mon
-                return final, probes
+                return final, hb_probes(cfg, pcfg, final, red)
 
             return sim_hb
 
@@ -187,11 +200,13 @@ def probed_batched_fn(cfg, pcfg: schema.ProbeConfig, multi_seed: bool = False):
     return batched
 
 
+@aotcache.cached_factory("consobs-mesh")
 def probed_mesh_fn(cfg, pcfg: schema.ProbeConfig, mesh):
-    """The armed twin of the sweeps' mesh program: comes with the sweep axis
-    of the port (ROADMAP.md queue A item 7)."""
-    from blockchain_simulator_tpu_torch.parallel.mesh import SWEEP_AXIS_ITEM
+    """The armed twin of parallel/sweep.mesh_dyn_batched_fn, arm for arm
+    (parallel/sweep.mesh_lanes_fn with ``pcfg``): ``batched(keys [L, 2],
+    n_crashed [L], n_byzantine [L], device) -> (finals [L, ...], probes)``
+    for one sweep row's lanes; on the nodes axis the taps read the state
+    gathered over the row, so the probes are the single-device run's."""
+    from blockchain_simulator_tpu_torch.parallel import sweep
 
-    del cfg, pcfg
-    raise NotImplementedError(
-        f"probed_mesh_fn over a device mesh ({mesh!r}) comes with {SWEEP_AXIS_ITEM}")
+    return sweep.mesh_lanes_fn(cfg, mesh, pcfg)

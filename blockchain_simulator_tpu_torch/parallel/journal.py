@@ -47,8 +47,10 @@ device: a chunk that fails on the card fails there, typed
 (:class:`ChunkFailedError`).  Every transition lands as an ``event`` line
 in the journal.
 
-Only ``mesh=None`` is ported: a mesh descriptor in :func:`chunk_key` needs
-the sweep axis of the port (ROADMAP.md queue A item 7).
+A sweep over a mesh (parallel/sweep.py ``mesh=``) keys its chunks with
+the mesh's shape, JAX's ``{"sweep": S, "nodes": J}`` descriptor, so a mesh
+journal of either package resumes in the other.  Every rank of the grid
+runs the sweep; the grid's rank 0 writes the journal.
 """
 
 from __future__ import annotations
@@ -85,16 +87,15 @@ def chunk_key(canon, index: int, points, mesh=None,
     this key only — file order and wall-clock never matter."""
     from blockchain_simulator_tpu_torch.utils import obs
 
+    mesh_desc = None
     if mesh is not None:
-        from blockchain_simulator_tpu_torch.parallel.mesh import SWEEP_AXIS_ITEM
+        from blockchain_simulator_tpu_torch.parallel import partition
 
-        raise NotImplementedError(
-            "chunk_key over a device mesh (its mesh descriptor) comes with "
-            f"{SWEEP_AXIS_ITEM}")
+        mesh_desc = partition.mesh_shape_dict(mesh)
     ident = {
         "canon": obs.config_hash(canon),
         "index": int(index),
-        "mesh": None,
+        "mesh": mesh_desc,
         "n_out": None if n_out is None else int(n_out),
         "points": [[obs.config_hash(cfg), int(seed)] for cfg, seed in points],
     }
@@ -429,18 +430,34 @@ def _with_deadline(fn, deadline_s):
 
 def run_supervised(primary, degrade, sup: ChunkSupervisor,
                    journal: SweepJournal | None = None,
-                   key: str = "?") -> tuple[list, list[str]]:
+                   key: str = "?", agree=None) -> tuple[list, list[str]]:
     """The deadline → retry/backoff → degrade state machine around one
     chunk.  ``primary``/``degrade`` are zero-arg callables returning the
     chunk's rows (``degrade=None`` disables the arm).  Returns
     ``(rows, events)`` where events is the ordered transition trail —
     also appended to ``journal`` as ``event`` lines as they happen.
 
+    ``agree(arm, err, value)`` (a sweep over a grid of ranks,
+    parallel/sweep.py) runs in the calling thread after every attempt of
+    either arm (``arm`` ``"primary"`` or ``"degrade"``, ``err`` the
+    attempt's exception or ``None``) and returns the rows, or raises when
+    any rank's attempt failed: every rank then takes the same transition.
+
     Terminal behavior: rows from the primary arm (possibly after
     retries), rows from the degrade arm (recorded), or a typed
     :class:`ChunkFailedError` carrying the last underlying error —
     never a silently hung sweep."""
     events: list[str] = []
+
+    def run_arm(arm: str, fn, deadline_s):
+        if agree is None:
+            return _with_deadline(fn, deadline_s)
+        err = val = None
+        try:
+            val = _with_deadline(fn, deadline_s)
+        except Exception as e:  # the grid hears of it before anyone acts
+            err = e
+        return agree(arm, err, val)
 
     def note(event: str, **fields):
         events.append(event)
@@ -458,7 +475,7 @@ def run_supervised(primary, degrade, sup: ChunkSupervisor,
     last_err: BaseException | None = None
     for attempt in range(1, sup.retries + 2):
         try:
-            return _with_deadline(primary, sup.deadline_s), events
+            return run_arm("primary", primary, sup.deadline_s), events
         except ChunkDeadlineError as e:
             last_err = e
             note("deadline", attempt=attempt,
@@ -482,7 +499,7 @@ def run_supervised(primary, degrade, sup: ChunkSupervisor,
     if degrade is not None:
         note("degrade")
         try:
-            return _with_deadline(degrade, sup.degrade_deadline_s), events
+            return run_arm("degrade", degrade, sup.degrade_deadline_s), events
         except Exception as e:
             last_err = e
             note("failed", error=f"{type(e).__name__}: {e}"[:200])

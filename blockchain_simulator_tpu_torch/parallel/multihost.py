@@ -4,18 +4,24 @@
 JAX runs one controller over a global mesh after
 ``jax.distributed.initialize``.  PyTorch runs one process a rank:
 :func:`init_multihost` joins the process group (NCCL on the card, rank r on
-``cuda:r``; gloo on the CPU; a TCP rendezvous at the coordinator), and
-:func:`run_sharded_multihost`, called in every rank, runs one node-sharded
-simulation (parallel/shard.py) and returns the full metrics on every rank.
-The result equals JAX's run over a global mesh of the same size, bit for
-bit: every draw is keyed by (seed, tick, channel, shard), never by process.
+``cuda:(r % cards)``; gloo on the CPU; a TCP rendezvous at the
+coordinator), and :func:`run_sharded_multihost`, called in every rank, runs
+one node-sharded simulation (parallel/shard.py) and returns the full
+metrics on every rank.  The result equals JAX's run over a global mesh of
+the same size, bit for bit: every draw is keyed by (seed, tick, channel,
+shard), never by process.  :func:`run_seed_sweep_multihost` runs a seed
+sweep over a nodes mesh of the ranks (parallel/sweep.py ``mesh=``).
 
 :func:`launch` is the single-process door the command line (``--shards
 W``) and the tests use: it starts W rank processes, joins them against a
 deadline, and kills them all on any failure.  Every process group has a
-timeout, so a rank that hangs in a collective fails its run within it.  A
-``cuda`` run with more ranks than visible cards raises before any rank
-starts: it never falls back to the CPU or to fewer ranks.
+timeout, so a rank that hangs in a collective fails its run within it.
+*Placement on the cards*: rank r computes on ``cuda:(r % cards)``.  The
+ranks of one nodes row share a NCCL communicator, which refuses two ranks
+on one card, so a row needs as many cards as it has ranks; sweep rows share
+no communicator and may share cards (two sweep rows on one card run side by
+side).  A ``cuda`` grid whose nodes rows outnumber the visible cards raises
+before any rank starts: it never falls back to the CPU or to fewer ranks.
 
 CLI, one process a rank: ``python -m
 blockchain_simulator_tpu_torch.parallel.multihost --coordinator HOST:PORT
@@ -43,33 +49,42 @@ DEFAULT_GROUP_TIMEOUT_S = 300.0
 def init_multihost(coordinator: str, num_processes: int, process_id: int,
                    device: str = "cuda", timeout_s: float = DEFAULT_GROUP_TIMEOUT_S) -> None:
     """Join (or start, for process 0) the process group: NCCL with rank r
-    on ``cuda:r`` for ``device="cuda"``, gloo for ``"cpu"``, rendezvous over
-    TCP at ``coordinator`` (``HOST:PORT``); every collective of the group
-    fails after ``timeout_s``."""
+    on ``cuda:(r % cards)`` for ``device="cuda"`` (the module's placement
+    rule), gloo for ``"cpu"``, rendezvous over TCP at ``coordinator``
+    (``HOST:PORT``); every collective of the group (and of the groups
+    parallel/mesh.make_mesh makes in it) fails after ``timeout_s``."""
     import torch
     import torch.distributed as dist
 
     if device == "cuda":
         n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if process_id >= n_cards:
+        if n_cards == 0:
             raise RuntimeError(
-                f"rank {process_id} of a NCCL group needs cuda:{process_id}; "
-                f"{n_cards} card(s) visible (no fallback to the CPU)")
-        torch.cuda.set_device(process_id)
+                f"rank {process_id} of a NCCL group needs a card; none visible "
+                "(no fallback to the CPU)")
+        torch.cuda.set_device(process_id % n_cards)
         backend = "nccl"
     elif device == "cpu":
         backend = "gloo"
     else:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    from blockchain_simulator_tpu_torch.parallel import mesh
+
+    mesh.GROUP_TIMEOUT = datetime.timedelta(seconds=float(timeout_s))
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator}", world_size=int(num_processes),
-        rank=int(process_id), timeout=datetime.timedelta(seconds=float(timeout_s)))
+        rank=int(process_id), timeout=mesh.GROUP_TIMEOUT)
 
 
 def shutdown() -> None:
-    """Leave the process group (a no-op outside one)."""
+    """Leave the process group (a no-op outside one), and forget the grid
+    groups made in it (parallel/mesh.make_mesh)."""
     import torch.distributed as dist
 
+    from blockchain_simulator_tpu_torch.parallel import mesh
+
+    mesh._GRIDS.clear()
+    mesh._COUNTS.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -84,6 +99,17 @@ def run_sharded_multihost(cfg, n_node_shards: int | None = None, seed=None) -> d
     return run_sharded(cfg, make_mesh(n_node_shards=n_node_shards), seed=seed)
 
 
+def run_seed_sweep_multihost(cfg, seeds) -> list:
+    """Run a seed sweep over a nodes mesh of every rank of the group
+    (parallel/sweep.run_seed_sweep with ``mesh=``, as JAX's ``--shards W
+    --seeds ...``): each seed's row is ``run_sharded`` over the ranks.  Call
+    it in every process; every process returns every seed's metrics."""
+    from blockchain_simulator_tpu_torch.parallel.mesh import make_mesh
+    from blockchain_simulator_tpu_torch.parallel.sweep import run_seed_sweep
+
+    return run_seed_sweep(cfg, seeds, mesh=make_mesh())
+
+
 # ------------------------------------------------------------- launcher ----
 
 
@@ -94,17 +120,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def check_ranks(world_size: int, device: str) -> None:
-    """Refuse a group the machine cannot hold, before any rank starts."""
+def check_ranks(world_size: int, device: str, n_nodes: int | None = None) -> None:
+    """Refuse a group the machine cannot hold, before any rank starts: on
+    the cards, a nodes row of ``n_nodes`` ranks (the whole world by
+    default) needs as many cards (the placement rule, module docstring)."""
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
+    n_nodes = world_size if n_nodes is None else int(n_nodes)
+    if n_nodes < 1 or world_size % n_nodes:
+        raise ValueError(f"{world_size} ranks do not form rows of {n_nodes}")
     if device == "cuda":
         import torch
 
         n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if world_size > n_cards:
+        if n_cards == 0 or n_nodes > n_cards:
             raise RuntimeError(
-                f"{world_size} NCCL ranks need {world_size} cards; {n_cards} "
+                f"a nodes row of {n_nodes} NCCL ranks needs {n_nodes} cards; {n_cards} "
                 "visible (no fallback to the CPU or to fewer ranks)")
     elif device != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
@@ -142,22 +173,31 @@ def _rank_job(job_file: str, coordinator: str, world_size: int, rank: int,
 
 
 def launch(job, world_size: int, args=(), device: str = "cuda",
-           timeout_s: float = 600.0, group_timeout_s: float | None = None) -> list:
+           timeout_s: float = 600.0, group_timeout_s: float | None = None,
+           mesh_shape: tuple | None = None) -> list:
     """Run ``job(*args)`` in ``world_size`` new rank processes of one group
     and return every rank's result, in rank order.  ``job`` is a function
     importable by its module and name (each rank is a fresh interpreter:
     ``python -m blockchain_simulator_tpu_torch.parallel.multihost --job``),
     ``args`` picklable; inside it, parallel/mesh.make_mesh gives the rank's
-    mesh.  The ranks run NCCL on the cards (rank r on ``cuda:r``) unless
-    the caller asks for gloo on the CPU with ``device="cpu"``.  They are
-    joined against ``timeout_s``; a rank that fails, dies or outlives the
-    deadline kills them all and raises ``RuntimeError``.  ``device="cuda"``
-    with more ranks than cards raises before any rank starts."""
+    mesh.  ``mesh_shape`` is the ``(n_sweep, n_nodes)`` grid the job makes
+    (``(1, world_size)`` by default): it sets the placement check.  The
+    ranks run NCCL on the cards unless the caller asks for gloo on the CPU
+    with ``device="cpu"``; on the cards rank r computes on ``cuda:(r %
+    cards)``, so a nodes row needs as many cards as ranks and sweep rows
+    may share them (module docstring).  The ranks are joined against
+    ``timeout_s``; a rank that fails, dies or outlives the deadline kills
+    them all and raises ``RuntimeError``.  ``device="cuda"`` with a nodes
+    row longer than the cards raises before any rank starts."""
     import pickle
     import subprocess
     import tempfile
 
-    check_ranks(world_size, device)
+    n_sweep, n_nodes = (1, world_size) if mesh_shape is None else map(int, mesh_shape)
+    if n_sweep * n_nodes != world_size:
+        raise ValueError(f"mesh {n_sweep}x{n_nodes} needs {n_sweep * n_nodes} ranks, "
+                         f"not {world_size}")
+    check_ranks(world_size, device, n_nodes)
     gt = group_timeout_s if group_timeout_s is not None else timeout_s
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ)
@@ -284,7 +324,7 @@ def main(argv=None) -> int:
     p.add_argument("--num-processes", type=int, required=True)
     p.add_argument("--process-id", type=int, required=True)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="cuda: NCCL, rank r on cuda:r (the default); cpu: gloo")
+                   help="cuda: NCCL, rank r on cuda:(r %% cards) (the default); cpu: gloo")
     p.add_argument("--protocol", default="pbft")
     p.add_argument("--n", type=int, default=64)
     p.add_argument("--sim-ms", type=int, default=2500)

@@ -31,9 +31,8 @@ each rank returns the full result.  Its two styles are JAX's:
 :class:`NeighborExchange` and :class:`ExchangeSpec` are the overlay's
 owner-bucketed neighbour reads: one ``all_to_all_single`` of the static
 owner buckets a call (plans from topo/spec.owner_bucket_plan).  The sweep
-helpers (:func:`seq_map`, :func:`pad_points`, :func:`align_chunk`,
-:func:`batched_out_shardings`) belong to the sweep axis, the next slice of
-the port; they are here, as in the JAX package, for it.
+helpers (:func:`pad_points`, :func:`align_chunk`) lay a sweep's lanes over
+the sweep rows of a mesh (parallel/sweep.py), as JAX's do.
 """
 
 from __future__ import annotations
@@ -336,18 +335,6 @@ class ExchangeSpec:
 # ----------------------------------------------------- mesh-sweep helpers ---
 
 
-def seq_map(fn):
-    """``batched(*operands) -> finals`` running the batch in turn through
-    the unbatched ``fn`` (JAX's ``lax.map`` body of the mesh sweeps), the
-    finals stacked on a new leading axis."""
-    from blockchain_simulator_tpu_torch.models.base import stack_lanes
-
-    def batched(*operands):
-        return stack_lanes([fn(*args) for args in zip(*operands)])
-
-    return batched
-
-
 def pad_points(points, lanes: int):
     """Pad ``points`` to a multiple of ``lanes`` by repeating the last one.
     Returns ``(padded, n_real)``."""
@@ -367,23 +354,3 @@ def align_chunk(chunk_size: int, lanes: int) -> int:
     lanes = max(1, int(lanes))
     rem = chunk_size % lanes
     return chunk_size + (lanes - rem if rem else 0)
-
-
-def batched_out_shardings(cfg, mesh, out_avals):
-    """Global-view specs for a batched ``[B, ...]`` final tree: the batch
-    dim over the sweep axis; with more than one node shard, a leaf whose
-    dim 1 is the node count (the committee count on the committee path)
-    rides the nodes axis when it divides evenly."""
-    n_nodes = int(dict(mesh.shape).get(NODES_AXIS, 1))
-    sweep = SWEEP_AXIS if sweep_axis_size(mesh) > 1 else None
-    node_dim = cfg.committees if cfg.topology == "committee" else cfg.n
-
-    def leaf_spec(path, leaf):
-        shape = tuple(getattr(leaf, "shape", ()))
-        entries = [sweep]
-        for i, d in enumerate(shape[1:]):
-            entries.append(NODES_AXIS if (i == 0 and n_nodes > 1 and d == node_dim
-                                          and node_dim % n_nodes == 0) else None)
-        return P(*entries)
-
-    return tree_map_with_path(leaf_spec, out_avals)

@@ -1,4 +1,4 @@
-"""Fault and seed sweeps on one device (port of the single-device arms of
+"""Fault and seed sweeps, on one device or over a grid of ranks (port of
 ``blockchain_simulator_tpu/parallel/sweep.py``).
 
 The outer-axis analog of BASELINE config 4 ("Byzantine-fault sweep
@@ -40,8 +40,8 @@ stay pure metrics.
 
 The services around the dispatch are the JAX package's: the batched
 programs are registry entries (utils/aotcache.py: ``"sweep-batched"``,
-``"sweep-batched-dynf"``, ``"multi-seed-tick"``, and obsim's
-``"consobs-batched"``), the batched dispatch fires the
+``"sweep-batched-dynf"``, ``"multi-seed-tick"``, ``"partition-dyn-sweep"``,
+and obsim's ``"consobs-batched"`` and ``"consobs-mesh"``), the batched dispatch fires the
 ``sweep.dyn_dispatch`` chaos point (chaos/inject.py) and runs inside
 ``telemetry.profile_region("sweep_dispatch")``, and the fault sweeps fail
 fast on a fresh ``wedged`` verdict in ``$BLOCKSIM_HEALTH_JSONL``
@@ -61,8 +61,43 @@ journal.  ``probe=`` (obsim/schema.ProbeConfig) dispatches the armed twin
 
 The node-sharded topology programs (:func:`sharded_topo_sim_fn`,
 :func:`run_sharded_topo`) run on every rank of a node mesh
-(parallel/mesh.py).  Kept out, raising ``NotImplementedError`` naming its
-item: ``mesh=`` on the sweeps (the sweep axis).
+(parallel/mesh.py).
+
+*The sweep axis* (``mesh=``, a ``(n_sweep, n_nodes)`` grid of ranks from
+parallel/mesh.make_mesh; call the sweep on every rank of it).  The point
+list pads to a multiple of ``n_sweep`` by repeating its last point
+(partition.pad_points), sweep row ``i`` takes the ``i``-th block of the
+padded lanes, as JAX's ``P(SWEEP)`` splits them, and runs its real lanes;
+the rows' metrics rows (and probe summaries) are gathered to every rank
+over the grid's gloo group, never the final states.  That gather carries
+each rank's outcome too (parallel/mesh.NodeMesh.exchange), so the grid acts
+as one where JAX's single controller decides once: a dispatch that fails on
+any rank fails on every rank, and a supervised chunk retries, degrades or
+fails on all of them together.  The JAX package gives its mesh paths three
+contracts, and each arm keeps its own:
+
+- **sweep-only mesh** (``n_nodes`` 1; :func:`mesh_dyn_batched_fn`): JAX
+  runs each device's lanes through the unvmapped program (``lax.map``), so
+  a lane is the solo run of its point: equal to the single-device row under
+  the exact sampler, and under ``"normal"`` / ``"rbg"`` draws to JAX's mesh
+  rows (not its vmapped ones, which follow the first lane's key);
+- **nodes axis > 1**: JAX partitions the global vmapped program, so a lane
+  is the single-device batched row: each lane runs over its row's nodes
+  group in global view (parallel/partition.partition with explicit
+  shardings; every draw is this rank's rows of the single-device draw,
+  ops/delivery.draw_rows), never with the per-shard keys of run_sharded.
+  A batch of more than one lane drawing on Philox words, whose vmapped
+  rows follow the first lane's key, raises;
+- **seed sweeps** (:func:`run_seed_sweep`, the command line's ``--shards W
+  --seeds ...``): JAX vmaps its node-sharded program, so a lane is
+  ``parallel/shard.run_sharded`` over the row's nodes group at that seed
+  (the shard folded into the keys), not the single-device run.
+
+A mesh of one rank is the plain path; a one-point dispatch over a larger
+mesh drops the mesh (every rank answers it alone, as JAX's single-device
+program does).  A journal is read on the grid's rank 0 and its answer
+broadcast, so every rank dispatches the same chunks, and only rank 0 writes
+it (and the run log).
 """
 
 from __future__ import annotations
@@ -89,22 +124,42 @@ from blockchain_simulator_tpu_torch.runner import (
 )
 from blockchain_simulator_tpu_torch.chaos import inject
 from blockchain_simulator_tpu_torch.parallel import journal as journal_mod
+from blockchain_simulator_tpu_torch.parallel import partition
 from blockchain_simulator_tpu_torch.utils import aotcache, health, obs, telemetry, threefry
 from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
-from blockchain_simulator_tpu_torch.parallel.mesh import NODES_AXIS, SWEEP_AXIS_ITEM
-
-MANY_GPUS = SWEEP_AXIS_ITEM
+from blockchain_simulator_tpu_torch.parallel.mesh import NODES_AXIS, SWEEP_AXIS
 
 
 def _refuse(what: str, where: str):
     raise NotImplementedError(f"{what} comes with {where}")
 
 
-def _refuse_mesh(mesh=None):
-    """The sweep arm a later slice brings."""
+def _mesh_arm(mesh) -> bool:
+    """Does a dispatch over ``mesh`` take a mesh arm (more than one rank)?"""
+    return mesh is not None and partition.mesh_size(mesh) > 1
+
+
+def _sweep_lanes(mesh) -> int:
+    """The number of blocks a mesh dispatch splits its padded lanes into."""
+    return max(partition.sweep_axis_size(mesh), 1)
+
+
+def _writer(mesh) -> bool:
+    """Does this rank write the journal and the run log?  Every rank runs a
+    mesh sweep (and any sweep called in every process of a group); the
+    grid's rank 0 writes for all of them."""
     if mesh is not None:
-        _refuse("mesh= (a sweep over a device mesh)", MANY_GPUS)
+        return mesh.world_rank == 0
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _device(mesh, device):
+    """The device a sweep computes on: the mesh's (this rank's card, or the
+    CPU of a gloo group) when given, else ``resolve_device(device)``."""
+    return mesh.device if mesh is not None else resolve_device(device)
 
 
 def _record(rows, cfgs, seeds):
@@ -185,6 +240,173 @@ def dyn_batched_fn(cfg: SimConfig):
         return stack_lanes([sim(k, c, b, device) for k, c, b in zip(keys, nc, nb)])
 
     return batched
+
+
+def _nodes_refusal(canon: SimConfig, n_lanes: int):
+    """Refuse a nodes-arm batch whose vmapped JAX rows follow the first
+    lane's key (Philox draws, more than one lane): a lane here runs alone."""
+    if n_lanes > 1 and philox_draws(canon):
+        _refuse(
+            f"a node-sharded sweep batch of {n_lanes} lanes of {canon.protocol} drawing on "
+            "Philox words (stat sampler 'normal' or edge sampler 'rbg'; JAX's vmapped rows "
+            "take those from the first lane's key)",
+            "a later slice of the port (ROADMAP.md queue A, tick-engine lanes); use "
+            "stat_sampler='exact' and edge_sampler='threefry', or a sweep-only mesh")
+
+
+def global_view_sim(cfg: SimConfig, mesh, pcfg=None):
+    """``sim(key, n_crashed, n_byzantine) -> final state``: one run of the
+    canonical ``cfg`` over the nodes row ``mesh`` (more than one rank) in
+    global view, equal to ``runner.make_dyn_sim_fn(cfg)``'s run bit for
+    bit.  Each rank builds its block of ``ceil(n / ranks)`` rows of the
+    init, steps them with ``mesh_axis`` set (every draw this rank's rows of
+    the single-device draw, every cross-node reduction a collective of the
+    row) and gets the final state gathered.  The overlays take
+    :func:`sharded_topo_sim_fn`, the same global view.
+
+    ``pcfg`` (obsim/schema.ProbeConfig) arms the taps: ``sim`` then returns
+    ``(final state, probes)``, each sample read off the state gathered over
+    the row (its per-rank accumulators combined), so the probes are the
+    single-device run's (obsim/build.make_probed_dyn_sim_fn)."""
+    from blockchain_simulator_tpu_torch.models import base as base_model
+    from blockchain_simulator_tpu_torch.models.base import get_protocol, tick_loop
+    from blockchain_simulator_tpu_torch.parallel.mesh import bound
+    from blockchain_simulator_tpu_torch.parallel.partition import P
+
+    if cfg.topology in ("kregular", "committee"):
+        if pcfg is not None:
+            _refuse("probes on a node-sharded overlay lane",
+                    "a later slice of the port (the overlays' taps in global view)")
+        return sharded_topo_sim_fn(cfg, mesh)
+    dev = mesh.device
+    engine = ("hb" if cfg.protocol == "raft" else "round") if use_round_schedule(cfg) \
+        else "tick"
+    if engine == "hb":
+        from blockchain_simulator_tpu_torch.models import raft, raft_hb
+
+        init, glob, fin = raft.init, (), None
+    elif engine == "round":
+        from blockchain_simulator_tpu_torch.models import pbft_round
+
+        init, glob, fin = pbft_round.init, pbft_round.GLOBAL_FIELDS, pbft_round.finalize
+    else:
+        proto = get_protocol(cfg.protocol)
+        init, glob = proto.init, getattr(proto, "GLOBAL_FIELDS", ())
+        fin = getattr(proto, "finalize", None)
+    specs = partition.match_partition_rules(partition.node_dim_rules(glob),
+                                            init(cfg, device="meta")[0])
+
+    def finish(state):
+        return state if fin is None else fin(state, NODES_AXIS)
+
+    taps_of = {}  # the run's probe series, replicated on every rank of the row
+    if pcfg is not None:
+        from blockchain_simulator_tpu_torch.obsim import build as obsim_build
+        from blockchain_simulator_tpu_torch.obsim import taps
+
+        def full(state):
+            """The state as the single-device run holds it."""
+            return partition.gather(finish(state), specs, bound(NODES_AXIS))
+
+        def sample(state):
+            return taps.sample(cfg, full(state))
+
+    def run(ids_loc, key, n_crashed, n_byzantine):
+        del ids_loc  # it carries the node count into the global view
+        start, n_loc = rows = bound(NODES_AXIS).rows(cfg.n)
+        state, bufs = init(cfg, threefry.fold_in(key, runner._INIT_FOLD), device=dev,
+                           rows=rows)
+        masks = base_model.dyn_fault_masks(cfg.n, n_crashed, n_byzantine, dev)
+        state = base_model.apply_fault_masks(cfg, state,
+                                             *(m[start:start + n_loc] for m in masks))
+        step_cfg = runner.dyn_step_cfg(cfg, n_byzantine).with_(mesh_axis=NODES_AXIS)
+        if engine == "hb":
+            if pcfg is None:
+                return raft_hb.scan_from_init(step_cfg, state, bufs, key)
+            final, taps_of["red"] = raft_hb.scan_from_init(
+                step_cfg, state, bufs, key,
+                probe=(sample, lambda ys, h: taps.raft_steady_sample(ys, full(h)),
+                       obsim_build.hb_reduce(cfg, pcfg)))
+            return final
+        if engine == "round":
+            out = pbft_round.scan_rounds(step_cfg, state, key,
+                                         with_probe=False if pcfg is None else sample)
+        else:
+            out = tick_loop(step_cfg, state, bufs, key, 0, cfg.ticks,
+                            probe=None if pcfg is None else sample)
+            out = out[0] if pcfg is None else (out[0], out[2])
+        if pcfg is None:
+            return finish(out)
+        taps_of["ys"] = out[1]
+        return finish(out[0])
+
+    p = partition.partition(run, mesh, in_shardings=(P(NODES_AXIS), P(), P(), P()),
+                            out_shardings=specs)
+    ids = torch.arange(cfg.n, device=dev)
+
+    def sim(key, n_crashed, n_byzantine):
+        final = p(ids, np.asarray(key, np.int64), int(n_crashed), int(n_byzantine))
+        if pcfg is None:
+            return final
+        if engine == "hb":
+            return final, obsim_build.hb_probes(cfg, pcfg, final, taps_of.pop("red"))
+        n_samples = cfg.ticks if engine == "tick" else \
+            (cfg.ticks - 1) // cfg.pbft_block_interval_ms
+        return final, taps.finalize(cfg, pcfg, final, taps.time_last(taps_of.pop("ys")),
+                                    n_samples)
+
+    return sim
+
+
+def mesh_lanes_fn(cfg: SimConfig, mesh, pcfg=None):
+    """The program one sweep row of ``mesh`` runs on its block of lanes:
+    ``batched(keys [L, 2], n_crashed [L], n_byzantine [L], device) ->
+    final state [L, ...]``, or ``(finals, probes)`` with ``pcfg`` (an
+    obsim/schema.ProbeConfig) arming the taps.  JAX's per-device body of
+    its mesh-partitioned ``batched(keys[B], n_crashed[B], n_byzantine[B])``;
+    the split into rows and the gather of the rows' metrics are
+    :func:`_dispatch_dyn_points`'s.  Three arms, as JAX's (module
+    docstring):
+
+    - **mesh of one rank**: :func:`dyn_batched_fn` (armed:
+      obsim/build.probed_batched_fn) itself;
+    - **sweep-only** (nodes 1): each lane the solo program of its point,
+      side by side on the engines with a lane axis where no draw is a
+      Philox word (there the two are equal), else one after another;
+    - **nodes > 1**: each lane in global view over the row's nodes group
+      (:func:`global_view_sim`), equal to the single-device batched row
+      (the caller refuses batches whose vmapped rows follow lane 0).
+
+    The registry entries are :func:`mesh_dyn_batched_fn` and
+    obsim/build.probed_mesh_fn."""
+    from blockchain_simulator_tpu_torch.obsim import build as obsim_build
+
+    if partition.mesh_size(mesh) == 1:
+        return dyn_batched_fn(cfg) if pcfg is None else obsim_build.probed_batched_fn(cfg, pcfg)
+    if int(mesh.shape[NODES_AXIS]) > 1:
+        sim = global_view_sim(canonical_fault_cfg(cfg), mesh.row(), pcfg)
+
+        def batched_nodes(keys, n_crashed, n_byzantine, device=None):
+            del device  # the row's ranks compute on their own devices
+            outs = [sim(k, c, b) for k, c, b in
+                    zip(np.asarray(keys, np.int64), n_crashed, n_byzantine)]
+            if pcfg is None:
+                return stack_lanes(outs)
+            from blockchain_simulator_tpu_torch.models.base import stack_samples
+
+            return stack_lanes([o[0] for o in outs]), stack_samples([o[1] for o in outs])
+
+        return batched_nodes
+    if pcfg is not None:
+        return obsim_build.probed_batched_fn(cfg, pcfg, multi_seed=philox_draws(cfg))
+    return solo_lanes_fn(cfg) if philox_draws(cfg) else dyn_batched_fn(cfg)
+
+
+@aotcache.cached_factory("partition-dyn-sweep")
+def mesh_dyn_batched_fn(cfg: SimConfig, mesh):
+    """One registry entry a (fault structure, mesh): :func:`mesh_lanes_fn`
+    disarmed."""
+    return mesh_lanes_fn(cfg, mesh)
 
 
 def sharded_topo_sim_fn(cfg: SimConfig, mesh, layout: str = "exchange"):
@@ -332,12 +554,10 @@ def run_sharded_topo(cfg: SimConfig, mesh, seed: int | None = None):
     return sim_metrics(cfg, final)
 
 
-@aotcache.cached_factory("multi-seed-tick")
-def multi_seed_fn(cfg: SimConfig, n_seeds: int):
+def solo_lanes_fn(cfg: SimConfig):
     """``batched(keys [B, 2], n_crashed [B], n_byzantine [B], device) ->
-    final state [B, ...]``: JAX's ``lax.map`` of the unvmapped dyn program,
-    whose lanes are solo runs, so they run in turn."""
-    del n_seeds  # JAX keys its registry entry on it
+    final state [B, ...]`` with every lane the solo program of its point
+    (runner.make_dyn_sim_fn), in turn."""
     sim = make_dyn_sim_fn(cfg)
 
     def batched(keys, n_crashed, n_byzantine, device):
@@ -348,12 +568,33 @@ def multi_seed_fn(cfg: SimConfig, n_seeds: int):
     return batched
 
 
+@aotcache.cached_factory("multi-seed-tick")
+def multi_seed_fn(cfg: SimConfig, n_seeds: int):
+    """JAX's ``lax.map`` of the unvmapped dyn program, whose lanes are solo
+    runs: :func:`solo_lanes_fn`."""
+    del n_seeds  # JAX keys its registry entry on it
+    return solo_lanes_fn(cfg)
+
+
 @aotcache.cached_factory("sweep-batched")
-def _batched_fn(cfg: SimConfig):
+def _batched_fn(cfg: SimConfig, mesh=None):
     """``batched(seeds, device) -> final state [B, ...]`` of a static config:
     JAX's ``jit(vmap(make_sim_fn(cfg)))``.  Every batchable config rides
     the dyn program at its own counts (equal to the static program); the
-    mixed sim runs its lanes in turn."""
+    mixed sim runs its lanes in turn.  With ``mesh`` (JAX's ``vmap`` of
+    ``make_sharded_sim_fn(cfg, mesh)``): the program one sweep row runs on
+    its seeds, each through the node-sharded program over the row's nodes
+    group (parallel/shard.py), on the row's devices."""
+    if mesh is not None:
+        from blockchain_simulator_tpu_torch.parallel.shard import make_sharded_sim_fn
+
+        sharded = make_sharded_sim_fn(cfg, mesh.row())
+
+        def batched_sharded(seeds, device=None):
+            del device  # the row's ranks compute on their own devices
+            return stack_lanes([sharded(threefry.key(int(s))) for s in seeds])
+
+        return batched_sharded
     try:
         check_batchable(cfg)
     except UnbatchableConfigError:
@@ -375,14 +616,47 @@ def _batched_fn(cfg: SimConfig):
 
 def run_seed_sweep(cfg: SimConfig, seeds, mesh=None, device=None):
     """Run ``len(seeds)`` simulations of one config as one batched program;
-    returns one metrics dict a seed, each the vmapped JAX row."""
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
+    returns one metrics dict a seed, each the vmapped JAX row.
+
+    With ``mesh`` (call it on every rank of the grid) the seeds split into
+    one block a sweep row (their count must divide by the sweep axis, as
+    JAX requires) and each seed runs ``parallel/shard.run_sharded`` over
+    its row's nodes group: JAX's ``vmap`` of its node-sharded program,
+    whose lanes fold the shard into their keys.  Every rank returns every
+    seed's row."""
     seeds = list(seeds)
-    finals = _batched_fn(cfg)(seeds, dev)
-    out = [sim_metrics(cfg, lane_state(finals, i)) for i in range(len(seeds))]
-    _record(out, [cfg] * len(out), seeds)
+    if mesh is None:
+        dev = resolve_device(device)
+        finals = _batched_fn(cfg)(seeds, dev)
+        out = [sim_metrics(cfg, lane_state(finals, i)) for i in range(len(seeds))]
+    else:
+        out = _mesh_seed_rows(cfg, seeds, mesh)
+    if _writer(mesh):
+        _record(out, [cfg] * len(out), seeds)
     return out
+
+
+def _mesh_seed_rows(cfg: SimConfig, seeds: list, mesh) -> list:
+    """:func:`run_seed_sweep`'s rows over ``mesh``: this sweep row's block
+    of the seeds through the node-sharded program on its nodes group, the
+    rows' metrics gathered."""
+    n_sweep = int(mesh.shape[SWEEP_AXIS])
+    if len(seeds) % n_sweep != 0:
+        raise ValueError(f"{len(seeds)} seeds not divisible by sweep axis size {n_sweep}")
+    if len(seeds) > 1 and philox_draws(cfg):
+        _refuse(
+            f"a seed sweep of {len(seeds)} seeds over a mesh drawing on Philox words "
+            "(JAX's vmapped node-sharded rows take those from the first lane's key)",
+            "a later slice of the port (ROADMAP.md queue A, tick-engine lanes); use "
+            "stat_sampler='exact' and edge_sampler='threefry'")
+    per = len(seeds) // n_sweep
+    mine = seeds[mesh.sweep_index * per:(mesh.sweep_index + 1) * per]
+
+    def block():
+        finals = _batched_fn(cfg, mesh)(mine)
+        return [sim_metrics(cfg, lane_state(finals, i)) for i in range(per)]
+
+    return _agreed(mesh, True, block)
 
 
 def _dyn_operands(cfg: SimConfig, fc) -> tuple[int, int]:
@@ -396,21 +670,34 @@ def _dispatch_dyn_points(canon: SimConfig, points, record: bool = True,
     """ONE batched dispatch of a same-structure point list; one metrics dict
     a point (the first ``n_out`` when given).  ``probe`` (an
     obsim/schema.ProbeConfig) swaps in the armed twin of the same program
-    (obsim/build.probed_batched_fn) and adds each row's ``"probe"`` summary;
-    monitor violations trip the flight recorder
-    (obsim/host.note_violations)."""
-    _refuse_mesh(mesh)
+    (obsim/build.probed_batched_fn, or probed_mesh_fn over a mesh) and adds
+    each row's ``"probe"`` summary; monitor violations trip the flight
+    recorder (obsim/host.note_violations).  Over a mesh of more than one
+    rank, the sweep rows run their blocks of the padded lanes and exchange
+    their rows and outcomes (module docstring); ``multi_seed`` is moot
+    there, the mesh arms having their own lane semantics."""
     points = list(points)
     if not points:
         return []
-    dev = resolve_device(device)
+    dev = _device(mesh, device)
+    rows = _agreed(mesh, len(points) > 1, lambda: _local_rows(
+        canon, points, n_out, mesh, multi_seed, probe, dev))
+    return _finish_rows(points, rows, record, n_out, probe, mesh)
+
+
+def _local_rows(canon: SimConfig, points: list, n_out, mesh, multi_seed, probe, dev) -> list:
+    """This rank's part of one dispatch: over a mesh of more than one rank,
+    its sweep row's block of the padded lanes (:func:`_mesh_block`); else
+    every point's row (a 1-point list over a mesh drops it: the
+    single-device program answers it on every rank, equal rows)."""
     # the batched-dispatch chaos point: drills inject raise/hang/slow here,
     # the exception path a real device fault takes through the sweeps AND
     # the server's degrade machinery (chaos/inject.py)
     inject.chaos_point("sweep.dyn_dispatch", canon=canon, n=len(points))
+    if _mesh_arm(mesh) and len(points) > 1:
+        return _mesh_block(canon, points, mesh, probe, dev)
     if probe is not None:
         from blockchain_simulator_tpu_torch.obsim import build as obsim_build
-        from blockchain_simulator_tpu_torch.obsim import host as obsim_host
 
         batched = obsim_build.probed_batched_fn(canon, probe, multi_seed=multi_seed)
     elif multi_seed:
@@ -424,32 +711,116 @@ def _dispatch_dyn_points(canon: SimConfig, points, record: bool = True,
     with telemetry.profile_region("sweep_dispatch"):
         outs = batched(_keys([s for _, s in points]), [o[0] for o in ops],
                        [o[1] for o in ops], dev)
+    return _lane_rows(outs, points, probe, 0,
+                      len(points) if n_out is None else min(n_out, len(points)))
+
+
+def _agreed(mesh, blocks: bool, fn) -> list:
+    """``fn()``'s rows, the same decision on every rank of a mesh of more
+    than one rank: its outcome goes through parallel/mesh.NodeMesh.exchange
+    (raising on every rank if any rank's ``fn`` raised), and with
+    ``blocks`` the result is every sweep row's block, in order.  Off a mesh
+    arm, ``fn()`` itself."""
+    if not _mesh_arm(mesh):
+        return fn()
+    err = rows = None
+    try:
+        rows = fn()
+    except Exception as e:  # every rank learns of it in the exchange below
+        err = e
+    return _agree(mesh, blocks, err, rows)
+
+
+def _agree(mesh, blocks: bool, err, rows) -> list:
+    """One attempt's outcome exchanged over the grid (:func:`_agreed`), in
+    the thread that drives the grid."""
+    got = mesh.exchange(err, rows if blocks else None)
+    return [m for block in got for m in block] if blocks else rows
+
+
+def _finish_rows(points: list, rows: list, record: bool, n_out, probe, mesh) -> list:
+    """A dispatch's rows cut to ``n_out``, their monitor violations noted
+    and the rows recorded to the run log, by the writing rank."""
+    if n_out is not None:
+        points, rows = points[:n_out], rows[:n_out]
+    writer = _writer(mesh)
+    if probe is not None and writer:
+        from blockchain_simulator_tpu_torch.obsim import host as obsim_host
+
+        for m, (cfg_i, seed) in zip(rows, points):
+            obsim_host.note_violations(m["probe"], cfg_i, int(seed))
+    if record and writer:
+        _record(rows, [c for c, _ in points], [s for _, s in points])
+    return rows
+
+
+def _lane_rows(outs, points, probe, first: int, count: int) -> list:
+    """The metrics rows (with their ``"probe"`` summaries when armed) of
+    ``count`` lanes of a batched program's output, lane ``i`` of it being
+    ``points[first + i]``."""
     finals, probes = outs if probe is not None else (outs, None)
     if probes is not None:
+        from blockchain_simulator_tpu_torch.obsim import host as obsim_host
+
         probes = obsim_host.tree_to_host(probes)  # one copy a leaf
-    if n_out is not None:
-        points = points[:n_out]
-    out = []
-    for i, (cfg_i, seed) in enumerate(points):
+    rows = []
+    for i in range(count):
+        cfg_i = points[first + i][0]
         m = sim_metrics(cfg_i, lane_state(finals, i))
         if probe is not None:
             m["probe"] = obsim_host.summarize_lane(cfg_i, probe, probes, i)
-            obsim_host.note_violations(m["probe"], cfg_i, int(seed))
-        out.append(m)
-    if record:
-        _record(out, [c for c, _ in points], [s for _, s in points])
-    return out
+        rows.append(m)
+    return rows
 
 
-def _run_chunk(canon, tile, record, n_out, supervise, journal, key, index,
+def _mesh_block(canon: SimConfig, points: list, mesh, probe, dev) -> list:
+    """This sweep row's rows of a mesh dispatch: the points padded to a
+    multiple of the sweep axis, the row's block of them (its real lanes)
+    through the row's program (:func:`mesh_lanes_fn`).  No collective
+    beyond the row's nodes group."""
+    lanes = _sweep_lanes(mesh)
+    padded, n_real = partition.pad_points(points, lanes)
+    if int(mesh.shape[NODES_AXIS]) > 1:
+        _nodes_refusal(canon, len(padded))
+    per = len(padded) // lanes
+    first = mesh.sweep_index * per
+    mine = padded[first:min(first + per, n_real)]
+    if not mine:
+        return []
+    if probe is not None:
+        from blockchain_simulator_tpu_torch.obsim import build as obsim_build
+
+        batched = obsim_build.probed_mesh_fn(canon, probe, mesh)
+    else:
+        batched = mesh_dyn_batched_fn(canon, mesh)
+    ops = [_dyn_operands(cfg, cfg.faults) for cfg, _ in mine]
+    with telemetry.profile_region("sweep_dispatch"):
+        outs = batched(_keys([s for _, s in mine]), [o[0] for o in ops],
+                       [o[1] for o in ops], dev)
+    return _lane_rows(outs, mine, probe, 0, len(mine))
+
+
+def _run_chunk(canon, tile, record, n_out, mesh, supervise, journal, key, index,
                multi_seed=False, probe=None, device=None):
     """Compute ONE chunk, optionally under the supervisor's deadline ->
     retry -> degrade state machine (parallel/journal.py).  The
     ``sweep.chunk`` chaos point fires once an ATTEMPT with the arm in its
     ctx, so a drill can wedge exactly the primary arm and watch the degrade
-    arm answer.  Every arm runs on ``device``: a supervised attempt runs in
-    a worker thread, which selects the card first."""
-    dev = resolve_device(device)
+    arm answer.  Every arm runs on ``device`` (the mesh's, over a mesh): a
+    supervised attempt runs in a worker thread, which selects the card
+    first.  Over a mesh the degrade arm is JAX's mesh shrink: the
+    single-device program on every rank.
+
+    Over a mesh of more than one rank an attempt computes only this rank's
+    part, and the grid exchanges the outcomes in the calling thread after
+    each attempt of either arm (journal.run_supervised's ``agree``): every
+    rank retries, degrades or fails when any rank's attempt failed or
+    missed its deadline.  An abandoned attempt then computes on alone but
+    issues no collective of the grid (the nodes-axis arm, whose lanes do,
+    refuses a deadline: :func:`run_dyn_points`)."""
+    dev = _device(mesh, device)
+    grid = _mesh_arm(mesh)
+    blocks = grid and len(tile) > 1
 
     def on_device(fn):
         """``fn`` with ``dev`` selected in the calling thread first (a
@@ -466,17 +837,23 @@ def _run_chunk(canon, tile, record, n_out, supervise, journal, key, index,
         return run
 
     def primary():
+        """The primary arm; over a grid, this rank's part of it."""
         inject.chaos_point("sweep.chunk", key=key, index=index,
-                           n=len(tile), arm="primary", mesh=False)
+                           n=len(tile), arm="primary", mesh=mesh is not None)
         # every chunk ATTEMPT is one span on a chunk-scoped trace
         # (utils/telemetry.py): which chunk, which arm, how long, as data
         with telemetry.span("sweep.chunk", key=key, index=index,
                             n=len(tile), arm="primary"):
-            return _dispatch_dyn_points(canon, tile, record, n_out, None,
+            if grid:
+                return _local_rows(canon, tile, n_out, mesh, multi_seed, probe, dev)
+            return _dispatch_dyn_points(canon, tile, record, n_out, mesh,
                                         multi_seed, probe, dev)
 
+    def finish(rows):
+        return _finish_rows(tile, rows, record, n_out, probe, mesh)
+
     if supervise is None:
-        return primary()
+        return finish(_agreed(mesh, blocks, primary)) if grid else primary()
 
     if supervise.checkpoint_dir and len(tile) == 1 \
             and not use_round_schedule(tile[0][0]):
@@ -498,8 +875,8 @@ def _run_chunk(canon, tile, record, n_out, supervise, journal, key, index,
                 )
             return [m]
     else:
-        # JAX's mesh-shrink arm: the single-device program again (one card
-        # has no smaller mesh), on the same device, equal rows
+        # JAX's mesh-shrink arm: the single-device program (over a mesh, on
+        # every rank alone), on the same device, equal rows
         def degrade():
             inject.chaos_point("sweep.chunk", key=key, index=index,
                                n=len(tile), arm="degrade", mesh=False)
@@ -508,8 +885,14 @@ def _run_chunk(canon, tile, record, n_out, supervise, journal, key, index,
                 return _dispatch_dyn_points(canon, tile, record, n_out,
                                             mesh=None, probe=probe, device=dev)
 
+    def agree(arm, err, rows):
+        if arm == "primary":
+            return finish(_agree(mesh, blocks, err, rows))
+        return _agree(mesh, False, err, rows)
+
     rows, _events = journal_mod.run_supervised(
-        on_device(primary), on_device(degrade), supervise, journal=journal, key=key,
+        on_device(primary), on_device(degrade), supervise,
+        journal=journal if _writer(mesh) else None, key=key, agree=agree if grid else None,
     )
     return rows
 
@@ -547,21 +930,34 @@ def run_dyn_points(canon: SimConfig, points, record: bool = True,
 
     ``with_index=True`` returns ``(rows, meta)``: ``meta["rows"][i]`` maps
     output row ``i`` to its point (``point``, ``seed``, ``key``, ``cached``)
-    and ``meta`` carries ``dispatches``, ``lanes``, ``pad`` and the
-    per-chunk trail ``chunks``.  ``mesh=`` raises (the sweep axis)."""
-    _refuse_mesh(mesh)
+    and ``meta`` carries ``dispatches``, ``lanes`` (the mesh's padded lanes
+    included), ``pad`` and the per-chunk trail ``chunks``.
+
+    ``mesh=`` (a parallel/mesh.make_mesh grid; call it on every rank) runs
+    each dispatch over the grid's sweep rows (module docstring): chunks
+    align up to a multiple of the sweep axis (partition.align_chunk), the
+    journal's keys carry the mesh's shape, as JAX's do, and a one-point
+    list takes the single-device path."""
     points = list(points)
     meta = {"rows": [], "chunks": [], "lanes": 0, "dispatches": 0, "pad": 0}
+    device = _device(mesh, device)
+
+    def _lanes(n: int) -> int:
+        if n > 1 and _mesh_arm(mesh):
+            axis = _sweep_lanes(mesh)
+            return -(-n // axis) * axis
+        return n
 
     def _done(rows):
         return (rows, meta) if with_index else rows
 
     if journal is None and supervise is None:
-        rows = _dispatch_dyn_points(canon, points, record, n_out, None, multi_seed, probe,
+        rows = _dispatch_dyn_points(canon, points, record, n_out, mesh, multi_seed, probe,
                                     device)
         if points:
             meta["dispatches"] = 1
-            meta["lanes"] = len(points)
+            meta["lanes"] = _lanes(len(points))
+            meta["pad"] = meta["lanes"] - len(points)
         pts_out = points if n_out is None else points[:n_out]
         meta["rows"] = [{"point": i, "seed": int(s), "key": None, "cached": False}
                         for i, (_, s) in enumerate(pts_out)]
@@ -572,13 +968,27 @@ def run_dyn_points(canon: SimConfig, points, record: bool = True,
         # n_out callers (serve's bucket-padded flushes) journal the whole
         # batch as ONE chunk: pad lanes never split across chunk keys
         chunk_size = len(points)
-    done = journal.completed() if journal is not None else {}
+    if _mesh_arm(mesh):
+        chunk_size = partition.align_chunk(chunk_size, _sweep_lanes(mesh))
+        if supervise is not None and supervise.deadline_s is not None \
+                and int(mesh.shape[NODES_AXIS]) > 1:
+            raise ValueError(
+                "a supervised sweep over a mesh with a nodes axis > 1 takes no deadline: "
+                "an abandoned attempt would go on issuing its nodes group's collectives "
+                "beside the retry's; pass ChunkSupervisor(deadline_s=None) (a failing "
+                "rank still fails the attempt on every rank)")
+    done = {}
+    if journal is not None:
+        # every rank must dispatch the same chunks: rank 0 reads the journal
+        # and its answer goes to every rank
+        done = journal.completed() if mesh is None or mesh.world_rank == 0 else None
+        done = done if mesh is None else mesh.from_rank0(done)
     out = []
     for index, start in enumerate(range(0, len(points), chunk_size)):
         tile = points[start:start + chunk_size]
         want = len(tile) if n_out is None else max(0, min(len(tile), n_out))
         t_out = None if n_out is None else want
-        key = journal_mod.chunk_key(canon, index, tile, n_out=t_out)
+        key = journal_mod.chunk_key(canon, index, tile, mesh, n_out=t_out)
         if probe is not None:
             # armed and disarmed calls never share a journal key: a cached
             # disarmed chunk has no "probe" summaries to serve
@@ -594,17 +1004,18 @@ def run_dyn_points(canon: SimConfig, points, record: bool = True,
         # every dispatch ATTEMPT runs record=False: only the winning arm's
         # rows (journaled below) reach the run log, so an abandoned slow
         # attempt finishing late cannot double-record its points
-        rows = _run_chunk(canon, tile, False, t_out, supervise, journal, key, index,
+        rows = _run_chunk(canon, tile, False, t_out, mesh, supervise, journal, key, index,
                           multi_seed, probe, device)
         # durable BEFORE the next chunk dispatches: the recompute-at-most-one
         # contract of a kill -9
-        if journal is not None:
+        if journal is not None and _writer(mesh):
             journal.append_chunk(key, index, rows, cache=aotcache.registry.manifest())
-        if record:
+        if record and _writer(mesh):
             pts_out = tile if t_out is None else tile[:t_out]
             _record(rows, [c for c, _ in pts_out], [s for _, s in pts_out])
         meta["dispatches"] += 1
-        meta["lanes"] += len(tile)
+        meta["lanes"] += _lanes(len(tile))
+        meta["pad"] += _lanes(len(tile)) - len(tile)
         meta["chunks"].append({"key": key, "index": index, "cached": False, "n": len(rows)})
         meta["rows"] += [{"point": start + j, "seed": int(tile[j][1]), "key": key,
                           "cached": False} for j in range(len(rows))]
@@ -614,11 +1025,11 @@ def run_dyn_points(canon: SimConfig, points, record: bool = True,
 
 def dyn_chunk_keys(cfg: SimConfig, fault_configs, seeds, mesh=None):
     """The chunk keys a journaled ``run_fault_sweep(cfg, fault_configs,
-    seeds, journal=...)`` uses for ONE same-structure group, derived from the
-    grid alone (never from a journal's content), so a coverage check is
-    independent evidence.  All ``fault_configs`` must share one canonical
-    structure.  The JAX package's keys, byte for byte."""
-    _refuse_mesh(mesh)
+    seeds, mesh=..., journal=...)`` uses for ONE same-structure group,
+    derived from the grid alone (never from a journal's content), so a
+    coverage check is independent evidence.  All ``fault_configs`` must
+    share one canonical structure.  The JAX package's keys, byte for byte
+    (over a mesh: its shape, as JAX's mesh of the same shape)."""
     fcs = list(fault_configs)
     canons = {canonical_fault_cfg(cfg.with_(faults=fc)) for fc in fcs}
     if len(canons) != 1:
@@ -627,8 +1038,10 @@ def dyn_chunk_keys(cfg: SimConfig, fault_configs, seeds, mesh=None):
         )
     canon = next(iter(canons))
     chunk = len(seeds)
+    if _mesh_arm(mesh):
+        chunk = partition.align_chunk(chunk, _sweep_lanes(mesh))
     points = [(cfg.with_(faults=fc), s) for fc in fcs for s in seeds]
-    return [journal_mod.chunk_key(canon, i, points[st:st + chunk])
+    return [journal_mod.chunk_key(canon, i, points[st:st + chunk], mesh)
             for i, st in enumerate(range(0, len(points), chunk))]
 
 
@@ -654,8 +1067,9 @@ def run_fault_sweep(cfg: SimConfig, fault_configs, seeds, mesh=None,
     only in their counts share one program (a structure group); the mixed
     sim takes the static :func:`run_seed_sweep` path, one program a fault
     config, un-journaled (it has no dynamic-operand chunk identity).
-    ``journal=`` / ``supervise=``: :func:`run_dyn_points`."""
-    _refuse_mesh(mesh)
+    ``journal=`` / ``supervise=`` / ``mesh=``: :func:`run_dyn_points`; the
+    static path stays on one device (every rank runs it alone, as JAX's
+    stays single-device)."""
     _health_gate()
     fault_configs = list(fault_configs)
     seeds = list(seeds)
@@ -673,9 +1087,10 @@ def run_fault_sweep(cfg: SimConfig, fault_configs, seeds, mesh=None,
         order[fc] = canon
     done: dict = {}
     for canon, fcs in groups.items():
-        done.update(_run_dyn_group(cfg, canon, fcs, seeds, journal=journal,
+        done.update(_run_dyn_group(cfg, canon, fcs, seeds, mesh=mesh, journal=journal,
                                    supervise=supervise, multi_seed=multi_seed,
                                    device=device))
+    device = _device(mesh, device)
     return {fc: (run_seed_sweep(cfg.with_(faults=fc), seeds, device=device)
                  if order[fc] is None else done[fc])
             for fc in fault_configs}
@@ -688,7 +1103,7 @@ def run_byzantine_sweep(cfg: SimConfig, f_values=None, seeds=(0,), forge=True,
     ``f_values`` (default 0..(n-1)//3), seeds batched per f, the whole sweep
     one program over (f, seed).  Returns a list of ``{"f": f, "seed": s,
     **metrics}`` dicts (``forged_commits`` and ``agreement_ok`` are the
-    safety outcomes)."""
+    safety outcomes).  ``mesh=``: :func:`run_dyn_points`."""
     if forge and cfg.protocol != "pbft":
         raise ValueError(
             "the forging attack is implemented for pbft only; pass "

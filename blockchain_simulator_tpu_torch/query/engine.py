@@ -65,12 +65,13 @@ class _Search:
     trail, and the dispatch accounting."""
 
     def __init__(self, cfg: SimConfig, spec: spec_mod.QuerySpec,
-                 journal=None, multi_seed: bool = False, device=None):
+                 journal=None, mesh=None, multi_seed: bool = False, device=None):
         self.cfg = cfg
         self.spec = spec
         self.journal = journal
+        self.mesh = mesh
         self.multi_seed = multi_seed
-        self.device = device
+        self.device = device if mesh is None else mesh.device
         self.seeds = list(spec.seeds)
         # constant lanes per generation: the warmup step evaluates BOTH
         # endpoints, so every step dispatches max(probe_width, 2) values
@@ -112,7 +113,7 @@ class _Search:
             rows, meta = sweep.run_dyn_points(
                 canon, pts, record=False,
                 n_out=len(values) * len(self.seeds),
-                journal=self.journal,
+                mesh=self.mesh, journal=self.journal,
                 multi_seed=self.multi_seed, key_suffix=sfx,
                 with_index=True, device=self.device)
             for i, v in enumerate(values):
@@ -166,11 +167,13 @@ def run_query(cfg: SimConfig, spec: spec_mod.QuerySpec, journal=None,
     ``cached_steps``, ``steps``, ``lanes``, ``pad``,
     ``monotonicity_violations``) is equal across a fresh run, a
     kill-resume and a pure journal replay of the same query, and to the JAX
-    package's answer.  ``mesh=`` raises (the sweep axis of the port,
-    ROADMAP.md queue A item 7)."""
-    sweep._refuse_mesh(mesh)
+    package's answer.  ``mesh=`` (a parallel/mesh.make_mesh grid; call it
+    on every rank) runs the fault kinds' generations over the mesh's sweep
+    rows, as JAX's does (``min_k_finality``'s per-value chunks stay on one
+    device, as JAX's do); every rank returns the answer."""
     lo, hi = spec_mod.resolve_domain(spec, cfg)
-    st = _Search(cfg, spec, journal=journal, multi_seed=multi_seed, device=device)
+    st = _Search(cfg, spec, journal=journal, mesh=mesh, multi_seed=multi_seed,
+                 device=device)
     # warmup generation: both endpoints
     st.evaluate([lo] if lo == hi else [lo, hi], None)
     if st.is_high(lo):

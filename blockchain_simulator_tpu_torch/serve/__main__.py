@@ -32,8 +32,8 @@ With ``--journal PATH`` batched flushes journal their rows in the
 durable-sweep journal (parallel/journal.py): a restarted daemon answers a
 WAL-replayed batch whose rows were already computed from the journal, and a
 ``query`` request's refinement steps journal there too.  ``--mesh-sweep`` >
-0 (a sweep mesh over many GPUs) comes with the sweep axis of the port
-(ROADMAP.md queue A item 7) and exits 2.
+0 (a sweep mesh over many GPUs) comes with the serving surfaces of the sweep
+axis (ROADMAP.md queue A item 7b) and exits 2.
 """
 
 from __future__ import annotations
@@ -337,8 +337,8 @@ def main(argv=None) -> int:
                         "rides the READY line/stats")
     p.add_argument("--mesh-sweep", type=int, default=0, metavar="N",
                    help="shard batched dispatches over an N-device sweep "
-                        "mesh (comes with the sweep axis of the port, "
-                        "ROADMAP.md queue A item 7; > 0 exits 2)")
+                        "mesh (comes with the serving surfaces of the "
+                        "sweep axis, ROADMAP.md queue A item 7b; > 0 exits 2)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device every dispatch runs on: cuda (the default; "
                         "without a card the daemon exits before READY, it "
@@ -352,11 +352,11 @@ def main(argv=None) -> int:
                    help="warm requests in the self-test latency sample")
     args = p.parse_args(argv)
 
-    from blockchain_simulator_tpu_torch.parallel.sweep import MANY_GPUS
+    from blockchain_simulator_tpu_torch.parallel.mesh import MESH_SERVING_ITEM
 
     if args.mesh_sweep and args.mesh_sweep > 0:
-        print(f"serve: --mesh-sweep {args.mesh_sweep} (a sweep mesh) comes with {MANY_GPUS}",
-              file=sys.stderr)
+        print(f"serve: --mesh-sweep {args.mesh_sweep} (a sweep mesh) comes with "
+              f"{MESH_SERVING_ITEM}", file=sys.stderr)
         return 2
     from blockchain_simulator_tpu_torch import runner
 

@@ -131,9 +131,15 @@ def run_batch(reqs, max_batch: int, force_solo: bool = False,
     (canonical structure + the padded point list), so the WAL replay of a
     batch whose rows were already computed is answered from the journal
     without running it.  Solo and degrade dispatches stay un-journaled
-    (their recompute is one request).  ``mesh`` (a batch sharded over many
-    GPUs) raises ``NotImplementedError`` naming its slice."""
-    sweep._refuse_mesh(mesh)
+    (their recompute is one request).  ``mesh`` (a batch sharded over a
+    sweep mesh) raises ``NotImplementedError`` naming its item
+    (parallel/mesh.MESH_SERVING_ITEM): a served flush runs in one process,
+    and a mesh needs its other ranks to follow it."""
+    if mesh is not None:
+        from blockchain_simulator_tpu_torch.parallel.mesh import MESH_SERVING_ITEM
+
+        raise NotImplementedError(
+            f"mesh= (a served batch over a device mesh) comes with {MESH_SERVING_ITEM}")
     device = runner.resolve_device(device)
     t0 = time.monotonic()
     canon = reqs[0].canon

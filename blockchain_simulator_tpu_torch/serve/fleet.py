@@ -297,7 +297,7 @@ class ReplicaProc:
                "--max-queue", str(self.max_queue),
                "--device", self.device]
         if self.mesh_sweep and self.mesh_sweep > 1:
-            # the daemon refuses it (exit 2, ROADMAP.md queue A item 7)
+            # the daemon refuses it (exit 2, ROADMAP.md queue A item 7b)
             cmd += ["--mesh-sweep", str(self.mesh_sweep)]
         if self.prewarm:
             # every registry entry of the template's group built before
@@ -466,7 +466,7 @@ def main(argv=None) -> int:
     p.add_argument("--max-queue", type=int, default=64)
     p.add_argument("--mesh-sweep", type=int, default=0,
                    help="per-replica sweep mesh width (refused in the "
-                        "port: ROADMAP.md queue A item 7)")
+                        "port: ROADMAP.md queue A item 7b)")
     p.add_argument("--retries", type=int, default=2)
     p.add_argument("--retry-backoff-s", type=float, default=0.05)
     p.add_argument("--hedge-ms", type=float, default=0.0,
@@ -490,9 +490,10 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     if args.mesh_sweep and args.mesh_sweep > 0:
+        from blockchain_simulator_tpu_torch.parallel.mesh import MESH_SERVING_ITEM
+
         print(f"fleet: --mesh-sweep {args.mesh_sweep} (a sweep mesh per "
-              f"replica) comes with ROADMAP.md queue A item 7 (the sweep axis)",
-              file=sys.stderr)
+              f"replica) comes with {MESH_SERVING_ITEM}", file=sys.stderr)
         return 2
     from blockchain_simulator_tpu_torch import runner
 

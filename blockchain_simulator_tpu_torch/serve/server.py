@@ -59,9 +59,9 @@ replay of an already-computed batch is answered from the journal, and the
 journal compacts at startup keyed on the pending admissions.  ``"query"``
 requests (serve/schema.py) each run the adaptive search (query/engine.py)
 on a worker thread of their own, which selects the server's device first.
-Not ported yet: ``mesh=`` (batches sharded over many GPUs), refused with
-``NotImplementedError`` naming its item (the sweep axis, ROADMAP.md queue
-A item 7).
+Not ported yet: ``mesh=`` (batches sharded over a sweep mesh), refused with
+``NotImplementedError`` naming its item (parallel/mesh.MESH_SERVING_ITEM,
+the serving surfaces of the sweep axis).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ import time
 from blockchain_simulator_tpu_torch import runner
 from blockchain_simulator_tpu_torch.chaos import inject
 from blockchain_simulator_tpu_torch.parallel import sweep
-from blockchain_simulator_tpu_torch.parallel.sweep import MANY_GPUS
+from blockchain_simulator_tpu_torch.parallel.mesh import MESH_SERVING_ITEM
 from blockchain_simulator_tpu_torch.serve import dispatch, schema
 from blockchain_simulator_tpu_torch.serve.wal import WriteAheadLog
 from blockchain_simulator_tpu_torch.utils import aotcache, obs, telemetry
@@ -204,7 +204,8 @@ class ScenarioServer:
             raise ValueError("max_batch and max_queue must be >= 1")
         if mesh is not None:
             raise NotImplementedError(
-                f"mesh= (batched flushes sharded over a device mesh) comes with {MANY_GPUS}")
+                f"mesh= (batched flushes sharded over a device mesh) comes with "
+                f"{MESH_SERVING_ITEM}")
         # durable-sweep journal (parallel/journal.py; daemon --journal):
         # batched flushes append their rows content-keyed, so a WAL replay
         # of an already-computed batch is answered from the journal

@@ -20,9 +20,10 @@ those functions raise ``NotImplementedError`` naming the CUDA-graph work
 (ROADMAP.md §B item 1) that brings one, the ``disk_*`` and
 ``corrupt_healed`` counters stay 0 and ``persistent_dir`` stays null.
 
-The port's entries are single-device, so every entry counts under the
-``"none"`` mesh descriptor of the JAX registry's ``mesh`` breakdown.  This
-module imports neither torch nor numpy: a stats read never touches a device.
+Each entry carries JAX's mesh descriptor (``"sweep=2,nodes=1"`` for an
+entry built over a parallel/mesh.NodeMesh grid; single-device entries count
+under ``"none"``) in the ``mesh`` breakdown and the manifest.  This module
+imports neither torch nor numpy: a stats read never touches a device.
 """
 
 from __future__ import annotations
@@ -34,6 +35,19 @@ import threading
 _DISK_LAYER = ("the on-disk executable cache comes with the CUDA-graph work of the "
                "port (ROADMAP.md §B item 1): the port builds no serializable "
                "executable yet")
+
+
+def _mesh_desc(args: tuple, kwargs: tuple) -> str | None:
+    """Compact mesh descriptor (``"sweep=8,nodes=1"``) of the first mesh
+    among a registry key's arguments, or None for a single-device entry.
+    Duck-typed on ``axis_names`` and a mapping ``shape``, as JAX's is."""
+    for a in args + tuple(v for _, v in kwargs):
+        if hasattr(a, "axis_names") and hasattr(a, "shape"):
+            try:
+                return ",".join(f"{k}={int(v)}" for k, v in dict(a.shape).items())
+            except Exception:
+                return None
+    return None
 
 
 def _display_key(name: str, args: tuple, kwargs: tuple) -> str:
@@ -59,11 +73,15 @@ class ExecutableRegistry:
     def __init__(self, maxsize: int = 128):
         self.maxsize = maxsize
         self._entries: collections.OrderedDict = collections.OrderedDict()
+        # key -> mesh descriptor (None for single-device entries), in
+        # lockstep with _entries
+        self._mesh: dict = {}
         self._lock = threading.RLock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.last_key: str | None = None
+        self.last_mesh: str | None = None
 
     # ---------------------------------------------------------- memoize ---
     def get(self, name: str, args: tuple, kwargs: dict, build):
@@ -75,6 +93,7 @@ class ExecutableRegistry:
                 self.hits += 1
                 self._entries.move_to_end(key)
                 self.last_key = _display_key(name, args, key[2])
+                self.last_mesh = self._mesh.get(key)
                 return self._entries[key]
         # build outside the lock: one factory's build must not serialize
         # unrelated factories behind a single mutex
@@ -82,10 +101,13 @@ class ExecutableRegistry:
         with self._lock:
             self.misses += 1
             self.last_key = _display_key(name, args, key[2])
+            self.last_mesh = _mesh_desc(args, key[2])
             self._entries[key] = value
             self._entries.move_to_end(key)
+            self._mesh[key] = self.last_mesh
             while len(self._entries) > self.maxsize:
-                self._entries.popitem(last=False)
+                evicted, _ = self._entries.popitem(last=False)
+                self._mesh.pop(evicted, None)
                 self.evictions += 1
         return value
 
@@ -94,9 +116,11 @@ class ExecutableRegistry:
         with self._lock:
             if name is None:
                 self._entries.clear()
+                self._mesh.clear()
                 return
             for key in [k for k in self._entries if k[0] == name]:
                 del self._entries[key]
+                self._mesh.pop(key, None)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -124,14 +148,18 @@ class ExecutableRegistry:
         """Thread-safe point-in-time snapshot for stats endpoints: the full
         :meth:`stats` record plus a per-factory entry breakdown
         (``by_factory``) and each factory's ``{mesh descriptor: entries}``
-        (``mesh``; every port entry counts under ``"none"``)."""
+        (``mesh``; single-device entries count under ``"none"``)."""
         with self._lock:
             by_factory: dict[str, int] = {}
+            by_mesh: dict[str, dict[str, int]] = {}
             for key in self._entries:
                 by_factory[key[0]] = by_factory.get(key[0], 0) + 1
+                fac = by_mesh.setdefault(key[0], {})
+                desc = self._mesh.get(key) or "none"
+                fac[desc] = fac.get(desc, 0) + 1
             snap = self.stats()  # RLock: safe to re-enter
             snap["by_factory"] = dict(sorted(by_factory.items()))
-            snap["mesh"] = {k: {"none": v} for k, v in snap["by_factory"].items()}
+            snap["mesh"] = {k: dict(sorted(v.items())) for k, v in sorted(by_mesh.items())}
             return snap
 
     def manifest(self) -> dict:
@@ -142,7 +170,7 @@ class ExecutableRegistry:
                 "hits": self.hits,
                 "misses": self.misses,
                 "key": self.last_key,
-                "mesh": None,
+                "mesh": self.last_mesh,
                 "corrupt_healed": 0,
                 "persistent_dir": None,
             }

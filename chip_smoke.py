@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --overlap   # what mesh-sweep's child costs phases 21-24
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -242,6 +243,23 @@ Phases (any failure raises, and the script exits non-zero):
               mesh issued a tick / round, the runs' walls.  A mesh of one
               rank moves no data between ranks.
 
+42. mesh-sweep — the sweep axis (parallel/sweep.py ``mesh=`` over a
+              parallel/mesh.make_mesh grid of ranks), in a process group of
+              its own started after topo-kernel and read after kreg-equal.
+              (a) NCCL at world size 1: run_byzantine_sweep over make_mesh(1,
+              1) on config 2 cut to 500 ms, f in {0, 333}, seed 0, equals the
+              plain sweep's rows on the card (a mesh of one rank is the plain
+              path).  (b) Two ranks of a (2, 1) grid on the one card (sweep
+              rows share no communicator, so rank r computes on cuda:(r %
+              cards)): run_byzantine_sweep on config 2 (PBFT, n = 1,000,
+              2,500 ms, edge) over f in {0, 333} x seeds {0, 1}, journaled;
+              every row equals JAX's over a (2, 1) mesh of host devices
+              (golden/mesh_sweep_s0.json) and the journal's chunk keys equal
+              JAX's; each rank launches the ring kernel on its lanes (counted
+              in the rank, set to 0 just before the sweep).  (c) The same
+              sweep again on the same journal: 0 dispatches on every rank, 0
+              launches, JAX's rows.  The walls of each part.
+
 Prints the card's name and power limit, one JSON line of per-kernel numbers
 and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA card (or
 without the rest of the repo beside it) it exits non-zero and prints no
@@ -280,6 +298,8 @@ OBSIM_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "obsim_query
 CHAOS_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "chaos_fleet_s0.json"
 SHARD_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "shard_s0.json"
 SHARD_RUNS = ("config2", "headline_200")  # shard-nccl's golden entries, in run order
+MESH_SWEEP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "mesh_sweep_s0.json"
+MESH_SWEEP_A_MS = 500  # mesh-sweep (a): config 2's window cut for the world-size-1 check
 # fleet-kill9: the golden's requests the victim holds, then one after the restart
 KILL9_IDS = ("f0-s0", "f1-s1", "f2-s2")
 KILL9_POST_ID = "f5-s2"
@@ -3002,7 +3022,8 @@ def start_shard_nccl(d: str) -> dict:
 
 
 def stop_shard_nccl(shard: dict) -> None:
-    """Kill shard-nccl's process group if it still runs (a failed phase)."""
+    """Kill a phase's own process group (shard-nccl's, mesh-sweep's) if it
+    still runs (a failed phase)."""
     import os
     import signal
 
@@ -3070,6 +3091,172 @@ def phase_shard_nccl(card: str, shard: dict):
             "config2_collectives_per_tick": c2_tick,
             "headline_collectives_per_round": hl_round,
             "launches": c2["launches"], "pushes": c2["pushes"]}
+
+
+def _canon_rows(rows) -> str:
+    return json.dumps(json.loads(json.dumps(rows)), sort_keys=True)
+
+
+def mesh_sweep_job(part: str, journal_path: str) -> dict:
+    """One rank of mesh-sweep (a :func:`parallel.multihost.launch` job):
+    part ``"a"`` on a NCCL world of one rank, ``"b"`` / ``"c"`` on a (2, 1)
+    grid; the rows, the ring kernel's launches and pushes on this rank over
+    the sweep (set to 0 just before it), the sweep's dispatches, the wall."""
+    import dataclasses
+
+    import torch
+
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.parallel import journal, sweep
+    from blockchain_simulator_tpu_torch.parallel.mesh import make_mesh
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    e = json.loads(MESH_SWEEP_GOLDEN.read_text())["entries"]["card@2"]
+    cfg = SimConfig(**e["config"])
+    dispatches = []  # this rank's parts of the grid's dispatches
+    real = sweep._local_rows
+
+    def counted(*a, **k):
+        dispatches.append(1)
+        return real(*a, **k)
+
+    sweep._local_rows = counted
+    out = {"rank": torch.distributed.get_rank(), "device": None}
+    if part == "a":
+        cfg_a = cfg.with_(sim_ms=MESH_SWEEP_A_MS)
+        mesh = make_mesh(1, 1)
+        out["device"] = str(mesh.device)
+        kw = dict(f_values=e["f_values"], seeds=(0,))
+        rk.launches = rk.pushes = 0
+        t0 = time.perf_counter()
+        out["mesh_rows"] = sweep.run_byzantine_sweep(cfg_a, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"], out["pushes"] = rk.launches, rk.pushes
+        out["plain_rows"] = sweep.run_byzantine_sweep(cfg_a, device=mesh.device, **kw)
+        return out
+    mesh = make_mesh(n_sweep=2)
+    out["device"] = str(mesh.device)
+    rk.launches = rk.pushes = 0
+    t0 = time.perf_counter()
+    out["rows"] = sweep.run_byzantine_sweep(cfg, f_values=e["f_values"], seeds=e["seeds"],
+                                            forge=e["forge"], mesh=mesh,
+                                            journal=journal.SweepJournal(journal_path))
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"], out["pushes"] = rk.launches, rk.pushes
+    out["dispatches"] = len(dispatches)
+    fcs = [dataclasses.replace(cfg.faults, n_byzantine=f, byz_forge=e["forge"])
+           for f in e["f_values"]]
+    out["keys"] = sweep.dyn_chunk_keys(cfg, fcs, e["seeds"], mesh=mesh)
+    return out
+
+
+def mesh_sweep_child(d: str) -> int:
+    """mesh-sweep's own process (:func:`start_mesh_sweep` runs it): parts
+    (a), (b) and (c), each one parallel/multihost.launch of
+    :func:`mesh_sweep_job` on the card; writes ``d/mesh_sweep.json``."""
+    import os
+
+    from blockchain_simulator_tpu_torch.parallel import multihost
+
+    path = os.path.join(d, "mesh.journal")
+    out = {}
+    for part, world, shape in (("a", 1, (1, 1)), ("b", 2, (2, 1)), ("c", 2, (2, 1))):
+        t = time.perf_counter()
+        out[part] = {"ranks": multihost.launch(mesh_sweep_job, world, args=(part, path),
+                                               device="cuda", timeout_s=600,
+                                               mesh_shape=shape),
+                     "launch_s": time.perf_counter() - t}
+    with open(path) as f:
+        out["journal_lines"] = sum(1 for _ in f)
+    with open(os.path.join(d, "mesh_sweep.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_mesh_sweep(d: str, where: str = "alone") -> dict:
+    """Start :func:`mesh_sweep_child` (it shares no process-wide state with
+    this process); ``where`` says beside what, for the report."""
+    import os
+
+    code = (f"import sys; sys.path.insert(0, {str(HERE)!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.mesh_sweep_child({d!r}))")
+    err = open(os.path.join(d, "mesh_sweep_child.err"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.DEVNULL,
+                            stderr=err, cwd=HERE, process_group=0)
+    return {"proc": proc, "err": err, "t0": time.perf_counter(), "dir": d, "where": where}
+
+
+def phase_mesh_sweep(card: str, child: dict):
+    """Read :func:`mesh_sweep_child`'s parts: (a) the world-size-1 mesh rows
+    equal the plain rows; (b) both ranks on the card, every row and chunk
+    key equal to golden/mesh_sweep_s0.json, the ring kernel launched on
+    both; (c) the replay: 0 dispatches and 0 launches on both, the rows
+    again."""
+    import os
+
+    t0 = time.perf_counter()
+    rc = child["proc"].wait(timeout=900)
+    waited = time.perf_counter() - t0
+    elapsed = time.perf_counter() - child["t0"]
+    path = os.path.join(child["dir"], "mesh_sweep.json")
+    if rc != 0 or not os.path.exists(path):
+        child["err"].seek(0)
+        raise AssertionError(f"mesh-sweep: the child exited {rc}:\n"
+                             f"{child['err'].read()[-3000:]}")
+    with open(path) as f:
+        res = json.load(f)
+    e = json.loads(MESH_SWEEP_GOLDEN.read_text())["entries"]["card@2"]
+    (a,) = res["a"]["ranks"]
+    if _canon_rows(a["mesh_rows"]) != _canon_rows(a["plain_rows"]):
+        raise AssertionError(f"mesh-sweep (a): the world-size-1 mesh rows differ from the "
+                             f"plain rows: {a['mesh_rows']} vs {a['plain_rows']}")
+    if a["launches"] == 0:
+        raise AssertionError("mesh-sweep (a): the ring kernel was never launched")
+    want = _canon_rows(e["rows"])
+    for part in ("b", "c"):
+        for r in res[part]["ranks"]:
+            if not r["device"].startswith("cuda"):
+                raise AssertionError(f"mesh-sweep ({part}): rank {r['rank']} ran on "
+                                     f"{r['device']}")
+            if _canon_rows(r["rows"]) != want:
+                raise AssertionError(f"mesh-sweep ({part}): rank {r['rank']}'s rows differ "
+                                     f"from the golden: {r['rows']} vs {e['rows']}")
+            if r["keys"] != e["keys"]:
+                raise AssertionError(f"mesh-sweep ({part}): chunk keys {r['keys']} vs JAX's "
+                                     f"{e['keys']}")
+    b, c = res["b"]["ranks"], res["c"]["ranks"]
+    if any(r["launches"] == 0 for r in b):
+        raise AssertionError(f"mesh-sweep (b): a rank never launched the ring kernel: "
+                             f"{[r['launches'] for r in b]}")
+    if any(r["dispatches"] or r["launches"] for r in c):
+        raise AssertionError(f"mesh-sweep (c): the replay dispatched "
+                             f"{[r['dispatches'] for r in c]} / launched "
+                             f"{[r['launches'] for r in c]}")
+    if res["journal_lines"] != len(e["keys"]):
+        raise AssertionError(f"mesh-sweep: the journal holds {res['journal_lines']} lines, "
+                             f"not one a chunk ({len(e['keys'])})")
+    rep = {"a_wall_s": a["wall_s"], "a_launches": a["launches"],
+           "b_wall_s": [r["wall_s"] for r in b], "b_launches": [r["launches"] for r in b],
+           "b_pushes": [r["pushes"] for r in b], "b_dispatches": [r["dispatches"] for r in b],
+           "c_wall_s": [r["wall_s"] for r in c], "c_dispatches": [r["dispatches"] for r in c],
+           "launch_s": {p: res[p]["launch_s"] for p in ("a", "b", "c")},
+           "devices": [r["device"] for r in b]}
+    print(f"mesh-sweep on {card}: its own process, {child['where']}; (a) NCCL world "
+          f"size 1, config 2 cut to {MESH_SWEEP_A_MS} ms, f in {e['f_values']}, seed 0: mesh "
+          f"rows equal the plain rows, sweep wall {a['wall_s']:.3f} s, ring_push launches "
+          f"{a['launches']}; (b) a (2, 1) grid, ranks on {rep['devices']}: config 2 "
+          f"(n = 1,000, 2,500 ms, edge) f in {e['f_values']} x seeds {e['seeds']}, "
+          f"journaled, every row and chunk key equal to JAX's (golden/mesh_sweep_s0.json), "
+          f"walls {[round(w, 3) for w in rep['b_wall_s']]} s, ring_push launches "
+          f"{rep['b_launches']}, pushes {rep['b_pushes']}; (c) the replay: dispatches "
+          f"{rep['c_dispatches']}, walls {[round(w, 3) for w in rep['c_wall_s']]} s; "
+          f"launches (process start to join) a {res['a']['launch_s']:.3f} s, b "
+          f"{res['b']['launch_s']:.3f} s, c {res['c']['launch_s']:.3f} s; the process "
+          f"{elapsed:.3f} s from its start, {waited:.3f} s of it waited for here", flush=True)
+    return dict(rep, wall_s=elapsed, waited_s=waited, launches=sum(rep["b_launches"]),
+                pushes=sum(rep["b_pushes"]))
 
 
 def phase_chaos_drill(card: str):
@@ -3173,12 +3360,19 @@ def main() -> int:
           f"{time.perf_counter() - t_new:.3f} s", flush=True)
     t_topo = time.perf_counter()
     topo_groups, topo_err = phase_kernel_topo(dev, card)
-    kreg_1m = phase_kreg_1m(dev, card)
-    committee = phase_committee_100k(dev, card)
-    kreg_rp = phase_kreg_raft_paxos(dev, card)
-    kreg_equal = phase_kreg_equal(dev, card)
-    print(f"sparse-topology phases (topo-kernel, kreg-1m, committee-100k, kreg-raft-paxos, "
-          f"kreg-equal): {time.perf_counter() - t_topo:.3f} s", flush=True)
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        mesh_child = start_mesh_sweep(mesh_dir, "beside phases 21-24")
+        try:
+            kreg_1m = phase_kreg_1m(dev, card)
+            committee = phase_committee_100k(dev, card)
+            kreg_rp = phase_kreg_raft_paxos(dev, card)
+            kreg_equal = phase_kreg_equal(dev, card)
+            print(f"sparse-topology phases (topo-kernel, kreg-1m, committee-100k, "
+                  f"kreg-raft-paxos, kreg-equal): {time.perf_counter() - t_topo:.3f} s",
+                  flush=True)
+            mesh_sweep = phase_mesh_sweep(card, mesh_child)
+        finally:
+            stop_shard_nccl(mesh_child)
     with tempfile.TemporaryDirectory() as shard_dir:
         shard = start_shard_nccl(shard_dir)  # it runs beside phases 25-35
         try:
@@ -3285,7 +3479,8 @@ def main() -> int:
                              "serve_tick": served["serve_tick"]["launches"],
                              "obsim_tick": durable["obsim_tick"]["launches"],
                              "chaos_drill": fleet_paths["chaos_drill"]["launches"],
-                             "shard_tick": sharded["launches"]},
+                             "shard_tick": sharded["launches"],
+                             "mesh_sweep": mesh_sweep["launches"]},
         "pushes_by_path": {"pbft_edge": pushes, "pbft_tick_stat": stat_pushes,
                            "raft_edge": raft_edge["pushes"], "raft_hb": raft_hb["pushes"],
                            "pbft_queued": q_pushes,
@@ -3304,7 +3499,8 @@ def main() -> int:
                            "serve_tick": served["serve_tick"]["pushes"],
                            "obsim_tick": durable["obsim_tick"]["pushes"],
                            "chaos_drill": fleet_paths["chaos_drill"]["pushes"],
-                           "shard_tick": sharded["pushes"]},
+                           "shard_tick": sharded["pushes"],
+                           "mesh_sweep": mesh_sweep["pushes"]},
     }]
     # the script's own wall, from its start (the interpreter's start and
     # import of this module before it are not in it): the 1,200 s limit's
@@ -3319,7 +3515,7 @@ def main() -> int:
                                 "kreg_1m": kreg_1m, "committee_100k": committee,
                                 "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal,
                                 **traced, **served, **durable, "fleet": fleet_paths,
-                                "shard_nccl": sharded}}),
+                                "shard_nccl": sharded, "mesh_sweep": mesh_sweep}}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3329,5 +3525,66 @@ def main() -> int:
     return 0
 
 
+def overlap_main() -> int:
+    """``python3 chip_smoke.py --overlap``: what mesh-sweep's child costs the
+    phases it runs beside, measured within one call on one card.  The
+    kernel built, then phases 21-24 (kreg-1m, committee-100k,
+    kreg-raft-paxos, kreg-equal) alone, beside the child, and alone again,
+    then the child alone; every phase checks what it checks in the full
+    script.  Prints the walls with the card's name and power limit, and
+    last one JSON line of them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch reports no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)  # the context, before the phases read its memory stats
+    warnings.filterwarnings("ignore", message="index_reduce")
+    warnings.filterwarnings("ignore", message="Synchronization debug mode")
+    card = _card_line()
+    print(card, flush=True)
+    rk.build()
+    rk.load()
+
+    def block() -> dict:
+        t0 = time.perf_counter()
+        walls = {"kreg_1m": phase_kreg_1m(dev, card)["wall_s"],
+                 "committee_100k": phase_committee_100k(dev, card)["wall_s"]}
+        walls.update({f"kreg_{k}": v["wall_s"]
+                      for k, v in phase_kreg_raft_paxos(dev, card).items()})
+        walls["kreg_equal"] = sum(w for v in phase_kreg_equal(dev, card).values()
+                                  for k, w in v.items() if k.endswith("wall_s"))
+        walls["block_s"] = time.perf_counter() - t0
+        return walls
+
+    def child(beside):
+        with tempfile.TemporaryDirectory() as d:
+            proc = start_mesh_sweep(d, "beside phases 21-24" if beside else "alone")
+            try:
+                walls = beside() if beside is not None else None
+                return walls, phase_mesh_sweep(card, proc)
+            finally:
+                stop_shard_nccl(proc)
+
+    out = {"alone_1": block()}
+    out["beside_child"], beside = child(block)
+    out["alone_2"] = block()
+    _, alone = child(None)
+    keep = ("wall_s", "waited_s", "a_wall_s", "b_wall_s", "launch_s")
+    out["child_beside"] = {k: beside[k] for k in keep}
+    out["child_alone"] = {k: alone[k] for k in keep}
+    print(f"overlap on {card}: phases 21-24 alone {out['alone_1']['block_s']:.3f} s, beside "
+          f"the mesh-sweep child {out['beside_child']['block_s']:.3f} s, alone again "
+          f"{out['alone_2']['block_s']:.3f} s; the child's three launches "
+          f"{sum(beside['launch_s'].values()):.3f} s beside them, "
+          f"{sum(alone['launch_s'].values()):.3f} s alone", flush=True)
+    print(json.dumps({"overlap": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(overlap_main() if sys.argv[1:] == ["--overlap"] else main())

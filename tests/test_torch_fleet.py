@@ -395,7 +395,7 @@ def test_router_validates_at_the_edge():
 
 def test_fleet_cli_refuses_a_sweep_mesh(capsys):
     assert tfleet.main(["--mesh-sweep", "2", "--device", "cpu"]) == 2
-    assert "queue A item 7" in capsys.readouterr().err
+    assert "queue A item 7b" in capsys.readouterr().err
 
 
 def _fleet_cli(args, env_extra=None, timeout=120):

@@ -3,8 +3,8 @@ journaled path of ``parallel/sweep.py``) held to the JAX package.
 
 - **Keys and checksums**: ``dyn_chunk_keys``, ``chunk_key`` (with ``n_out``),
   the probe (``+p<W>[m]``) and query (``+q<step>``) namespaces and
-  ``row_checksum`` equal JAX's, byte for byte; a mesh raises (the sweep
-  axis, ROADMAP.md queue A item 7).
+  ``row_checksum`` equal JAX's, byte for byte; over a mesh the keys carry
+  its shape, as JAX's do.
 - **The file**: torn tails (read past, and repaired before the next
   append), a corrupted row checksum demoting its chunk, duplicate lines,
   compaction; the port's reader and JAX's agree on every file.
@@ -104,10 +104,19 @@ def test_keys_and_checksums_equal_jax():
                 {"a": -1.0, "b": 10028.0, "c": 1e-7}):
         assert tjournal.row_checksum(row) == jjournal.row_checksum(row)
         assert tjournal.row_checksum(json.loads(json.dumps(row))) == tjournal.row_checksum(row)
-    with pytest.raises(NotImplementedError, match="sweep axis"):
-        tjournal.chunk_key(tcanon(tcfg), 0, tpts, mesh=object())
-    with pytest.raises(NotImplementedError, match="sweep axis"):
-        tsweep.dyn_chunk_keys(tcfg, _fcs(TFault), SEEDS, mesh=object())
+    # over a mesh the keys carry its shape, as JAX's do (the sweep axis;
+    # tests/test_torch_mesh_sweep.py holds every grid shape)
+    import jax
+
+    from blockchain_simulator_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from blockchain_simulator_tpu_torch.parallel.mesh import NodeMesh
+
+    jmesh, tmesh = jmake_mesh(1, 2, devices=jax.devices()[:2]), NodeMesh(1, 0, None, "cpu",
+                                                                          n_sweep=2)
+    assert tjournal.chunk_key(tcanon(tcfg), 0, tpts, mesh=tmesh) == \
+        jjournal.chunk_key(jcanon(jcfg), 0, jpts, mesh=jmesh)
+    assert tsweep.dyn_chunk_keys(tcfg, _fcs(TFault), SEEDS, mesh=tmesh) == \
+        jsweep.dyn_chunk_keys(jcfg, _fcs(JFault), SEEDS, mesh=jmesh)
 
 
 def test_probe_and_query_key_namespaces(tmp_path):

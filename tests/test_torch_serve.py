@@ -520,14 +520,14 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 # the journal arms are ported; over a device mesh they still raise (the
-# sweep axis, ROADMAP.md queue A item 7)
+# serving surfaces of the sweep axis, ROADMAP.md queue A item 7b)
 REFUSED = {
     "journal_path": (lambda: ScenarioServer(journal_path="j", mesh=object(), device="cpu",
-                                            start=False), "sweep axis"),
-    "mesh": (lambda: ScenarioServer(mesh=object(), device="cpu", start=False), "sweep axis"),
+                                            start=False), "item 7b"),
+    "mesh": (lambda: ScenarioServer(mesh=object(), device="cpu", start=False), "item 7b"),
     "run_batch_journal": (lambda: tdispatch.run_batch([parse_request(dict(OPS), "r")], 1,
                                                       journal=object(), mesh=object(),
-                                                      device="cpu"), "sweep axis"),
+                                                      device="cpu"), "item 7b"),
 }
 
 
@@ -539,8 +539,8 @@ def test_later_slices_refused(arm):
 
 
 @pytest.mark.parametrize("argv,match", [(["--journal", "j.jsonl", "--mesh-sweep", "2"],
-                                         "sweep axis"),
-                                        (["--mesh-sweep", "2"], "sweep axis")])
+                                         "item 7b"),
+                                        (["--mesh-sweep", "2"], "item 7b")])
 def test_daemon_refusals_exit_2(capsys, argv, match):
     assert serve_main(argv + ["--device", "cpu"]) == 2
     assert match in capsys.readouterr().err

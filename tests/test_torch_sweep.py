@@ -409,31 +409,54 @@ def test_normal_tick_batch_raises():
 
 
 # journal=, supervise=, dyn_chunk_keys and probe= are ported
-# (tests/test_torch_journal.py, test_torch_obsim.py); over a device mesh
-# each of them still raises, naming the sweep axis (ROADMAP.md queue A item 7)
-REFUSED = {
-    "journal": (lambda cfg: tsweep.run_fault_sweep(cfg, [cfg.faults], [0], journal=object(),
-                                                   mesh=object(), device="cpu"), "sweep axis"),
-    "supervise": (lambda cfg: tsweep.run_byzantine_sweep(cfg, [0], supervise=object(),
-                                                         mesh=object(), device="cpu"),
-                  "sweep axis"),
-    "chunk_keys": (lambda cfg: tsweep.dyn_chunk_keys(cfg, [cfg.faults], [0], mesh=object()),
-                   "sweep axis"),
-    "mesh": (lambda cfg: tsweep.run_seed_sweep(cfg, [0, 1], mesh=object(), device="cpu"),
-             "sweep axis"),
-    "probe": (lambda cfg: tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=object(), mesh=object(),
-                                                device="cpu"), "sweep axis"),
-}
+# (tests/test_torch_journal.py, test_torch_obsim.py), and since the sweep
+# axis (tests/test_torch_mesh_sweep.py) each of them takes mesh=: over a
+# mesh of one rank each is the plain path, and a seed sweep there is
+# run_sharded over one rank (the shard folded into the keys, as JAX's)
+def _mesh_arms(tmp_path):
+    from blockchain_simulator_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from blockchain_simulator_tpu_torch.obsim import schema as tschema
+    from blockchain_simulator_tpu_torch.parallel import journal as tjournal
+    from blockchain_simulator_tpu_torch.parallel import shard as tshard
+    from blockchain_simulator_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 1, device="cpu")
+    return {
+        "journal": lambda jcfg, cfg: (
+            list(tsweep.run_fault_sweep(cfg, [cfg.faults], [0], mesh=mesh, device="cpu",
+                                        journal=tjournal.SweepJournal(str(tmp_path / "j")))
+                 .values()),
+            list(tsweep.run_fault_sweep(cfg, [cfg.faults], [0], device="cpu").values())),
+        "supervise": lambda jcfg, cfg: (
+            tsweep.run_byzantine_sweep(cfg, [0], mesh=mesh, device="cpu",
+                                       supervise=tjournal.ChunkSupervisor(deadline_s=None)),
+            tsweep.run_byzantine_sweep(cfg, [0], device="cpu")),
+        "chunk_keys": lambda jcfg, cfg: (
+            tsweep.dyn_chunk_keys(cfg, [cfg.faults], [0], mesh=mesh),
+            jsweep.dyn_chunk_keys(jcfg, [jcfg.faults], [0], mesh=jmake_mesh(
+                1, 1, devices=jax.devices()[:1]))),
+        "mesh": lambda jcfg, cfg: (
+            tsweep.run_seed_sweep(cfg, [0, 1], mesh=mesh),
+            [tshard.run_sharded(cfg, mesh, seed=s) for s in (0, 1)]),
+        "probe": lambda jcfg, cfg: (
+            tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=tschema.ProbeConfig(), mesh=mesh),
+            tsweep.run_dyn_points(cfg, [(cfg, 0)], probe=tschema.ProbeConfig(),
+                                  device="cpu")),
+    }
 
 
-@pytest.mark.parametrize("arm", list(REFUSED))
-def test_sweep_arms_refused(arm):
-    """The arms a later slice brings raise ``NotImplementedError`` naming
-    their slice (never silently ignored)."""
-    _, tcfg = _cfgs(protocol="pbft", n=8, sim_ms=100)
-    fn, match = REFUSED[arm]
-    with pytest.raises(NotImplementedError, match=match):
-        fn(tcfg)
+REFUSED = ["journal", "supervise", "chunk_keys", "mesh", "probe"]
+
+
+@pytest.mark.parametrize("arm", REFUSED)
+def test_sweep_arms_refused(arm, tmp_path):
+    """The arms once refused over a mesh run over one now (the sweep axis):
+    over a mesh of one rank each answers as its plain call does (the chunk
+    keys as JAX's over a 1-device mesh), never silently dropping the
+    mesh's meaning."""
+    jcfg, tcfg = _cfgs(protocol="pbft", n=8, sim_ms=100)
+    got, want = _mesh_arms(tmp_path)[arm](jcfg, tcfg)
+    assert obs.canonical_json(got) == obs.canonical_json(want)
 
 
 @pytest.mark.parametrize("var", ["BLOCKSIM_RUNS_JSONL", "BLOCKSIM_HEALTH_JSONL"])
