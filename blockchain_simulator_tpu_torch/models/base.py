@@ -8,6 +8,16 @@ name:
 - ``step(cfg, state, bufs, t, tkey) -> (state, bufs)`` — one 1 ms tick for
   all N nodes at once.
 - ``metrics(cfg, state) -> dict`` — host-side structured metrics.
+
+*Lanes.*  Every tick engine also steps ``L`` runs side by side: a state
+whose fields lead with a lane axis ``[L, N, ...]`` (:func:`init_lanes`),
+rings ``[D, L, N, ...]`` (D-leading, so a tick's pushes stay one grouped
+launch over ``L·N`` rows) and lane keys ``[L, 2]``.  A gate the solo step
+reads once a tick is read once a tick for all lanes ("any lane"), and a
+lane whose own gate is shut contributes zeros, as ``jax.vmap``'s select of
+the shut branch gives it.  Lane ``l`` equals JAX's vmapped row ``l`` of the
+batch (the first-lane rule of ops/delay.py) or, under
+``ops/delay.lane_rule(1)``, the solo run of its key (``lax.map``).
 """
 
 from __future__ import annotations
@@ -129,12 +139,24 @@ def apply_fault_masks(cfg, state, alive, honest):
     return state
 
 
+def init_lanes(cfg, keys, device):
+    """``proto.init`` over lane keys ``[L, 2]``: one init a lane, every state
+    field stacked on a leading lane axis (:func:`stack_lanes`) and every
+    ring on the axis after its slots, ``[D, L, ...]``."""
+    proto = get_protocol(cfg.protocol)
+    outs = [proto.init(cfg, k, device=device) for k in np.asarray(keys, np.int64)]
+    bufs = outs[0][1]
+    return (stack_lanes([s for s, _ in outs]), dataclasses.replace(bufs, **{
+        f.name: torch.stack([getattr(b, f.name) for _, b in outs], dim=1)
+        for f in dataclasses.fields(bufs)}))
+
+
 def tick_loop(cfg, state, bufs, key, start: int, stop: int, topo_tables=None, probe=None,
               exchange=None):
     """``proto.step`` over ticks ``[start, stop)`` on the state's device, the
     tick a one-element int32 tensor there and the tick keys computed on the
-    host up front; lane keys ``[B, 2]`` step a lane-stacked Raft state
-    (models/raft.py).  ``topo_tables`` hands the kregular overlay's device
+    host up front; lane keys ``[L, 2]`` step a lane-stacked state (module
+    docstring).  ``topo_tables`` hands the kregular overlay's device
     tables to every step, and ``exchange`` the sharded overlay's neighbour
     exchange (parallel/partition.NeighborExchange).  Tick keys derive
     from the absolute tick, so loops chained end to end equal one.  Returns ``(state, bufs)``; with ``probe``

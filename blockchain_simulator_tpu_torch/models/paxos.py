@@ -22,6 +22,10 @@ parallel/shard.py): each rank holds its acceptor rows, the proposers'
 request values are all-gathered, the replies' counts summed and payloads
 max-reduced over the ranks, and the tick's one host read is agreed.
 
+*Lanes* (models/base.py): a state of ``[L, N, ...]`` fields with rings
+``[D, L, N, ...]`` and lane keys ``[L, 2]`` steps ``L`` runs at once on
+every topology (unsharded); the host read stays one a tick, "any lane".
+
 PyTorch idiom, as in models/pbft.py: state and rings are mutable tensors,
 the rings are updated in place, ``t`` is a 0-d int32 tensor on the device.
 JAX's four ``lax.cond`` gates (the replies and the three request channels)
@@ -177,13 +181,13 @@ def _req_contrib(key, val, lo, hi, drop, ids, p, ref_skip, impl="threefry",
     kregular in-table holds the proposer.  Sharded, the proposers' values
     are gathered and each rank draws its receiver rows."""
     dev = val.device
-    n = val.shape[0]
-    val_g = dv._gather(val, axis)[:p]  # [P] global proposer values
+    n = val.shape[-1]
+    val_g = dv._gather(val, axis)[..., None, :p]  # [P] global proposer values
     key = dv._shard_key(key, axis)
     with dv.draw_rows(axis, -2):
         d = delay_ops.sample_edge_delays(key, (n, p), lo, hi, dev, impl)
     prop_ids = torch.arange(p, dtype=_I32, device=dev)
-    mask = (val_g[None, :] > 0) & (ids[:, None] != prop_ids[None, :])
+    mask = (val_g > 0) & (ids[:, None] != prop_ids[None, :])
     if inmask is not None:
         mask = mask & inmask
     if ref_skip:
@@ -194,7 +198,7 @@ def _req_contrib(key, val, lo, hi, drop, ids, p, ref_skip, impl="threefry",
             mask = mask & threefry.bernoulli(threefry.fold_in(key, 0x0D20), 1.0 - drop,
                                              (n, p), dev)
     hits = (d[None] == dv._bucket_iota(lo, hi, d.ndim, dev)).to(_I32)
-    return hits * (mask.to(_I32) * val_g[None, :])[None]
+    return hits * (mask.to(_I32) * val_g)[None]
 
 
 def _reply_contribs(key, ok_wire, no_wire, cmd_wire, lo, hi, drop, ids, p,
@@ -205,7 +209,7 @@ def _reply_contribs(key, ok_wire, no_wire, cmd_wire, lo, hi, drop, ids, p,
     counts are summed and the payloads max-reduced over the ranks (the
     repliers)."""
     dev = ok_wire.device
-    n = ok_wire.shape[0]
+    n = ok_wire.shape[-3]
     key = dv._shard_key(key, axis)
     with dv.draw_rows(axis, -3):
         d = delay_ops.sample_edge_delays(key, (n, p, 3), lo, hi, dev, impl)
@@ -215,17 +219,17 @@ def _reply_contribs(key, ok_wire, no_wire, cmd_wire, lo, hi, drop, ids, p,
                                       (n, p, 3), dev).to(_I32)
         ok_wire = ok_wire * keep
         no_wire = no_wire * keep
-        cmd_wire = cmd_wire * keep[:, :, 0]
+        cmd_wire = cmd_wire * keep[..., 0]
     hits = (d[None] == dv._bucket_iota(lo, hi, d.ndim, dev)).to(_I32)
-    ok_b = (hits * ok_wire[None]).sum(1, dtype=_I32)  # [B, P, 3]
-    no_b = (hits * no_wire[None]).sum(1, dtype=_I32)
-    cmd_b = (hits[:, :, :, 0] * cmd_wire[None]).amax(1)  # [B, P]
+    ok_b = (hits * ok_wire[None]).sum(-3, dtype=_I32)  # [B, P, 3]
+    no_b = (hits * no_wire[None]).sum(-3, dtype=_I32)
+    cmd_b = (hits[..., 0] * cmd_wire[None]).amax(-2)  # [B, P]
     ok_b, no_b, cmd_b = dv._psum(ok_b, axis), dv._psum(no_b, axis), dv._pmax(cmd_b, axis)
     take = torch.clamp(ids, 0, p - 1).to(torch.int64)
     is_prop = (ids < p).to(_I32)
-    return (ok_b[:, take, :] * is_prop[None, :, None],
-            no_b[:, take, :] * is_prop[None, :, None],
-            cmd_b[:, take] * is_prop[None, :])
+    return (ok_b.index_select(-2, take) * is_prop[:, None],
+            no_b.index_select(-2, take) * is_prop[:, None],
+            cmd_b.index_select(-1, take) * is_prop)
 
 
 @functools.lru_cache(maxsize=8)
@@ -243,7 +247,8 @@ def _inmask_of(nbr_in, p: int) -> torch.Tensor:
 def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
          exchange=None):
     """One tick.  ``t``: 0-d int32 tensor on the state's device; ``tkey``:
-    the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
+    the tick's threefry key (utils/prng.tick_key), or lane keys ``[L, 2]``
+    for a lane-stacked state (module docstring).  ``init`` has checked
     that the config is ported.  ``topo_tables``: the kregular overlay's
     ``(in, out)`` tables when the caller holds them, else the config's
     own; ``exchange``: the sharded overlay's, whose tables are already
@@ -256,7 +261,7 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
     eimpl = cfg.eff_edge_sampler
     c_enc = n + 1  # encoding base: val = ticket * c_enc + command + 1
     dev = state.t_max.device
-    n_loc = state.t_max.shape[0]
+    n_loc = state.t_max.shape[-1]
     ids = dv._global_ids(n_loc, axis, dev)
     alive, honest = state.alive, state.honest
 
@@ -267,9 +272,10 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
     ok_t, resp_ok = ring_pop(bufs.resp_ok, t)
     no_t, resp_no = ring_pop(bufs.resp_no, t)
     cmd_t, resp_cmd = ring_pop(bufs.resp_cmd, t)
-    am = alive.to(_I32)
-    rt_t, rp_t, rc_t = rt_t * am[:, None], rp_t * am[:, None], rc_t * am[:, None]
-    ok_t, no_t = ok_t * am[:, None], no_t * am[:, None]
+    am = alive.to(_I32)[..., None]
+    rt_t, rp_t, rc_t = rt_t * am, rp_t * am, rc_t * am
+    ok_t, no_t = ok_t * am, no_t * am
+    am = am[..., 0]
     cmd_t = cmd_t * am
 
     # kregular overlay: requests reach only receivers whose in-table holds
@@ -287,7 +293,7 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
 
     # ---- gossip decode: TTL values → new-request dedup + forward set --------
     gossip = cfg.topology == "gossip"
-    seen = [state.seen_req[:, ci, :] for ci in range(3)]
+    seen = [state.seen_req[..., ci, :] for ci in range(3)]
     if gossip:
         h_enc = cfg.gossip_hops + 1
         nbrs = topology.neighbours(n, cfg.degree, cfg.seed, dev)
@@ -297,9 +303,9 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         for ci, arr in enumerate((rt_t, rp_t, rc_t)):
             base, hops = arr // h_enc, arr % h_enc
             # acceptors process each base value once (first sighting) ...
-            new_base = (base > seen[ci] // h_enc) & alive[:, None]
+            new_base = (base > seen[ci] // h_enc) & alive[..., None]
             # ... but forward any strictly better TTL-encoded copy
-            better = (arr > seen[ci]) & alive[:, None]
+            better = (arr > seen[ci]) & alive[..., None]
             proc.append(base * new_base)
             seen[ci] = torch.maximum(seen[ci], arr * better)
             fwd_vals.append((base * h_enc + torch.clamp(hops - 1, min=0))
@@ -311,7 +317,7 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
     is_commit, exec_tick = state.is_commit, state.exec_tick
     tk_ok, tk_no, prom = [], [], []
     for q in range(p):  # REQUEST_TICKET
-        tk = rt_t[:, q]
+        tk = rt_t[..., q]
         ok = (tk > 0) & (tk > t_max)
         prom.append(torch.where(ok & (command >= 0), t_store * c_enc + command + 1, 0))
         t_max = torch.where(ok, tk, t_max)
@@ -319,7 +325,7 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         tk_no.append((tk > 0) & ~ok)
     pr_ok, pr_no = [], []
     for q in range(p):  # REQUEST_PROPOSE
-        v = rp_t[:, q]
+        v = rp_t[..., q]
         tkt, cmd = v // c_enc, v % c_enc - 1
         ok = (v > 0) & (tkt == t_max)
         command = torch.where(ok, cmd, command)
@@ -328,22 +334,22 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         pr_no.append((v > 0) & ~ok)
     cm_ok, cm_no = [], []
     for q in range(p):  # REQUEST_COMMIT
-        v = rc_t[:, q]
+        v = rc_t[..., q]
         tkt, cmd = v // c_enc, v % c_enc - 1
         ok = (v > 0) & (tkt == t_store) & (cmd == command)
         exec_tick = torch.where(ok & (exec_tick < 0), t, exec_tick)
         is_commit = is_commit | ok
         cm_ok.append(ok)
         cm_no.append((v > 0) & ~ok)
-    ok_wire = torch.stack([torch.stack(tk_ok, 1), torch.stack(pr_ok, 1),
-                           torch.stack(cm_ok, 1)], 2).to(_I32)  # [N, P, 3]
-    no_wire = torch.stack([torch.stack(tk_no, 1), torch.stack(pr_no, 1),
-                           torch.stack(cm_no, 1)], 2).to(_I32)
+    ok_wire = torch.stack([torch.stack(tk_ok, -1), torch.stack(pr_ok, -1),
+                           torch.stack(cm_ok, -1)], -1).to(_I32)  # [N, P, 3]
+    no_wire = torch.stack([torch.stack(tk_no, -1), torch.stack(pr_no, -1),
+                           torch.stack(cm_no, -1)], -1).to(_I32)
     # Byzantine acceptors flip their votes; only honest promises carry payloads
-    hn = honest[:, None, None]
+    hn = honest[..., None, None]
     ok_w = torch.where(hn, ok_wire, no_wire)
     no_w = torch.where(hn, no_wire, ok_wire)
-    cmd_wire = torch.stack(prom, 1) * honest[:, None].to(_I32)
+    cmd_wire = torch.stack(prom, -1) * honest[..., None].to(_I32)
     any_req = (rt_t > 0).any() | (rp_t > 0).any() | (rc_t > 0).any()
 
     # ---- proposer FSM: response counting ------------------------------------
@@ -354,9 +360,9 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         # per-phase counters: only replies of the current phase's type count
         ph = state.phase
         waiting = active & (ph >= PH_TICKET) & (ph <= PH_COMMIT)
-        sel = torch.clamp(ph, 0, 2).to(torch.int64)[:, None]
-        vs = vs + torch.gather(ok_t, 1, sel)[:, 0] * waiting
-        vf = vf + torch.gather(no_t, 1, sel)[:, 0] * waiting
+        sel = torch.clamp(ph, 0, 2).to(torch.int64)[..., None]
+        vs = vs + torch.gather(ok_t, -1, sel)[..., 0] * waiting
+        vf = vf + torch.gather(no_t, -1, sel)[..., 0] * waiting
         advance = waiting & (vs >= cfg.quorum + 1)  # a true majority of all n
         # retry only by window timeout (the timeout exceeds the reply horizon)
         want_retry = waiting & ~advance & (t >= state.window_deadline)
@@ -370,25 +376,25 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         win = n - 2
         before = vs + vf
         arr = ok_t + no_t  # [N, 3]
-        cum0 = before + arr[:, 0]
-        cum1 = cum0 + arr[:, 1]
-        cum2 = cum1 + arr[:, 2]
+        cum0 = before + arr[..., 0]
+        cum1 = cum0 + arr[..., 1]
+        cum2 = cum1 + arr[..., 2]
         crossed = active & (before < win) & (cum2 >= win)
         ctype = torch.where(cum0 >= win, 0, torch.where(cum1 >= win, 1, 2))
-        vs_at = (vs + ok_t[:, 0] + torch.where(ctype >= 1, ok_t[:, 1], 0)
-                 + torch.where(ctype >= 2, ok_t[:, 2], 0))
+        vs_at = (vs + ok_t[..., 0] + torch.where(ctype >= 1, ok_t[..., 1], 0)
+                 + torch.where(ctype >= 2, ok_t[..., 2], 0))
         success = vs_at >= cfg.quorum  # vote_success >= N/2
         adv0 = crossed & success & (ctype == 0)
         adv1 = crossed & success & (ctype == 1)
         adv2 = crossed & success & (ctype == 2)
         want_retry = crossed & ~success
         # counters reset at the crossing; replies of later types keep counting
-        left_ok = torch.where(ctype == 0, ok_t[:, 1] + ok_t[:, 2],
-                              torch.where(ctype == 1, ok_t[:, 2], 0))
-        left_no = torch.where(ctype == 0, no_t[:, 1] + no_t[:, 2],
-                              torch.where(ctype == 1, no_t[:, 2], 0))
-        vs = torch.where(crossed, left_ok, vs + ok_t.sum(1, dtype=_I32))
-        vf = torch.where(crossed, left_no, vf + no_t.sum(1, dtype=_I32))
+        left_ok = torch.where(ctype == 0, ok_t[..., 1] + ok_t[..., 2],
+                              torch.where(ctype == 1, ok_t[..., 2], 0))
+        left_no = torch.where(ctype == 0, no_t[..., 1] + no_t[..., 2],
+                              torch.where(ctype == 1, no_t[..., 2], 0))
+        vs = torch.where(crossed, left_ok, vs + ok_t.sum(-1, dtype=_I32))
+        vf = torch.where(crossed, left_no, vf + no_t.sum(-1, dtype=_I32))
 
     # adoption at ticket→propose: the highest-t_store promise wins
     adopted_cmd = adopt_val % c_enc - 1
@@ -447,7 +453,7 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         own = (ids[:, None] == torch.arange(p, device=dev)[None, :]).to(_I32)
         outs = []
         for ci, val in enumerate((tk_val, pp_val, cm_val)):
-            init_mat = val[:, None] * own
+            init_mat = val[..., None] * own
             init_enc = (init_mat * h_enc + cfg.gossip_hops) * (init_mat > 0)
             seen[ci] = torch.maximum(seen[ci], init_enc)
             outs.append(torch.maximum(fwd_vals[ci], init_enc))
@@ -507,7 +513,7 @@ def step(cfg, state: PaxosState, bufs: PaxosBufs, t, tkey, *, topo_tables=None,
         commit_tick=commit_tick,
         gave_up=gave_up,
         window_deadline=window_deadline,
-        seen_req=torch.stack(seen, 1) if gossip else state.seen_req,
+        seen_req=torch.stack(seen, -2) if gossip else state.seen_req,
     )
     bufs = PaxosBufs(req_ticket=req_ticket, req_propose=req_propose,
                      req_commit=req_commit, resp_ok=resp_ok, resp_no=resp_no,

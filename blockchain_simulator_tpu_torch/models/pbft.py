@@ -27,6 +27,15 @@ and host read is agreed over the ranks, and :func:`finalize` combines the
 per-rank slot accumulators; the sharded overlay reads its neighbours'
 rows through the exchange (``exchange``, parallel/partition.py).
 
+*Lanes* (models/base.py): a state of ``[L, N, ...]`` fields with rings
+``[D, L, N, ...]`` and lane keys ``[L, 2]`` steps ``L`` runs at once on
+the full mesh, gossip, queued links and the kregular overlay (unsharded).
+Every reduction the JAX step makes to a scalar is a per-lane reduction
+here (``jax.vmap`` of it); the tick's host reads are the single run's,
+each "any lane".  A lane whose gate is shut contributes zeros by
+construction: every gated contribution is a product with its gate's
+sender mask.
+
 PyTorch idiom: state and rings are mutable tensors.  The rings are updated in
 place (ops/ring.py), and ``t`` is a one-element int32 tensor on the device.
 Gates read their predicate back to the host (models/base.gated).  Each ring
@@ -231,9 +240,10 @@ def _scatter_window_events(acc_add, acc_max, acc_min, events, eff_sid, t, s):
     """Fold [N, W] first-commit / propose events into [S] accumulators via a
     per-window reduction: all nodes crossing a window this tick share its
     tenant, so per-window (count, slot-id) pairs are exact and the scatter is
-    W updates, not N·W.  Invalid slot ids route to index ``s`` and drop."""
-    cnt_w = events.sum(0, dtype=_I32)                          # [W]
-    sid_w = torch.where(events, eff_sid, -1).amax(0)           # [W]
+    W updates, not N·W.  Invalid slot ids route to index ``s`` and drop.
+    Lanes: ``[L, N, W]`` events into ``[L, S]`` accumulators, lane by lane."""
+    cnt_w = events.sum(-2, dtype=_I32)                         # [W]
+    sid_w = torch.where(events, eff_sid, -1).amax(-2)          # [W]
     valid = (sid_w >= 0) & (sid_w < s) & (cnt_w > 0)
     idx = torch.where(valid, sid_w, s).to(torch.int64)
     out = []
@@ -257,26 +267,28 @@ class _TickConsts:
 
 
 @functools.lru_cache(maxsize=8)
-def _tick_consts(cfg, device, n: int) -> _TickConsts:
+def _tick_consts(cfg, device, lead: tuple) -> _TickConsts:
     """What ``step`` needs that depends only on the config, the device and
-    the row count ``n``, made once per (config, device, rows) rather than
-    on every tick.  The zero tensors are
-    the results of skipped gates: they are only ever read."""
+    the state's leading shape ``lead`` (``(N,)``, or ``(L, N)`` with lanes),
+    made once per (config, device, shape) rather than on every tick.  The
+    zero tensors are the results of skipped gates: they are only ever
+    read."""
     w = eff_window(cfg)
     lo, hi = cfg.one_way_range()
     rt_lo, rt_hi = cfg.roundtrip_range()
     return _TickConsts(
         windows=torch.arange(w, dtype=_I32, device=device),
-        zeros_rt=torch.zeros((rt_hi - rt_lo, n, w), dtype=_I32, device=device),
-        zeros_w=torch.zeros((hi - lo, n, w), dtype=_I32, device=device),
-        zeros_vc=torch.zeros((hi - lo, n), dtype=_I32, device=device),
+        zeros_rt=torch.zeros((rt_hi - rt_lo,) + lead + (w,), dtype=_I32, device=device),
+        zeros_w=torch.zeros((hi - lo,) + lead + (w,), dtype=_I32, device=device),
+        zeros_vc=torch.zeros((hi - lo,) + lead, dtype=_I32, device=device),
     )
 
 
 def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
          exchange=None):
     """One tick.  ``t``: 0-d int32 tensor on the state's device; ``tkey``:
-    the tick's threefry key (utils/prng.tick_key).  ``init`` has checked
+    the tick's threefry key (utils/prng.tick_key), or lane keys ``[L, 2]``
+    for a lane-stacked state (module docstring).  ``init`` has checked
     that the config is ported.  ``topo_tables``: the kregular overlay's
     ``(in, out)`` tables when the caller holds them
     (runner.make_topo_dyn_sim_fn), else the config's own; ``exchange``:
@@ -296,8 +308,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     ow_probs = delay_ops.uniform_probs(lo, hi)
     rt_probs = delay_ops.roundtrip_probs(lo, hi)
     dev = state.v.device
-    n_loc = state.v.shape[0]
-    consts = _tick_consts(cfg, dev, n_loc)
+    n_loc = state.v.shape[-1]
+    consts = _tick_consts(cfg, dev, tuple(state.v.shape))
     ids, windows, zeros_w = dv._global_ids(n_loc, axis, dev), consts.windows, consts.zeros_w
     ser = cfg.serialization_ticks(cfg.pbft_block_bytes)
 
@@ -307,7 +319,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     com_t, commit = ring_pop(bufs.commit, t)
     vc_t, vc = ring_pop(bufs.vc, t)
     am = state.alive.to(_I32)
-    pp_t, prep_t, com_t = pp_t * am[:, None], prep_t * am[:, None], com_t * am[:, None]
+    pp_t, prep_t, com_t = (pp_t * am[..., None], prep_t * am[..., None],
+                           com_t * am[..., None])
     vc_t = vc_t * am
 
     # queued links: this tick's serial-link block deliveries.  A destination
@@ -318,11 +331,11 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     ppq_tick, ppq_val, link_busy = state.ppq_tick, state.ppq_val, state.link_busy
     if queued:
         hits = ppq_tick == t  # [N, Q]
-        vals = torch.where(hits & state.alive[:, None], ppq_val, 0)
+        vals = torch.where(hits & state.alive[..., None], ppq_val, 0)
         ppq_tick = torch.where(hits, _NEVER, ppq_tick)
-        oh_arr = ((((vals - 1) % w)[:, :, None] == windows[None, None, :])
-                  & (vals > 0)[:, :, None])  # [N, Q, W]
-        pp_t = torch.maximum(pp_t, torch.where(oh_arr, vals[:, :, None], 0).amax(1))
+        oh_arr = ((((vals - 1) % w)[..., None] == windows)
+                  & (vals > 0)[..., None])  # [N, Q, W]
+        pp_t = torch.maximum(pp_t, torch.where(oh_arr, vals[..., None], 0).amax(-2))
 
     # ---- gossip decode: PRE_PREPARE and VIEW_CHANGE flood with a hop TTL
     # (value * H + hops_left, H = gossip_hops + 1); a node processes each
@@ -336,8 +349,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         if axis is not None:
             nbrs = nbrs.index_select(0, ids.to(torch.int64))
         pp_base, pp_hops = pp_t // h_enc, pp_t % h_enc
-        better = (pp_t > seen_pp) & state.alive[:, None]
-        new_base = (pp_base > seen_pp // h_enc) & state.alive[:, None]
+        better = (pp_t > seen_pp) & state.alive[..., None]
+        new_base = (pp_base > seen_pp // h_enc) & state.alive[..., None]
         seen_pp = torch.maximum(seen_pp, pp_t * better)
         pp_fwd = ((pp_base * h_enc + torch.clamp(pp_hops - 1, min=0))
                   * (better & (pp_hops > 0)))
@@ -368,7 +381,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     if queued:
         # leadership rotated: the new leader's links carry votes only, hence
         # are free; its busy registers start fresh
-        link_busy = torch.where(dv._pmax(has_vc.any(), axis), 0, link_busy)
+        link_busy = torch.where(dv._pmax(has_vc.any(-1, keepdim=True), axis), 0, link_busy)
 
     # ---- PRE_PREPARE arrivals: evict stale tenant, store, broadcast PREPARE -
     got_pp = pp_t > 0  # [N, W] (any arrival re-broadcasts PREPARE, no dedup)
@@ -385,13 +398,13 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         commit_vote = torch.where(new_tenant, 0, state.commit_vote)
         prep_sent = state.prep_sent & ~new_tenant
         committed_w = state.committed_w & ~new_tenant
-    seen_hi = torch.where(got_pp, arr_sid + 1, 0).amax(1)
+    seen_hi = torch.where(got_pp, arr_sid + 1, 0).amax(-1)
     next_n = torch.maximum(state.next_n, seen_hi)
 
     # PREPARE broadcast → short-circuited round-trip PREPARE_RES replies from
     # honest, alive peers (Byzantine votes are FAILED, which nobody counts)
     voters = state.alive & state.honest
-    prep_active = got_pp.any(1)
+    prep_active = got_pp.any(-1)
     got_pp_i = got_pp.to(_I32)
     k_rt = chan_key(tkey, Channel.DELAY_ROUNDTRIP)
 
@@ -400,18 +413,19 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
             # the overlay swaps only the per-sender peer count: a gather
             # over the out-table instead of total-minus-self
             n_peers = (gd.out_counts(voters, nbr_out, ids, axis, exchange) if kreg
-                       else dv._psum(voters.sum(dtype=_I32), axis) - voters.to(_I32))
+                       else dv._psum(voters.sum(-1, keepdim=True, dtype=_I32), axis)
+                       - voters.to(_I32))
             return dv.push_roundtrip_reply_counts_stat(
                 k_rt, prep_active, n_peers, rt_probs, drop, axis=axis, mode=smode,
                 # replies are per broadcast, i.e. per active (node, window)
-                expand=lambda c: c[:, None] * got_pp_i)
+                expand=lambda c: c[..., None] * got_pp_i)
         rt = (gd.roundtrip_reply_counts_kreg(k_rt, prep_active, nbr_out, ids, lo, hi, drop,
                                              peer_mask=voters, axis=axis, impl=eimpl,
                                              xg=exchange)
               if kreg else
               dv.roundtrip_reply_counts_dense(k_rt, prep_active, lo, hi, drop,
                                               peer_mask=voters, axis=axis, impl=eimpl))
-        return rt[:, :, None] * got_pp_i[None, :, :]
+        return rt[..., None] * got_pp_i[None]
 
 
     # ---- PREPARE_RES arrivals → prepare_vote → COMMIT broadcast -------------
@@ -424,7 +438,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
 
     bt = cfg.pbft_block_interval_ms
     is_block_tick = (t % bt == 0) & (t > 0)
-    commit_mat = (crossed_p & voters[:, None]).to(_I32)
+    commit_mat = (crossed_p & voters[..., None]).to(_I32)
     if cfg.faults.byz_forge and cfg.faults.n_byzantine > 0:
         # forgers flood COMMIT votes for the never-proposed last slot; a
         # "2f1" receiver counts one vote per sender ever (a single send)
@@ -433,7 +447,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         else:
             fire, copies = is_block_tick, cfg.faults.byz_copies
         forgers = (state.alive & ~state.honest).to(_I32) * fire.to(_I32)
-        commit_mat[:, w - 1] += forgers * copies
+        commit_mat[..., w - 1] += forgers * copies
     k_cm = chan_key(tkey, Channel.DELAY_BCAST)
 
     def commits():
@@ -458,10 +472,10 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     commit_vote = torch.where(crossed_c, 0, cv)
     first_commit = crossed_c & ~committed_w
     committed_w = committed_w | crossed_c
-    block_num = state.block_num + crossed_c.sum(1, dtype=_I32)
+    block_num = state.block_num + crossed_c.sum(-1, dtype=_I32)
     # exact mode: an unknown tenant can only be window w itself (identity map)
-    eff_sid = torch.where(slot_id >= 0, slot_id, windows[None, :] if exact else -1)
-    unattributed = state.unattributed + (first_commit & (eff_sid < 0)).sum(1, dtype=_I32)
+    eff_sid = torch.where(slot_id >= 0, slot_id, windows if exact else -1)
+    unattributed = state.unattributed + (first_commit & (eff_sid < 0)).sum(-1, dtype=_I32)
     slot_commits, slot_commit_tick = _scatter_window_events(
         state.slot_commits, state.slot_commit_tick, None,
         first_commit, eff_sid, t, s,
@@ -481,16 +495,16 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     pushes = [(prep_rt, rt_lo, prep_replies() if rt_on else consts.zeros_rt, "add"),
               (commit, lo, commits() if cm_on else zeros_w, "add")]
     own_w = next_n % w
-    own_onehot = (windows[None, :] == own_w[:, None]) & send_block[:, None]
+    own_onehot = (windows == own_w[..., None]) & send_block[..., None]
     # the proposer learns its own window's tenant (it never hears its own
     # PRE_PREPARE); exact mode keeps the counters, as at pp arrival above
-    slot_id = torch.where(own_onehot, next_n[:, None], slot_id)
+    slot_id = torch.where(own_onehot, next_n[..., None], slot_id)
     if not exact:
         prepare_vote = torch.where(own_onehot, 0, prepare_vote)
         commit_vote = torch.where(own_onehot, 0, commit_vote)
         prep_sent = prep_sent & ~own_onehot
         committed_w = committed_w & ~own_onehot
-    pp_val = own_onehot.to(_I32) * (next_n[:, None] + 1)
+    pp_val = own_onehot.to(_I32) * (next_n[..., None] + 1)
     k_pp = chan_key(tkey, Channel.DELAY_BCAST2)
     if queued:
         if any_block:  # with no sender nothing is enqueued and nothing drawn
@@ -526,7 +540,7 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
     rounds_sent = state.rounds_sent + send_block
     (slot_propose_tick,) = _scatter_window_events(
         None, None, state.slot_propose_tick,
-        own_onehot, torch.where(own_onehot, next_n[:, None], -1), t, s,
+        own_onehot, torch.where(own_onehot, next_n[..., None], -1), t, s,
     )
     next_n = next_n + send_block
 
@@ -563,8 +577,8 @@ def step(cfg, state: PbftState, bufs: PbftBufs, t, tkey, *, topo_tables=None,
         pushes.append((pp, lo + ser, pp_contrib, "max"))
         vc_contrib = gated(
             vc_on,
-            lambda: dv.gossip_fwd(k_vc, vc_out[:, None], nbrs, n, lo, hi, drop, axis=axis,
-                                  impl=eimpl)[:, :, 0],
+            lambda: dv.gossip_fwd(k_vc, vc_out[..., None], nbrs, n, lo, hi, drop, axis=axis,
+                                  impl=eimpl)[..., 0],
             consts.zeros_vc,
         )
     else:
@@ -626,19 +640,19 @@ def _enqueue_blocks(cfg, send_block, next_n, ids, ppq_tick, ppq_val, link_busy, 
     prop = cfg.link_delay_ms
     # one block sender (runner._reject_cpp_only): its scalars globalize
     # with a MAX over the ranks
-    val_sent = dv._pmax(torch.where(send_block, next_n + 1, 0).amax(), axis)
-    sender = dv._pmax(torch.where(send_block, ids, -1).amax(), axis)
+    val_sent = dv._pmax(torch.where(send_block, next_n + 1, 0).amax(-1, keepdim=True), axis)
+    sender = dv._pmax(torch.where(send_block, ids, -1).amax(-1, keepdim=True), axis)
     dest = (val_sent > 0) & (ids != sender)  # crashed peers get it and ignore it
     d_j = threefry.randint(dv._shard_key(k_pp, axis), (ids.shape[0],), lo, hi, ids.device)
     start = torch.maximum(t + d_j - prop, link_busy)
     delivery = start + ser + prop
     link_busy = torch.where(dest, start + ser, link_busy)
     free = ppq_tick == _NEVER  # [N, Q]
-    first_free = free.to(torch.uint8).argmax(1)  # lowest free slot (0 if none)
-    slots = torch.arange(free.shape[1], device=free.device)
-    oh_q = (slots[None, :] == first_free[:, None]) & dest[:, None] & free
-    return (torch.where(oh_q, delivery[:, None], ppq_tick),
-            torch.where(oh_q, val_sent, ppq_val), link_busy)
+    first_free = free.to(torch.uint8).argmax(-1)  # lowest free slot (0 if none)
+    slots = torch.arange(free.shape[-1], device=free.device)
+    oh_q = (slots == first_free[..., None]) & dest[..., None] & free
+    return (torch.where(oh_q, delivery[..., None], ppq_tick),
+            torch.where(oh_q, val_sent[..., None], ppq_val), link_busy)
 
 
 def metrics(cfg, state: PbftState) -> dict:

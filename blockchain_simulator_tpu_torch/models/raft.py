@@ -39,8 +39,10 @@ and the tick's push group keeps one member a channel, of length ``S·N``.
 the JAX step: every gate is one host read of "any shard live", and under
 it a shard whose own gate is shut keeps exactly what the JAX shut branch
 returns (``vmap`` lowers ``lax.cond`` to a select), by an explicit
-``where``.  The host reads a tick stay the single instance's.  The shard
-form runs the full mesh without queued links (what the mixed sim allows).
+``where``.  The host reads a tick stay the single instance's.  The same
+form is the tick engine's lane axis (models/base.py): a batch of runs side
+by side, on every arm (full mesh, queued links, gossip, kregular;
+unsharded).
 
 PyTorch idiom, as in models/pbft.py: state and rings are mutable tensors, the
 rings are updated in place, and ``t`` is a one-element int32 tensor on the
@@ -137,12 +139,6 @@ def init(cfg, key=None, *, device, rows=None):
     timeout the one the whole draw gives its row."""
     k = threefry.key(cfg.seed) if key is None else np.asarray(key, np.int64)
     sh = (len(k),) if k.ndim == 2 else ()
-    if sh and (cfg.topology != "full" or cfg.queued_links):
-        raise NotImplementedError(
-            "the Raft step over a shard axis runs the full mesh without queued "
-            "links (the mixed shard sim's arms); gossip and queued links run "
-            "one instance"
-        )
     d, b = cfg.ring_depth, cfg.raft_max_blocks
     start, n = (0, cfg.n) if rows is None else rows
     alive, honest = (m[start:start + n].expand(sh + (n,)).contiguous()
@@ -485,8 +481,10 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
     if queued:
         # leadership changed: the new leader's links carry votes only, hence
         # are free; in-flight deliveries keep their ring slots
-        lead_prev = dv._pmax(torch.where(state.is_leader & alive, ids, -1).amax(), axis)
-        lead_new = dv._pmax(torch.where(is_leader & alive, ids, -1).amax(), axis)
+        lead_prev = dv._pmax(torch.where(state.is_leader & alive, ids, -1)
+                             .amax(-1, keepdim=True), axis)
+        lead_new = dv._pmax(torch.where(is_leader & alive, ids, -1).amax(-1, keepdim=True),
+                            axis)
         link_busy = torch.where(lead_new != lead_prev, 0, link_busy)
 
     # ---- gossip: leader step-down on a newer election (see my_base) ---------
@@ -625,9 +623,9 @@ def step(cfg, state: RaftState, bufs: RaftBufs, t, tkey, *, topo_tables=None,
             [out.any() for *_, out in floods] + [got_prop.any()]), axis).tolist()
         for (ring, off, key, out), on in zip(floods, flood_on):
             if on:
-                pushes.append((ring, off, dv.gossip_fwd(key, out[:, None], nbrs, n, lo,
+                pushes.append((ring, off, dv.gossip_fwd(key, out[..., None], nbrs, n, lo,
                                                         hi, drop, axis=axis,
-                                                        impl=eimpl)[:, :, 0],
+                                                        impl=eimpl)[..., 0],
                                "max"))
         if any_ack:
             pushes += ack_pushes()
@@ -753,40 +751,55 @@ def _queued_sends(cfg, prop_send, plain_send, any_prop, voters, liars, ids, link
     the leader's column.  Returns the new ``link_busy``.  Sharded: the
     sender scalars are MAX-reduced, the rows are this rank's columns, and
     the leader's ack histograms are summed over the ranks into its column
-    on the rank that owns it."""
+    on the rank that owns it.  Lanes: every lane's sender, pipes and ring
+    columns on their own (a lane with no sender this tick sends nothing)."""
     lo, hi = cfg.one_way_range()
     ser = cfg.serialization_ticks(cfg.raft_block_bytes)
     prop_ms = cfg.link_delay_ms
     dev = ids.device
     n = ids.shape[0]
-    prop_val = dv._pmax(torch.where(prop_send, ids + 1, 0).amax(), axis)
-    plain_on = dv._pmax(plain_send.to(_I32).amax(), axis)
-    sender = dv._pmax(torch.where(prop_send | plain_send, ids, -1).amax(), axis)
-    dest = ids != sender  # a sender exists this tick; crashed peers still
-    # reserve the pipe (the reservation is sender-side)
+    lead = link_busy.shape[:-1]  # the lane axis, when there is one
+    prop_val = dv._pmax(torch.where(prop_send, ids + 1, 0).amax(-1, keepdim=True), axis)
+    plain_on = dv._pmax(plain_send.to(_I32).amax(-1, keepdim=True), axis)
+    sender = dv._pmax(torch.where(prop_send | plain_send, ids, -1).amax(-1, keepdim=True),
+                      axis)
+    # crashed peers still reserve the pipe (the reservation is sender-side)
+    dest = ((prop_val > 0) | (plain_on > 0)) & (ids != sender)
     d_j = threefry.randint(dv._shard_key(threefry.fold_in(k_hb, 7), axis), (n,), lo, hi,
                            dev)
-    ser_s = torch.where(prop_val > 0, ser, 0)
+    ser_s = torch.where(prop_val > 0, ser, 0).to(_I32)
     start = torch.maximum(t + d_j - prop_ms, link_busy)
     delivery = start + ser_s + prop_ms
     link_busy = torch.where(dest, start + ser_s, link_busy)
     dd = hb_prop.shape[0]
-    cols = (ids - ids[0]).to(torch.int64)  # this rank's ring columns
-    flat = torch.where(dest, delivery % dd, 0).to(torch.int64) * n + cols
-    hb_prop.view(-1).scatter_reduce_(0, flat, torch.where(dest, prop_val, 0), "amax")
-    hb_plain.view(-1).scatter_add_(0, flat, (dest & (plain_on > 0)).to(_I32))
+    n_lanes = int(np.prod(lead, dtype=np.int64))
+    # this rank's ring columns, lane by lane: a ring slot holds [L, n] rows
+    cols = ((ids - ids[0]).to(torch.int64)
+            + torch.arange(n_lanes, device=dev).reshape(lead + (1,)) * n)
+    flat = (torch.where(dest, delivery % dd, 0).to(torch.int64) * (n_lanes * n) + cols)
+    hb_prop.view(-1).scatter_reduce_(0, flat.reshape(-1),
+                                     torch.where(dest, prop_val, 0).reshape(-1), "amax")
+    hb_plain.view(-1).scatter_add_(0, flat.reshape(-1),
+                                   (dest & (plain_on > 0)).to(_I32).reshape(-1))
     if any_prop:
         d2 = threefry.randint(dv._shard_key(threefry.fold_in(k_rt, 9), axis), (n,), lo, hi,
                               dev)
         ack_slot = torch.remainder(delivery + d2, dd)
-        col = (sender - ids[0]).reshape(1).to(torch.int64)  # the single leader's column
+        col = (sender - ids[0]).to(torch.int64)  # each lane's single leader column
         owned = bool(((col >= 0) & (col < n)).item()) if axis is not None else True
         for ring, peers in ((hb_ok, voters), (hb_bad, liars)):
-            hist = torch.zeros((dd + 1,), dtype=_I32, device=dev)
-            hist.scatter_add_(0, torch.where(dest & peers, ack_slot, dd).to(torch.int64),
-                              torch.ones_like(ids))
+            hist = torch.zeros(lead + (dd + 1,), dtype=_I32, device=dev)
+            hist.scatter_add_(-1, torch.where(dest & peers & (prop_val > 0), ack_slot,
+                                              dd).to(torch.int64),
+                              torch.ones_like(dest, dtype=_I32))
             hist = dv._psum(hist, axis)
-            if owned:
+            if not owned:
+                continue
+            if lead:  # a lane without a proposal adds its zero histogram anywhere
+                rows = (torch.arange(n_lanes, device=dev) * n
+                        + col.reshape(-1).clamp(0, n - 1))
+                ring.view(dd, -1).index_add_(1, rows, hist[:, :dd].T.contiguous())
+            else:
                 ring.index_add_(1, col, hist[:dd, None])
     return link_busy
 

@@ -7,8 +7,8 @@ the handoff, the round-blocked PBFT path, the general tick engine) and
 returns ``sim(key, n_crashed, n_byzantine, device) -> (final_state,
 probes)`` with the probe pytree of :mod:`obsim.schema`, tensors on
 ``device``.  Lane keys ``[B, 2]`` with ``[B]`` counts run lanes side by
-side on the engines that have a lane axis (parallel/sweep.lane_axis), and
-every probe leaf then leads with the lane axis, as JAX's vmapped probes do.
+side where the taps read lanes (:func:`taps_lane_axis`), and every probe
+leaf then leads with the lane axis, as JAX's vmapped probes do.
 
 The tick-engine arm is ``models/base.tick_loop(probe=)``: every tick is
 ``proto.step``, so on the card it launches the ring-push kernel
@@ -171,15 +171,27 @@ def probed_solo_fn(cfg, pcfg: schema.ProbeConfig):
     return make_probed_dyn_sim_fn(cfg, pcfg)
 
 
+def taps_lane_axis(cfg) -> bool:
+    """Do the taps of a probed batch read lanes side by side?  The round and
+    heartbeat paths, and the Raft tick engine on the full mesh without
+    queued links; every other tick engine's probed batch runs its lanes in
+    turn (its taps read one run)."""
+    if cfg.protocol not in ("pbft", "raft"):
+        return False
+    if use_round_schedule(cfg):
+        return True
+    return cfg.protocol == "raft" and cfg.topology == "full" and not cfg.queued_links
+
+
 @aotcache.cached_factory("consobs-batched")
 def probed_batched_fn(cfg, pcfg: schema.ProbeConfig, multi_seed: bool = False):
     """``batched(keys [B, 2], n_crashed [B], n_byzantine [B], device) ->
     (finals [B, ...], probes)``: the armed twin of sweep.dyn_batched_fn,
     and with ``multi_seed=True`` (which also keys the entry, as JAX's does)
     of the solo-semantics multi-seed program.  Lanes side by side where the
-    engine has a lane axis (parallel/sweep.lane_axis), else in turn with
-    the same refusal of multi-lane Philox batches; probe leaves gain the
-    leading lane axis."""
+    taps read lanes (:func:`taps_lane_axis`), else in turn, which is JAX's
+    vmapped rows only where those are the solo ones (the refusal below);
+    probe leaves gain the leading lane axis."""
     from blockchain_simulator_tpu_torch.parallel import sweep
 
     sim = make_probed_dyn_sim_fn(cfg, pcfg)
@@ -189,10 +201,14 @@ def probed_batched_fn(cfg, pcfg: schema.ProbeConfig, multi_seed: bool = False):
         keys = np.asarray(keys, np.int64)
         nc = np.asarray(n_crashed, np.int64)
         nb = np.asarray(n_byzantine, np.int64)
-        if not multi_seed and sweep.lane_axis(canon):
+        if not multi_seed and taps_lane_axis(canon):
             return sim(keys, nc, nb, device)
-        if not multi_seed:
-            sweep._in_turn(canon, len(keys))
+        if not multi_seed and len(keys) > 1 and sweep.vmapped_rule(canon) == "first-lane":
+            sweep._refuse(
+                f"a probed batch of {len(keys)} lanes of the {canon.protocol} tick engine "
+                f"(topology {canon.topology}) drawing on Philox words (JAX's vmapped rows "
+                "take those from the first lane's key; these taps read one run)",
+                sweep._ALONE + ", or multi_seed=True")
         outs = [sim(k, c, b, device) for k, c, b in zip(keys, nc, nb)]
         return (base_model.stack_lanes([o[0] for o in outs]),
                 base_model.stack_samples([o[1] for o in outs]))

@@ -17,16 +17,30 @@ JAX code multiplies by are rounded to float32 as JAX's weak typing rounds
 them.
 
 *Lane keys.*  Every sampler also takes a stack of keys ``[L, 2]`` with
-tensors of a leading axis ``L``: that is ``jax.vmap`` of the sampler over
-the keys (the mixed shard sim's Raft step vmapped over its shards).  The
-threefry draws are per lane, and so are the exact binomial's rejection
-loops.  The Philox draws (the ``"normal"`` stat sampler and the ``"rbg"``
-edge sampler) follow the batching rule of ``rng_bit_generator`` instead:
-the first lane's key draws for all lanes at shape ``(L, *shape)``, row
-``l`` to lane ``l`` (:func:`_fast_normal_vmapped`).
+tensors of a leading axis ``L``: the lanes of a tick engine stepped side
+by side.  The threefry draws are per lane, and so are the exact
+binomial's rejection loops.  The Philox draws (the ``"normal"`` stat
+sampler and the ``"rbg"`` edge sampler) follow one of two rules, which
+:func:`lane_rule` selects:
+
+- **first-lane** (the default): ``jax.vmap`` of the sampler over the keys.
+  The batching rule of ``rng_bit_generator`` draws the first lane's key at
+  shape ``(L, *shape)`` and hands row ``l`` to lane ``l``
+  (:func:`_fast_normal_vmapped`), so lane ``l > 0`` gets other words than
+  its key alone would draw;
+- **solo** (``lane_rule(1)``): ``lax.map`` of the sampler, each lane the
+  words of its own key.
+
+``lane_rule(w)`` in general lays the lanes out ``[w, G]`` (lane ``b * G +
+g``): ``G`` groups, each a ``jax.vmap`` of width ``w`` whose first lane
+(``b = 0``) draws for the group.  That is ``jax.vmap`` over ``w`` points
+of a ``lax.map`` over ``G`` (a sweep batch of committee runs).
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -55,15 +69,48 @@ def _lanes(key) -> bool:
     return np.ndim(key) == 2
 
 
+_RULE = threading.local()  # the vmap width of lane_rule, per thread
+
+
+@contextlib.contextmanager
+def lane_rule(width: int):
+    """Inside, Philox draws on lane keys ``[L, 2]`` take the rule of ``L /
+    width`` groups of ``width`` vmapped lanes (module docstring):
+    ``lane_rule(1)`` is the solo rule of ``lax.map``.  Outside any, the
+    first-lane rule of ``jax.vmap`` over all ``L`` lanes.  Per thread, so a
+    server's batcher and a sweep's worker threads never see each other's."""
+    prev = getattr(_RULE, "width", None)
+    _RULE.width = int(width)
+    try:
+        yield
+    finally:
+        _RULE.width = prev
+
+
+def _philox_lanes(keys, shape, device) -> torch.Tensor:
+    """The Philox words ``[L, *shape]`` of lane keys ``[L, 2]`` under the
+    current :func:`lane_rule`: lane ``b * G + g`` gets row ``b`` of group
+    ``g``'s first key drawn at ``(width, *shape)``."""
+    keys = np.asarray(keys, np.int64)
+    n_lanes = len(keys)
+    width = getattr(_RULE, "width", None) or n_lanes
+    if n_lanes % width:
+        raise ValueError(f"{n_lanes} lanes do not split into vmaps of {width}")
+    heads = keys.reshape(width, n_lanes // width, 2)[0]  # [G, 2]
+    if len(heads) == 1:
+        return philox.bits(philox.rbg_key(heads[0]), (width,) + shape, device)
+    words = philox.bits(philox.rbg_key(heads), (width,) + shape, device)  # [G, W, ...]
+    return words.transpose(0, 1).reshape((n_lanes,) + shape)
+
+
 def _half_words(key, shape, device):
     """Philox words for a leading axis of ``r`` draws, two 16-bit fields a
     word: ``(words & 0xFFFF, words >> 16)`` stacked and cut to ``r``, as
     the JAX samplers slice them.  Lane keys give ``[L, *shape]`` by the
-    first-lane rule (module docstring)."""
+    current :func:`lane_rule` (module docstring)."""
     r = shape[0]
     if _lanes(key):
-        words = philox.bits(philox.rbg_key(np.asarray(key)[0]),
-                            (len(key), (r + 1) // 2) + tuple(shape[1:]), device)
+        words = _philox_lanes(key, ((r + 1) // 2,) + tuple(shape[1:]), device)
         return torch.cat([words & 0xFFFF, words >> 16], dim=1)[:, :r]
     words = philox.bits(philox.rbg_key(key), ((r + 1) // 2,) + tuple(shape[1:]),
                         device)
@@ -75,7 +122,8 @@ def sample_edge_delays(key, shape, lo: int, hi: int, device,
     """One delay per edge, in [lo, hi), as int32 on ``device``.
     ``"threefry"`` is ``jax.random.randint``; ``"rbg"`` maps Philox words
     to integers: 16-bit fields masked to a power-of-two span, else whole
-    words modulo the span.  Lane keys ``[L, 2]`` give ``[L, *shape]``."""
+    words modulo the span.  Lane keys ``[L, 2]`` give ``[L, *shape]``, by
+    the current :func:`lane_rule`."""
     shape = tuple(int(s) for s in shape)
     if impl == "threefry":
         return threefry.randint(key, shape, lo, hi, device)
@@ -88,8 +136,7 @@ def sample_edge_delays(key, shape, lo: int, hi: int, device,
         fields = _half_words(key, shape, device)
         return (lo + (fields & (span - 1))).to(torch.int32)
     if _lanes(key):
-        words = philox.bits(philox.rbg_key(np.asarray(key)[0]), (len(key),) + shape,
-                            device)
+        words = _philox_lanes(key, shape, device)
     else:
         words = philox.bits(philox.rbg_key(key), shape, device)
     return (lo + words % span).to(torch.int32)
@@ -170,12 +217,17 @@ def sample_bucket_counts(key, n, probs: np.ndarray, mode: str = "exact"):
     Multinomial(n, probs): int32 of shape ``(len(probs),) + n.shape``.
     ``"normal"``: one Philox draw for all buckets; ``"exact"``: bucket ``b``
     draws on ``fold_in(key, b)``.  Lane keys ``[L, 2]`` take an ``n`` of
-    ``[L, ...]`` (:func:`sample_bucket_counts_vmapped`, one vmap)."""
+    ``[L, ...]``: the Gaussian draws by the current :func:`lane_rule`, the
+    exact chains per lane (:func:`sample_bucket_counts_vmapped`)."""
+    nb = len(probs)
     if _lanes(key):
+        if mode == "normal":
+            n = n.to(_F32)
+            z = _fast_normal(key, (max(nb - 1, 1),) + tuple(n.shape[1:]), n.device)
+            return _chain(n, probs, z.movedim(1, 0), None)
         return sample_bucket_counts_vmapped(np.asarray(key)[None], n[None], probs,
                                             mode)[:, 0]
     n = n.to(_F32)
-    nb = len(probs)
     if mode == "normal":
         z = _fast_normal(key, (max(nb - 1, 1),) + tuple(n.shape), n.device)
         return _chain(n, probs, z, None)

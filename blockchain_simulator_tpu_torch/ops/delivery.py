@@ -24,11 +24,13 @@ into its ring slice; here they return the stacked contribution instead, which
 the caller hands to the tick's one grouped ring push (ops/ring.py).  That is
 what the JAX functions themselves do when its ring kernel is armed.
 
-*Lane keys* (the functions the Raft step draws with): given a stack of keys
-``[S, 2]`` and sender tensors with a leading shard axis ``[S, N, ...]``, a
-function returns ``[B, S, ...]``, shard ``s`` what ``jax.vmap`` of the JAX
-function gives it (ops/delay.py says how each stream batches).  Reductions
-run over the trailing node axes, so one code serves both forms.
+*Lane keys* (the tick engines' lanes, models/base.py): given a stack of
+keys ``[L, 2]`` and sender tensors with a leading lane axis ``[L, N, ...]``,
+a function returns ``[B, L, ...]``, lane ``l`` what ``jax.vmap`` (or
+``lax.map``) of the JAX function gives it (ops/delay.py says how each
+stream batches, and its ``lane_rule`` which rule applies).  Reductions run
+over the trailing node axes, so one code serves both forms.  The lane
+forms run unsharded.
 """
 
 from __future__ import annotations
@@ -179,11 +181,11 @@ def bcast_slots_dense(key, slot_mat, lo, hi, drop_prob=0.0, axis=None,
     exactly to 2**53.  TF32 applies to float32 only, so no process-wide
     matmul flag matters here."""
     slot_g = _gather(slot_mat.to(_I32), axis)
-    send = slot_mat.amax(1) > 0
+    send = slot_mat.amax(-1) > 0
     hits = _edge_hits(key, send, lo, hi, drop_prob, axis,
-                      send_global=slot_g.amax(1) > 0,
+                      send_global=slot_g.amax(-1) > 0,
                       impl=impl)  # [B, N_send_global, N_recv] 0/1
-    prod = torch.matmul(hits.transpose(1, 2).to(torch.float64),
+    prod = torch.matmul(hits.transpose(-1, -2).to(torch.float64),
                         slot_g.to(torch.float64))
     return prod.to(_I32)
 
@@ -198,13 +200,13 @@ def bcast_window_value_max_dense(key, value_mat, lo, hi, drop_prob=0.0, axis=Non
     W = 64); this reduces one window at a time over ``[B, N, N]`` instead —
     the same max."""
     vm = _gather(value_mat.to(_I32), axis)  # [N_send_global, W]
-    send = value_mat.amax(1) > 0
-    hits = _edge_hits(key, send, lo, hi, drop_prob, axis, send_global=vm.amax(1) > 0,
+    send = value_mat.amax(-1) > 0
+    hits = _edge_hits(key, send, lo, hi, drop_prob, axis, send_global=vm.amax(-1) > 0,
                       impl=impl)  # [B, N_send_global, N_recv] 0/1
-    b, n, w = hits.shape[0], hits.shape[2], vm.shape[1]
-    out = torch.empty((b, n, w), dtype=_I32, device=vm.device)
-    for wi in range(w):
-        out[:, :, wi] = (hits * vm[None, :, wi, None]).amax(1)
+    out = torch.empty(hits.shape[:-2] + hits.shape[-1:] + vm.shape[-1:], dtype=_I32,
+                      device=vm.device)
+    for wi in range(vm.shape[-1]):
+        out[..., wi] = (hits * vm[None, ..., wi, None]).amax(-2)
     return out
 
 
@@ -313,7 +315,7 @@ def _slots_stat_m(key, slot_mat, drop_prob, axis, mode):
     broadcast: totals over senders minus the receiver's own."""
     k = _shard_key(key, axis)
     sm = slot_mat.to(_I32)
-    m = _psum(sm.sum(0, dtype=_I32), axis)[None, :] - sm  # [N, S]
+    m = _psum(sm.sum(-2, dtype=_I32), axis)[..., None, :] - sm  # [N, S]
     if drop_prob > 0.0:
         with draw_rows(axis, -2):
             m = _thinned(threefry.fold_in(k, 0x0D12), m, 1.0 - drop_prob, mode)
@@ -364,18 +366,18 @@ def bcast_window_value_max_stat(key, value_mat, probs: np.ndarray, drop_prob=0.0
     k = _shard_key(key, axis)
     vm = value_mat.to(_I32)
     dev = vm.device
-    n, w = vm.shape
-    vmax = _pmax(vm.amax(0), axis)  # [W]
+    n, w = vm.shape[-2:]
+    vmax = _pmax(vm.amax(-2), axis)[..., None, :]  # [1, W]
     nb = len(probs)
     with draw_rows(axis, -3):  # the noise is [N, W, B]
         d = threefry.categorical(k, _delay_logits(probs, dev), (n, w), dev)
-    recv = (vmax[None, :] > 0) & (vm < vmax[None, :])
+    recv = (vmax > 0) & (vm < vmax)
     if drop_prob > 0.0:
         with draw_rows(axis, -2):
             keep = threefry.bernoulli(threefry.fold_in(k, 0x0D14), 1.0 - drop_prob,
                                       (n, w), dev)
         recv = recv & keep
-    val = recv.to(_I32) * vmax[None, :]
+    val = recv.to(_I32) * vmax
     return (d[None] == _bucket_iota(0, nb, d.ndim, dev)).to(_I32) * val[None]
 
 
@@ -445,24 +447,29 @@ def gossip_fwd(key, fwd_vals, nbrs, n_glob: int, lo: int, hi: int, drop_prob=0.0
     max is order-free, so one ``scatter_reduce_("amax")`` into zeros is
     bit-equal to it.  Sharded (``nbrs`` the shard's rows): each shard
     scatters its senders' forwards into the global row space, the shards'
-    results are max-reduced, and each keeps its own rows."""
+    results are max-reduced, and each keeps its own rows.  Lane keys
+    ``[L, 2]`` take ``fwd_vals [L, N, P]`` and give ``[B, L, N, P]``, each
+    lane flooding over the same digraph."""
     k = _shard_key(key, axis)
     dev = fwd_vals.device
-    n, p = fwd_vals.shape
+    n, p = fwd_vals.shape[-2:]
+    lead = fwd_vals.shape[:-2]  # the lane axis, when there is one
     deg = nbrs.shape[1]
     d = sample_edge_delays(k, (n, deg, p), lo, hi, dev, impl)
-    vals = fwd_vals.to(_I32)[:, None, :].expand(n, deg, p)
+    vals = fwd_vals.to(_I32)[..., :, None, :].expand(lead + (n, deg, p))
     if drop_prob > 0.0:
         keep = threefry.bernoulli(threefry.fold_in(k, fold), 1.0 - drop_prob,
                                   (n, deg, p), dev)
         vals = vals * keep.to(_I32)
-    lanes = torch.arange(p, device=dev)
-    flat_idx = (((d - lo).to(torch.int64) * n_glob + nbrs[:, :, None]) * p
-                + lanes[None, None, :])
-    flat = torch.zeros(((hi - lo) * n_glob * p,), dtype=_I32, device=dev)
+    n_lanes = int(np.prod(lead, dtype=np.int64))
+    cols = torch.arange(p, device=dev)
+    lane = torch.arange(n_lanes, device=dev).reshape(lead + (1, 1, 1))
+    flat_idx = ((((d - lo).to(torch.int64) * n_lanes + lane) * n_glob
+                 + nbrs[:, :, None]) * p + cols)
+    flat = torch.zeros(((hi - lo) * n_lanes * n_glob * p,), dtype=_I32, device=dev)
     flat.scatter_reduce_(0, flat_idx.reshape(-1), vals.reshape(-1), "amax",
                          include_self=True)
-    out = flat.reshape(hi - lo, n_glob, p)
+    out = flat.reshape((hi - lo,) + lead + (n_glob, p))
     if axis is None:
         return out
     return _rank_rows(_pmax(out, axis), n, axis, dim=1).contiguous()

@@ -32,6 +32,10 @@ runs its mesh in global view (parallel/partition.partition's explicit
 shardings): the keys are the single-device program's and every draw here
 is this rank's rows of the single-device draw (ops/delivery.draw_rows),
 so the run equals the single-device run bit for bit.
+
+Lanes (the tick engines' lane axis, models/base.py): lane keys ``[L, 2]``
+with sender tensors ``[L, N, ...]`` give ``[B, L, ...]``, every lane over
+the same ``[N, K]`` tables, as ops/delivery.py's lane forms do (unsharded).
 """
 
 from __future__ import annotations
@@ -94,7 +98,7 @@ def local_tables(cfg, ids, inslot: bool = False, tables=None, base: int = 0,
     return tuple(t.index_select(0, rows) for t in tables)
 
 
-def _nbr_rows(x, idx_loc, axis=None, xg=None, kind="in", col=None):
+def _nbr_rows(x, idx_loc, axis=None, xg=None, kind="in", col=None, lanes=False):
     """Every cross-row neighbour read goes through this one door: the rows
     of ``x`` at the global ids ``idx_loc`` (``[N, K]``), i.e. ``x[idx_loc]``
     of shape ``[N, K, ...]``, or with ``col`` (``[N, K]`` column picks into
@@ -102,7 +106,19 @@ def _nbr_rows(x, idx_loc, axis=None, xg=None, kind="in", col=None):
     col]``, in int64 (at n = 10^6 the flat index passes 2^31 for wide
     ``x``).  ``kind`` names the table the ids follow (the exchange's plan).
     Sharded: ``x`` is globalized with an all_gather first, or with ``xg``
-    only the owner-bucketed rows travel."""
+    only the owner-bucketed rows travel.  With ``lanes`` (unsharded) ``x``
+    leads with a lane axis ``[L, N, ...]``, read lane by lane over the same
+    ids: ``[L, N, K, ...]``."""
+    if lanes:
+        if axis is not None or xg is not None:
+            raise NotImplementedError("the lane forms of the overlay reads run unsharded")
+        idx = idx_loc.to(torch.int64)
+        if col is None:
+            return x.index_select(1, idx.reshape(-1)).reshape(
+                x.shape[:1] + idx.shape + x.shape[2:])
+        flat = idx * x.shape[2] + col.to(torch.int64)
+        return x.reshape(x.shape[0], -1).index_select(1, flat.reshape(-1)).reshape(
+            x.shape[:1] + flat.shape)
     if xg is not None:
         return xg(x, kind=kind, col=col)
     x = dv._gather(x, axis)
@@ -125,15 +141,15 @@ def in_counts(x, nbr_in_loc, ids, axis=None, xg=None):
     """Per-receiver sum of an int/bool ``[N]`` vector over its true
     in-neighbours (self excluded): the kregular replacement for the dense
     stat chains' ``total - own`` sender counts.  [N]."""
-    vals = _nbr_rows(x.to(_I32), nbr_in_loc, axis, xg)  # [N, K]
-    return (vals * _notself(nbr_in_loc, ids)).sum(1, dtype=_I32)
+    vals = _nbr_rows(x.to(_I32), nbr_in_loc, axis, xg, lanes=x.ndim > 1)  # [N, K]
+    return (vals * _notself(nbr_in_loc, ids)).sum(-1, dtype=_I32)
 
 
 def out_counts(x, nbr_out_loc, ids, axis=None, xg=None):
     """Per-sender count of its out-neighbours inside a mask ``x`` (self
     excluded): the gathered ``n_peers`` of the round-trip stat chains.  [N]."""
-    vals = _nbr_rows(x.to(_I32), nbr_out_loc, axis, xg, "out")
-    return (vals * _notself(nbr_out_loc, ids)).sum(1, dtype=_I32)
+    vals = _nbr_rows(x.to(_I32), nbr_out_loc, axis, xg, "out", lanes=x.ndim > 1)
+    return (vals * _notself(nbr_out_loc, ids)).sum(-1, dtype=_I32)
 
 
 # ------------------------------------------------- edge-exact (slot-major) ---
@@ -150,7 +166,7 @@ def _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis, impl):
     k = dv._shard_key(key, axis)
     with dv.draw_rows(axis, -1):
         d = sample_edge_delays(k, (k1, n_loc), lo, hi, dev, impl)
-        mask = src_act.T * _notself(nbr_in_loc, ids).T
+        mask = src_act.transpose(-1, -2) * _notself(nbr_in_loc, ids).T
         if drop > 0.0:
             keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0D), 1.0 - drop, (k1, n_loc),
                                       dev)
@@ -161,18 +177,19 @@ def _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis, impl):
 def bcast_counts_kreg(key, send, nbr_in_loc, ids, lo, hi, drop=0.0, axis=None,
                       impl="threefry", xg=None):
     """Overlay broadcast -> per-receiver arrival counts.  [B, N]."""
-    src_act = _nbr_rows(send.to(_I32), nbr_in_loc, axis, xg)
+    src_act = _nbr_rows(send.to(_I32), nbr_in_loc, axis, xg, lanes=send.ndim > 1)
     return _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis,
-                      impl).sum(1, dtype=_I32)
+                      impl).sum(-2, dtype=_I32)
 
 
 def bcast_value_max_kreg(key, send, value, nbr_in_loc, ids, lo, hi, drop=0.0,
                          axis=None, impl="threefry", xg=None):
     """Overlay value broadcast (>0; 0 = empty), max-combined.  [B, N]."""
-    src_act = _nbr_rows(send.to(_I32), nbr_in_loc, axis, xg)
+    lanes = send.ndim > 1
+    src_act = _nbr_rows(send.to(_I32), nbr_in_loc, axis, xg, lanes=lanes)
     hits = _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis, impl)
-    val_t = _nbr_rows(value.to(_I32), nbr_in_loc, axis, xg).T
-    return (hits * val_t[None]).amax(1)
+    val_t = _nbr_rows(value.to(_I32), nbr_in_loc, axis, xg, lanes=lanes).transpose(-1, -2)
+    return (hits * val_t[None]).amax(-2)
 
 
 def bcast_slots_kreg(key, slot_mat, nbr_in_loc, ids, lo, hi, drop=0.0,
@@ -184,20 +201,22 @@ def bcast_slots_kreg(key, slot_mat, nbr_in_loc, ids, lo, hi, drop=0.0,
     int32 product summed over the K slots, exact as the JAX integer
     contraction is (no float matmul).  The sender flag is derived after the
     row read (``max`` over the slot dim commutes with a row gather)."""
-    slot_rows = _nbr_rows(slot_mat.to(_I32), nbr_in_loc, axis, xg)   # [N, K, S]
-    src_act = (slot_rows.amax(2) > 0).to(_I32)                       # [N, K]
+    slot_rows = _nbr_rows(slot_mat.to(_I32), nbr_in_loc, axis, xg,
+                          lanes=slot_mat.ndim > 2)                   # [N, K, S]
+    src_act = (slot_rows.amax(-1) > 0).to(_I32)                      # [N, K]
     hits = _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis, impl)
-    return (hits.transpose(1, 2)[..., None] * slot_rows[None]).sum(2, dtype=_I32)
+    return (hits.transpose(-1, -2)[..., None] * slot_rows[None]).sum(-2, dtype=_I32)
 
 
 def bcast_window_value_max_kreg(key, value_mat, nbr_in_loc, ids, lo, hi,
                                 drop=0.0, axis=None, impl="threefry", xg=None):
     """Overlay per-window value broadcast (PBFT PRE_PREPARE), receiver
     max-combines per window.  [B, N, W]."""
-    val_rows = _nbr_rows(value_mat.to(_I32), nbr_in_loc, axis, xg)   # [N, K, W]
-    src_act = (val_rows.amax(2) > 0).to(_I32)
+    val_rows = _nbr_rows(value_mat.to(_I32), nbr_in_loc, axis, xg,
+                         lanes=value_mat.ndim > 2)                   # [N, K, W]
+    src_act = (val_rows.amax(-1) > 0).to(_I32)
     hits = _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis, impl)
-    return (hits.transpose(1, 2)[..., None] * val_rows[None]).amax(2)
+    return (hits.transpose(-1, -2)[..., None] * val_rows[None]).amax(-2)
 
 
 def bcast_matrix_kreg(key, send, value, nbr_in_loc, ids, lo, hi, drop=0.0,
@@ -208,10 +227,11 @@ def bcast_matrix_kreg(key, send, value, nbr_in_loc, ids, lo, hi, drop=0.0,
     ``nbr_in_loc[j, s]`` (rows sorted, so the lowest slot is the lowest
     candidate id).  [B, N, K], contiguous (the ring push takes contiguous
     contributions)."""
-    src_act = _nbr_rows(send.to(_I32), nbr_in_loc, axis, xg)
+    lanes = send.ndim > 1
+    src_act = _nbr_rows(send.to(_I32), nbr_in_loc, axis, xg, lanes=lanes)
     hits = _slot_hits(key, src_act, nbr_in_loc, ids, lo, hi, drop, axis, impl)
-    val_t = _nbr_rows(value.to(_I32), nbr_in_loc, axis, xg).T
-    return (hits * val_t[None]).transpose(1, 2).contiguous()
+    val_t = _nbr_rows(value.to(_I32), nbr_in_loc, axis, xg, lanes=lanes).transpose(-1, -2)
+    return (hits * val_t[None]).transpose(-1, -2).contiguous()
 
 
 def roundtrip_reply_counts_kreg(key, send, nbr_out_loc, ids, lo, hi, drop=0.0,
@@ -229,8 +249,8 @@ def roundtrip_reply_counts_kreg(key, send, nbr_out_loc, ids, lo, hi, drop=0.0,
         d1 = sample_edge_delays(threefry.fold_in(k, 1), (n_loc, k1), lo, hi, dev, impl)
         d2 = sample_edge_delays(threefry.fold_in(k, 2), (n_loc, k1), lo, hi, dev, impl)
     total = d1 + d2
-    mask = (send.to(_I32)[:, None] * _notself(nbr_out_loc, ids)
-            * _nbr_rows(peers.to(_I32), nbr_out_loc, axis, xg, "out"))
+    mask = (send.to(_I32)[..., None] * _notself(nbr_out_loc, ids)
+            * _nbr_rows(peers.to(_I32), nbr_out_loc, axis, xg, "out", lanes=peers.ndim > 1))
     if drop > 0.0:
         with dv.draw_rows(axis, -2):
             keep = threefry.bernoulli(threefry.fold_in(k, 0x0D0E), (1.0 - drop) ** 2,
@@ -239,7 +259,7 @@ def roundtrip_reply_counts_kreg(key, send, nbr_out_loc, ids, lo, hi, drop=0.0,
     lo2 = 2 * lo
     nb = 2 * (hi - lo) - 1
     hit = (total[None] == dv._bucket_iota(lo2, lo2 + nb, total.ndim, dev)).to(_I32)
-    return (hit * mask[None]).sum(2, dtype=_I32)
+    return (hit * mask[None]).sum(-1, dtype=_I32)
 
 
 def unicast_reply_counts_kreg(key, reply_slots, nbr_in_loc, nbr_out_loc,
@@ -251,7 +271,8 @@ def unicast_reply_counts_kreg(key, reply_slots, nbr_in_loc, nbr_out_loc,
     replier-major ``[N, K]`` on the dense function's key and fold, so at
     K = N they equal the dense ``[N, N]`` draws.  [B, N]."""
     dev = reply_slots.device
-    n_loc, k1 = reply_slots.shape
+    n_loc, k1 = reply_slots.shape[-2:]
+    lanes = reply_slots.ndim > 2
     k = dv._shard_key(key, axis)
     with dv.draw_rows(axis, -2):
         d = sample_edge_delays(k, (n_loc, k1), lo, hi, dev, impl)
@@ -261,10 +282,10 @@ def unicast_reply_counts_kreg(key, reply_slots, nbr_in_loc, nbr_out_loc,
                                       dev)
             mask = mask * keep.to(_I32)
     r = reply_slots.to(_I32) * mask
-    rv = _nbr_rows(r, nbr_out_loc, axis, xg, "out", col=inslot_loc)
-    dd = _nbr_rows(d, nbr_out_loc, axis, xg, "out", col=inslot_loc)
+    rv = _nbr_rows(r, nbr_out_loc, axis, xg, "out", col=inslot_loc, lanes=lanes)
+    dd = _nbr_rows(d, nbr_out_loc, axis, xg, "out", col=inslot_loc, lanes=lanes)
     hit = (dd[None] == dv._bucket_iota(lo, hi, dd.ndim, dev)).to(_I32)
-    return (hit * rv[None]).sum(2, dtype=_I32)
+    return (hit * rv[None]).sum(-1, dtype=_I32)
 
 
 def reply_counts_by_target_kreg(wire, target, nbr_out_loc, ids, axis=None,
@@ -273,9 +294,10 @@ def reply_counts_by_target_kreg(wire, target, nbr_out_loc, ids, axis=None,
     c gathers ``wire`` over its out-neighbours and keeps the repliers whose
     ``target`` is c (a replier's target is one of its in-neighbours, so the
     out-gather covers every reply).  The Raft stat vote router.  [N]."""
-    w = _nbr_rows(wire.to(_I32), nbr_out_loc, axis, xg, "out")
-    tg = _nbr_rows(target, nbr_out_loc, axis, xg, "out")
-    return (w * (tg == ids[:, None])).sum(1, dtype=_I32)
+    lanes = wire.ndim > 1
+    w = _nbr_rows(wire.to(_I32), nbr_out_loc, axis, xg, "out", lanes=lanes)
+    tg = _nbr_rows(target, nbr_out_loc, axis, xg, "out", lanes=lanes)
+    return (w * (tg == ids[:, None])).sum(-1, dtype=_I32)
 
 
 # ------------------------------------------------ stat (gathered counts) ----
@@ -301,8 +323,9 @@ def push_bcast_slots_stat_kreg(key, slot_mat, nbr_in_loc, ids, probs: np.ndarray
     ring: per-(receiver, slot) sender counts from an in-neighbour
     gather-sum, then the stat chain on the same key.  [B, N, S]."""
     k = dv._shard_key(key, axis)
-    vals = _nbr_rows(slot_mat.to(_I32), nbr_in_loc, axis, xg)       # [N, K, S]
-    m = (vals * _notself(nbr_in_loc, ids)[:, :, None]).sum(1, dtype=_I32)
+    vals = _nbr_rows(slot_mat.to(_I32), nbr_in_loc, axis, xg,
+                     lanes=slot_mat.ndim > 2)                        # [N, K, S]
+    m = (vals * _notself(nbr_in_loc, ids)[:, :, None]).sum(-2, dtype=_I32)
     with dv.draw_rows(axis, -2):
         if drop > 0.0:
             m = dv._thinned(threefry.fold_in(k, 0x0D12), m, 1.0 - drop, mode)
@@ -317,8 +340,8 @@ def bcast_value_max_stat_kreg(key, value, nbr_in_loc, probs: np.ndarray,
     one delay draw a receiver.  [B, N]."""
     k = dv._shard_key(key, axis)
     dev = value.device
-    n_loc = value.shape[0]
-    vmax = _nbr_rows(value.to(_I32), nbr_in_loc, axis, xg).amax(1)
+    n_loc = value.shape[-1]
+    vmax = _nbr_rows(value.to(_I32), nbr_in_loc, axis, xg, lanes=value.ndim > 1).amax(-1)
     nb = len(probs)
     with dv.draw_rows(axis, -2):  # the noise is [N, B]
         d = threefry.categorical(k, dv._delay_logits(probs, dev), (n_loc,), dev)
@@ -341,8 +364,8 @@ def bcast_window_value_max_stat_kreg(key, value_mat, nbr_in_loc,
     k = dv._shard_key(key, axis)
     vm = value_mat.to(_I32)
     dev = vm.device
-    n_loc, w = vm.shape
-    vmax = _nbr_rows(vm, nbr_in_loc, axis, xg).amax(1)                # [N, W]
+    n_loc, w = vm.shape[-2:]
+    vmax = _nbr_rows(vm, nbr_in_loc, axis, xg, lanes=vm.ndim > 2).amax(-2)  # [N, W]
     nb = len(probs)
     with dv.draw_rows(axis, -3):  # the noise is [N, W, B]
         d = threefry.categorical(k, dv._delay_logits(probs, dev), (n_loc, w), dev)

@@ -9,29 +9,19 @@ byz_forge, byz_copies) form separate groups; the mixed shard sim, which has
 no dynamic-fault program, takes the static per-config path.
 
 *Lanes are not a loop.*  The JAX package runs a group as
-``jit(vmap(make_dyn_sim_fn(canon)))``.  Under ``vmap`` its Philox draws (the
-``"normal"`` stat sampler, the ``"rbg"`` edge sampler) follow the first
-lane's key (``rng_bit_generator``'s batching rule), so a vmapped row is not
-the solo run of its point whenever those samplers run.  The port therefore
-runs a group's lanes side by side, as a leading axis with lane keys ``[B,
-2]``, wherever its engine has one (:func:`lane_axis`): PBFT's round path
-(models/pbft_round.py), Raft's heartbeat path (models/raft_hb.py, the
-handoff's ``lax.cond`` a select per lane) and the Raft tick engine on the
-full mesh (models/raft.py).  A round or a tick then makes one lane's
-launches, not B times them.  Where the structure draws only per-lane
-streams (the ``"exact"`` binomial, threefry edge delays), a vmapped row IS
-the solo run, and the lanes of the other engines run one after another.
-A batch of B > 1 lanes that would need a lane axis the port's engine lacks
-(the PBFT tick engine, Paxos, Raft over gossip or queued links, drawing
-``"normal"`` or ``"rbg"``) raises ``NotImplementedError``.
+``jit(vmap(make_dyn_sim_fn(canon)))``.  The port runs a group's lanes side
+by side, as a leading axis with lane keys ``[B, 2]`` (:func:`lane_axis`),
+on every engine: PBFT's round path (models/pbft_round.py), Raft's
+heartbeat path (models/raft_hb.py, the handoff's ``lax.cond`` a select per
+lane), and the tick engines of PBFT, Raft and Paxos on every topology
+(models/base.py; a committee batch is ``B·C`` lanes, topo/committee.py).
+A round or a tick then makes one lane's launches, not B times them.  Under
+``vmap`` the JAX package's Philox draws follow the first lane's key, so
+every lane draws by the rule its JAX program batches by
+(:func:`vmapped_rule`, ops/delay.lane_rule).
 
 The multi-seed program (JAX's ``lax.map`` of the unvmapped dyn program) has
 solo semantics: its lanes run in turn.
-
-Sparse topologies ride the same doors: a kregular config's lanes and a
-committee config's lanes run in turn (neither engine has a lane axis; a
-committee run is itself a loop over committees, topo/committee.py), with
-the refusal of multi-lane ``"normal"`` / ``"rbg"`` batches above.
 
 The run log: with ``$BLOCKSIM_RUNS_JSONL`` set, every row (``{"seed": s,
 **metrics}``, at the point's own config) is appended through
@@ -131,6 +121,11 @@ from blockchain_simulator_tpu_torch.utils.config import SimConfig
 from blockchain_simulator_tpu_torch.parallel.mesh import NODES_AXIS, SWEEP_AXIS
 
 
+# what still runs one lane at a time, and so refuses >1 lane on Philox draws
+_ALONE = ("a later slice of the port (ROADMAP.md queue A item 5b); use "
+          "stat_sampler='exact' and edge_sampler='threefry'")
+
+
 def _refuse(what: str, where: str):
     raise NotImplementedError(f"{what} comes with {where}")
 
@@ -180,18 +175,16 @@ def _health_gate():
 
 def lane_axis(cfg: SimConfig) -> bool:
     """Does the port step this config's lanes side by side (a leading lane
-    axis with lane keys)?  PBFT's round path, Raft's heartbeat path and the
-    Raft tick engine on the full mesh without queued links."""
-    if cfg.protocol not in ("pbft", "raft"):
-        return False
-    if use_round_schedule(cfg):
-        return True
-    return cfg.protocol == "raft" and cfg.topology == "full" and not cfg.queued_links
+    axis with lane keys)?  Every engine of PBFT, Raft and Paxos: the round
+    and heartbeat paths, and the tick engines on the full mesh, queued
+    links, gossip, kregular and committees.  The mixed sim has no dynamic
+    program (runner.check_batchable)."""
+    return cfg.protocol in ("pbft", "raft", "paxos")
 
 
 def philox_draws(cfg: SimConfig) -> bool:
     """Does the config draw on Philox words (the ``"normal"`` stat sampler or
-    the ``"rbg"`` edge sampler), whose vmapped draws follow the first lane?"""
+    the ``"rbg"`` edge sampler)?"""
     if cfg.protocol == "mixed":
         from blockchain_simulator_tpu_torch.models.mixed import sub_configs
 
@@ -200,19 +193,47 @@ def philox_draws(cfg: SimConfig) -> bool:
             or cfg.eff_edge_sampler == "rbg")
 
 
-def _in_turn(cfg: SimConfig, n_lanes: int):
-    """Refuse a vmapped batch that the port can only run one lane at a time
-    when its rows would differ from solo runs."""
-    if n_lanes > 1 and philox_draws(cfg):
-        _refuse(
-            f"a batch of {n_lanes} lanes of {cfg.protocol} "
-            f"({'schedule ' + cfg.schedule if cfg.protocol != 'paxos' else 'tick engine'}, "
-            f"topology {cfg.topology}, stat sampler {cfg.eff_stat_sampler}, edge sampler "
-            f"{cfg.eff_edge_sampler}) draws on Philox words, which the vmapped "
-            "program takes from the first lane's key; a lane axis for the "
-            "PBFT and Paxos tick engines and Raft over gossip or queued links",
-            "a later slice of the port (ROADMAP.md queue A, tick-engine lanes); "
-            "use stat_sampler='exact' and edge_sampler='threefry', or multi_seed=True")
+def vmapped_rule(cfg: SimConfig) -> str:
+    """The rule JAX's vmapped batch of this config draws by: ``"first-lane"``
+    (row ``l`` of lane 0's key drawn at ``(L, *shape)``, not lane ``l``'s
+    solo words) or ``"solo"`` (each row its point's solo run).
+
+    Every arm is first-lane as soon as it draws a Philox word, and solo
+    otherwise (the threefry streams and the exact binomial are per lane
+    under ``vmap``).  Why, arm by arm, in the JAX sources: every Philox
+    draw goes through ``ops/delay._rbg_key`` into ``jax.random.bits`` on an
+    ``rbg`` key, which lowers to ``rng_bit_generator``; its batching rule
+    (``jax/_src/lax/control_flow/loops.py``,
+    ``_rng_bit_generator_batching_rule``) draws ``keys[0]`` at ``(L,
+    *shape)`` whenever the key is batched.  Every such key is a fold of the
+    tick key ``utils/prng.tick_key(key, t)``, hence of the lane's key,
+    hence batched; none is drawn from an unbatched key (the gossip digraph
+    comes from ``cfg.seed`` on the host, the kregular tables are
+    deterministic).  The ``gated`` conds change nothing: a batched
+    predicate lowers ``lax.cond`` to a select of both branches, each
+    batched alike.
+
+    - **PBFT tick engine**: edge ``"rbg"`` (``ops/delivery.bcast_slots_dense``,
+      ``bcast_window_value_max_dense``, ``bcast_value_max_dense``,
+      ``roundtrip_reply_counts_dense`` from ``models/pbft.step``), stat
+      ``"normal"`` (``push_roundtrip_reply_counts_stat``,
+      ``push_bcast_slots_stat``: ``bucket_count_chain`` → ``_fast_normal``),
+      queued links (the same stat chains), gossip (``gossip_fwd``) and
+      kregular (``ops/gatherdeliv``'s ``_slot_hits``, the stat chains):
+      first-lane.  Over a 200 ms window PBFT's vmapped lanes still equal
+      their solo runs (its state does not yet depend on those words
+      there); over 450-1,500 ms lanes 1 and 2 differ from solo in
+      ``prepare_vote``, ``commit_vote`` and ``slot_commit_tick``
+      (``tests/test_torch_lanes.py`` pins each arm).
+    - **Raft** (full mesh, queued links, gossip, kregular) and the
+      heartbeat path: first-lane (the vote, heartbeat and ack chains).
+    - **Paxos** (full mesh, gossip, kregular): first-lane
+      (``models/paxos._req_contrib``, ``_reply_contribs``, ``gossip_fwd``).
+    - **PBFT's round path**: first-lane (``pbft_round``'s chains).
+
+    JAX's ``lax.map`` arms (the multi-seed program, committees, a
+    sweep-only mesh row's lanes) are solo whatever the sampler."""
+    return "first-lane" if philox_draws(cfg) else "solo"
 
 
 def _keys(seeds) -> np.ndarray:
@@ -225,19 +246,15 @@ def _keys(seeds) -> np.ndarray:
 def dyn_batched_fn(cfg: SimConfig):
     """``batched(keys [B, 2], n_crashed [B], n_byzantine [B], device) ->
     final state [B, ...]`` for a canonical config: JAX's ``jit(vmap(
-    make_dyn_sim_fn(cfg)))`` (module docstring: lanes side by side where the
-    engine has a lane axis, else one after another)."""
-    sim = make_dyn_sim_fn(cfg)  # validates: batchable, no C++-only modes
+    make_dyn_sim_fn(cfg)))``: the lanes side by side on every engine, each
+    lane JAX's vmapped row (module docstring)."""
+    make_dyn_sim_fn(cfg)  # validates: batchable, no C++-only modes
     canon = canonical_fault_cfg(cfg)
 
     def batched(keys, n_crashed, n_byzantine, device):
-        keys = np.asarray(keys, np.int64)
-        nc = np.asarray(n_crashed, np.int64)
-        nb = np.asarray(n_byzantine, np.int64)
-        if lane_axis(canon):
-            return runner._dyn_run(canon, keys, nc, nb, device)
-        _in_turn(canon, len(keys))
-        return stack_lanes([sim(k, c, b, device) for k, c, b in zip(keys, nc, nb)])
+        return runner._dyn_run(canon, np.asarray(keys, np.int64),
+                               np.asarray(n_crashed, np.int64),
+                               np.asarray(n_byzantine, np.int64), device)
 
     return batched
 
@@ -250,8 +267,7 @@ def _nodes_refusal(canon: SimConfig, n_lanes: int):
             f"a node-sharded sweep batch of {n_lanes} lanes of {canon.protocol} drawing on "
             "Philox words (stat sampler 'normal' or edge sampler 'rbg'; JAX's vmapped rows "
             "take those from the first lane's key)",
-            "a later slice of the port (ROADMAP.md queue A, tick-engine lanes); use "
-            "stat_sampler='exact' and edge_sampler='threefry', or a sweep-only mesh")
+            _ALONE + ", or a sweep-only mesh")
 
 
 def global_view_sim(cfg: SimConfig, mesh, pcfg=None):
@@ -371,8 +387,8 @@ def mesh_lanes_fn(cfg: SimConfig, mesh, pcfg=None):
     - **mesh of one rank**: :func:`dyn_batched_fn` (armed:
       obsim/build.probed_batched_fn) itself;
     - **sweep-only** (nodes 1): each lane the solo program of its point,
-      side by side on the engines with a lane axis where no draw is a
-      Philox word (there the two are equal), else one after another;
+      side by side where the vmapped rows are the solo ones
+      (:func:`vmapped_rule`), else one after another;
     - **nodes > 1**: each lane in global view over the row's nodes group
       (:func:`global_view_sim`), equal to the single-device batched row
       (the caller refuses batches whose vmapped rows follow lane 0).
@@ -399,7 +415,7 @@ def mesh_lanes_fn(cfg: SimConfig, mesh, pcfg=None):
         return batched_nodes
     if pcfg is not None:
         return obsim_build.probed_batched_fn(cfg, pcfg, multi_seed=philox_draws(cfg))
-    return solo_lanes_fn(cfg) if philox_draws(cfg) else dyn_batched_fn(cfg)
+    return solo_lanes_fn(cfg) if vmapped_rule(cfg) == "first-lane" else dyn_batched_fn(cfg)
 
 
 @aotcache.cached_factory("partition-dyn-sweep")
@@ -601,7 +617,11 @@ def _batched_fn(cfg: SimConfig, mesh=None):
         sim = runner.make_sim_fn(cfg)
 
         def batched_static(seeds, device):
-            _in_turn(cfg, len(seeds))
+            if len(seeds) > 1 and vmapped_rule(cfg) == "first-lane":
+                _refuse(f"a seed batch of {len(seeds)} mixed-sim runs drawing on Philox "
+                        "words (JAX's vmapped rows take those from the first lane's "
+                        "key; the mixed sim has no lane axis over seeds)",
+                        _ALONE)
             return stack_lanes([sim(int(s), device) for s in seeds])
 
         return batched_static
@@ -647,8 +667,7 @@ def _mesh_seed_rows(cfg: SimConfig, seeds: list, mesh) -> list:
         _refuse(
             f"a seed sweep of {len(seeds)} seeds over a mesh drawing on Philox words "
             "(JAX's vmapped node-sharded rows take those from the first lane's key)",
-            "a later slice of the port (ROADMAP.md queue A, tick-engine lanes); use "
-            "stat_sampler='exact' and edge_sampler='threefry'")
+            _ALONE)
     per = len(seeds) // n_sweep
     mine = seeds[mesh.sweep_index * per:(mesh.sweep_index + 1) * per]
 

@@ -12,8 +12,8 @@ prefix on the tick engine, then one step a heartbeat), and mixed configs
 models/mixed.scan_fast (the same in every Raft shard, beside the per-tick
 PBFT layer).  ``topology="kregular"`` runs the tick engine over the overlay
 tables (topo/spec.py; :func:`make_topo_dyn_sim_fn` takes them as
-arguments), and ``topology="committee"`` runs the flat tick engine in each
-committee in turn (topo/committee.py), whose stacked final state
+arguments), and ``topology="committee"`` runs the flat tick engine with the
+committees as lanes (topo/committee.py), whose stacked final state
 models/base.sim_metrics aggregates.
 
 Dynamic fault operands (JAX's ``make_dyn_sim_fn``): the fault COUNTS are
@@ -267,8 +267,12 @@ def _dyn_run(canon: SimConfig, key, n_crashed, n_byzantine, device):
     ``proto.init`` at ``canon``, the masks installed
     (models/base.apply_fault_masks), then the engine ``use_round_schedule``
     picks.  Lane keys ``[B, 2]`` with ``[B]`` counts run ``B`` lanes side by
-    side (the round path, the heartbeat path and the Raft tick engine; see
-    parallel/sweep.lane_axis)."""
+    side on every engine (parallel/sweep.lane_axis): the rows of JAX's
+    vmapped batch (the committee hierarchy: ``[B, C, ...]``)."""
+    if canon.topology == "committee":
+        from blockchain_simulator_tpu_torch.topo import committee
+
+        return committee.run_stacked(canon, key, n_crashed, n_byzantine, device=device)
     masks = base_model.dyn_fault_masks(canon.n, n_crashed, n_byzantine, device)
     init_key = threefry.fold_in(key, _INIT_FOLD)
     cfg = dyn_step_cfg(canon, n_byzantine)
@@ -284,7 +288,10 @@ def _dyn_run(canon: SimConfig, key, n_crashed, n_byzantine, device):
         state, _ = pbft_round.init(canon, init_key, device=device)
         state = base_model.apply_fault_masks(canon, state, *masks)
         return pbft_round.scan_rounds(cfg, state, key)
-    state, bufs = get_protocol(canon.protocol).init(canon, init_key, device=device)
+    if np.ndim(key) == 2:
+        state, bufs = base_model.init_lanes(canon, init_key, device)
+    else:
+        state, bufs = get_protocol(canon.protocol).init(canon, init_key, device=device)
     state = base_model.apply_fault_masks(canon, state, *masks)
     return base_model.tick_loop(cfg, state, bufs, key, 0, canon.ticks)[0]
 
@@ -332,7 +339,8 @@ def make_topo_dyn_sim_fn(cfg: SimConfig, exchange_spec=None, axis=None):
     tables (ops/gatherdeliv.table_operands: ``(in, out)``, plus ``inslot``
     for Raft, :func:`topo_tables_inslot`), numpy or tensors.  They go to the
     device once a run and every tick reads them there; at equal values the
-    run equals :func:`make_dyn_sim_fn`'s.
+    run equals :func:`make_dyn_sim_fn`'s.  Unsharded, lane keys ``[B, 2]``
+    with ``[B]`` counts step ``B`` lanes over the same tables.
 
     Sharded (the body of parallel/sweep.sharded_topo_sim_fn, run inside
     parallel/partition.partition with its mesh bound in global view):
@@ -378,13 +386,16 @@ def make_topo_dyn_sim_fn(cfg: SimConfig, exchange_spec=None, axis=None):
         if axis is not None:
             from blockchain_simulator_tpu_torch.parallel.mesh import bound
 
+            if key.ndim == 2:
+                raise NotImplementedError("the kregular lanes step unsharded")
             rows = bound(axis).rows(canon.n)
-        state, bufs = proto.init(canon, threefry.fold_in(key, _INIT_FOLD), device=dev,
-                                 rows=rows)
+        init_key = threefry.fold_in(key, _INIT_FOLD)
+        state, bufs = (base_model.init_lanes(canon, init_key, dev) if key.ndim == 2 else
+                       proto.init(canon, init_key, device=dev, rows=rows))
         start, n_loc = (0, canon.n) if rows is None else rows
         state = base_model.apply_fault_masks(
-            canon, state, *(m[start:start + n_loc] for m in base_model.dyn_fault_masks(
-                canon.n, int(n_crashed), int(n_byzantine), dev)))
+            canon, state, *(m[..., start:start + n_loc] for m in base_model.dyn_fault_masks(
+                canon.n, np.asarray(n_crashed), np.asarray(n_byzantine), dev)))
         step_cfg = dyn_step_cfg(canon, n_byzantine)
         xg = None
         if axis is not None:

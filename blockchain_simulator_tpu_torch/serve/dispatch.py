@@ -8,8 +8,8 @@ dispatch runs them as ONE dynamic-fault-operand program over their lanes,
 through the sweeps' group-dispatch primitive
 (``parallel/sweep.run_dyn_points``) and its registry entry
 (``"sweep-batched-dynf"``), so a warm sweep cache serves traffic with no
-build.  On the round path, the heartbeat path and the Raft tick engine the
-lanes run side by side (parallel/sweep.lane_axis); elsewhere in turn.
+build.  The lanes run side by side on every engine (parallel/sweep.lane_axis),
+each the JAX server's vmapped row.
 
 Batch-size buckets: batches are padded up to the next power-of-two bucket
 (capped at the server's ``max_batch``) by repeating the last lane, as the

@@ -11,12 +11,15 @@ milestone.
 Execution: the JAX package maps the unvmapped inner tick engine over the
 stacked committee axis (``lax.map``), each committee on its own key
 (``fold_in(key, c)``; at C = 1 the key as it is).  Its draws are therefore
-a solo run's, committee by committee, and the port runs the committees **in
-turn**: a loop of the inner tick engine, equal by construction, whose
-finals are stacked ``[C, ...]`` as ``lax.map`` stacks them.  A lane axis
-over committees (one step for all committees a tick) needs per-lane Philox
-keys for the ``"normal"`` and ``"rbg"`` draws, which do not follow the
-first lane's rule here; that is later work (ROADMAP.md queue A item 5).
+a solo run's, committee by committee.  The port steps the C committees
+**side by side**, as C lanes of the inner tick engine (models/base.py):
+one step a tick for all committees, so on the card one grouped ring-push
+launch a tick, with every Philox draw on its own committee's key
+(``ops/delay.lane_rule(1)``, the solo rule).  The finals come out stacked
+``[C, ...]``, as ``lax.map`` stacks them.  A sweep batch of B committee
+runs (JAX's ``vmap`` of the ``lax.map``) is ``B·C`` lanes laid out ``[B,
+C]``: each committee's draws follow the first point's key across the
+batch (``lane_rule(B)``), and the finals are ``[B, C, ...]``.
 
 Faults keep the repo's global last-ids rule: ``dyn_fault_masks`` over the
 full id space, reshaped ``[C, m]``, so fault counts land in the tail
@@ -35,12 +38,13 @@ trip, ``2 * (one_way_hi - 1)`` (0 at C = 1).
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 
 import numpy as np
 import torch
 
 from blockchain_simulator_tpu_torch.models import base as base_model
+from blockchain_simulator_tpu_torch.ops import delay
 from blockchain_simulator_tpu_torch.utils import threefry
 
 _INIT_FOLD = 0x1217  # proto.init's key, as in the flat runner
@@ -62,53 +66,81 @@ def _committee_keys(key, c: int) -> np.ndarray:
     return np.stack([threefry.fold_in(key, i) for i in range(c)])
 
 
-def stacked_body(cfg, keys, alive_cm, honest_cm, probe=None):
-    """The committee body: the inner tick engine over each committee in
-    turn — ``keys [C', 2]``, ``alive_cm`` / ``honest_cm [C', m]`` ->
+def stacked_body(cfg, keys, alive_cm, honest_cm, probe=None, width: int = 1):
+    """The committee body: the inner tick engine over the committees as
+    lanes — ``keys [C', 2]``, ``alive_cm`` / ``honest_cm [C', m]`` ->
     stacked final state ``[C', ...]``, what JAX's ``lax.map`` returns.
+    Every committee draws on its own key (the solo rule); ``width`` > 1
+    lays the lanes out ``[width, C' / width]``, the rule of ``width``
+    vmapped points (module docstring).
 
     ``probe`` (utils/trace.py) arms per-committee taps: a ``(sample_fn,
     finalize_fn)`` pair, ``sample_fn(icfg, state) -> {name: 0-d tensor}``
-    after every inner tick and ``finalize_fn(icfg, final, ys) -> {name:
-    tensor}`` over the committee's series ``{name: [ticks]}``.  The
-    committees' dicts are stacked ``[C', ...]`` as ``lax.map`` stacks them,
-    on the device, and ``(finals, probes)`` is returned.  The taps only
-    read, so the finals are the unprobed run's."""
+    after every inner tick (read off each lane) and ``finalize_fn(icfg,
+    final, ys) -> {name: tensor}`` over a committee's series ``{name:
+    [ticks]}``.  The committees' dicts are stacked ``[C', ...]`` as
+    ``lax.map`` stacks them, on the device, and ``(finals, probes)`` is
+    returned.  The taps only read, so the finals are the unprobed run's."""
     from blockchain_simulator_tpu_torch.runner import dyn_step_cfg
 
-    proto = base_model.get_protocol(cfg.protocol)
     icfg = inner_cfg(cfg)
+    keys = np.asarray(keys, np.int64)
     # one host read: do the committees' lanes hold Byzantine nodes at all
     liars = int(bool((alive_cm & ~honest_cm).any()))
     step_cfg = dyn_step_cfg(icfg, liars)
     device = alive_cm.device
-    sample_fn, finalize_fn = probe or (None, None)
-    tap = None if probe is None else functools.partial(sample_fn, icfg)
-    finals, probes = [], []
-    for kc, alive_c, honest_c in zip(np.asarray(keys, np.int64), alive_cm, honest_cm):
-        state, bufs = proto.init(icfg, threefry.fold_in(kc, _INIT_FOLD), device=device)
-        state = base_model.apply_fault_masks(icfg, state, alive_c, honest_c)
-        out = base_model.tick_loop(step_cfg, state, bufs, kc, 0, icfg.ticks, probe=tap)
-        finals.append(out[0])
-        if probe is not None:
-            probes.append(finalize_fn(icfg, out[0], out[2]))
+    lanes = range(len(keys))
+    tap = None
+    if probe is not None:
+        sample_fn, finalize_fn = probe
+
+        def tap(state):
+            samples = [sample_fn(icfg, base_model.lane_state(state, c)) for c in lanes]
+            return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
+
+    with delay.lane_rule(width):
+        state, bufs = base_model.init_lanes(icfg, threefry.fold_in(keys, _INIT_FOLD), device)
+        state = base_model.apply_fault_masks(icfg, state, alive_cm, honest_cm)
+        out = base_model.tick_loop(step_cfg, state, bufs, keys, 0, icfg.ticks, probe=tap)
     if probe is None:
-        return base_model.stack_lanes(finals)
-    return base_model.stack_lanes(finals), base_model.stack_samples(probes)
+        return out[0]
+    probes = [finalize_fn(icfg, base_model.lane_state(out[0], c),
+                          {k: v[:, c] for k, v in out[2].items()}) for c in lanes]
+    return out[0], base_model.stack_samples(probes)
+
+
+def _split_lanes(tree, b: int):
+    """A ``[B·C, ...]`` lane stack (a state, or a dict of probe tensors) as
+    ``[B, C, ...]``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((b, -1) + tuple(tree.shape[1:]))
+    if isinstance(tree, dict):
+        return {k: _split_lanes(v, b) for k, v in tree.items()}
+    return dataclasses.replace(tree, **{f.name: _split_lanes(getattr(tree, f.name), b)
+                                        for f in dataclasses.fields(tree)})
 
 
 def run_stacked(cfg, key, n_crashed, n_byzantine, probe=None, *, device):
     """The committee run: ``(key, n_crashed, n_byzantine) -> stacked final
     state [C, ...]`` on ``device``, the fault counts as run-time operands
     (runner.make_dyn_sim_fn's committee arm; the static arm passes the
-    config's own counts).  ``cfg`` must be fault-canonical
+    config's own counts).  Lane keys ``[B, 2]`` with ``[B]`` counts run a
+    sweep batch of B committee runs, JAX's ``vmap`` of it: ``[B, C,
+    ...]``.  ``cfg`` must be fault-canonical
     (models/base.canonical_fault_cfg), like every dyn program.  ``probe``
     goes to :func:`stacked_body` (``(finals, probes)`` when armed)."""
     c, m = cfg.committees, cfg.n // cfg.committees
-    alive, honest = base_model.dyn_fault_masks(cfg.n, int(n_crashed), int(n_byzantine),
+    key = np.asarray(key, np.int64)
+    alive, honest = base_model.dyn_fault_masks(cfg.n, n_crashed, n_byzantine,
                                                torch.device(device))
-    return stacked_body(cfg, _committee_keys(key, c), alive.reshape(c, m),
-                        honest.reshape(c, m), probe=probe)
+    if key.ndim == 1:
+        return stacked_body(cfg, _committee_keys(key, c), alive.reshape(c, m),
+                            honest.reshape(c, m), probe=probe)
+    b = len(key)
+    out = stacked_body(cfg, np.concatenate([_committee_keys(k, c) for k in key]),
+                       alive.reshape(b * c, m), honest.reshape(b * c, m), probe=probe,
+                       width=b)
+    return _split_lanes(out, b) if probe is None else tuple(_split_lanes(o, b) for o in out)
 
 
 def milestone_ms(protocol: str, inner_metrics: dict) -> float:

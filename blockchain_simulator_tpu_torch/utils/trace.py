@@ -214,7 +214,9 @@ def _full_series(icfg, final, ys):
 
 def _traced_committee(cfg: SimConfig, key, dev):
     """Committee hierarchy with stacked per-committee series: leaves ``[C,
-    ticks]`` (row c is committee c) and ``"t"`` the inner tick axis.  The
+    ticks]`` (row c is committee c, its taps read off its lane of the
+    committees' lane axis, topo/committee.stacked_body) and ``"t"`` the
+    inner tick axis.  The
     static arm of runner.make_sim_fn (the config's own fault counts through
     the dyn body), so the metrics are ``run_simulation``'s."""
     from blockchain_simulator_tpu_torch.topo import committee

@@ -126,8 +126,10 @@ Phases (any failure raises, and the script exits non-zero):
               shapes against its plain version, eager and under graph
               replay: PBFT's four pushes at n = 1,000,000 (rings
               [8, 10^6, 8]), Raft kregular's group at n = 10,000 (vreq
-              [D, N, 17]), committee-100k's inner group (PBFT's four pushes
-              at n = 500, W = 8) and kreg-paxos's six-member group (n =
+              [D, N, 17]), committee-100k's 200-lane group (PBFT's four
+              pushes at n = 500, W = 8, with the committees as lanes: rings
+              [D, 200, 500, 8], one launch a tick), and kreg-paxos's
+              six-member group (n =
               10,000, degree 16); device time against the bound, the plain
               version and one library call a push.
 21. kreg-1m — the artifact's largest kregular rung (tools/topo_bench.py:
@@ -137,12 +139,23 @@ Phases (any failure raises, and the script exits non-zero):
               loop, syncs and launches a tick, peak card memory.
 22. committee-100k — the artifact's committee row (PBFT, n = 100,000 in
               200 committees of 500, 150 ms, stat, "normal"), uncut, the
-              committees in turn: 200 of 200 decided, outer commit 116.0
-              ms, every milestone and stacked digest equal the golden.
+              committees side by side as 200 lanes of the tick engine (each
+              on its own key): 200 of 200 decided, outer commit 116.0 ms,
+              every milestone and stacked digest equal the golden; one
+              ring-push launch of four pushes a tick for all committees.
 23. kreg-raft-paxos — Raft (edge) and Paxos at n = 10,000 over a degree-16
               overlay, 1,000 ms each, held to their JAX goldens.
 24. kreg-equal — PBFT (edge, threefry) and Raft (stat, exact) at n = 256:
               the kregular run at k = 255 equals the dense run on the card.
+43. tick-lanes — a 4-lane fault sweep (run_byzantine_sweep, f in {0,
+              1000} x seeds {0, 1}, forge off) at the auto samplers ("rbg"
+              at n = 10,000) on config 3's Paxos (degree-16 gossip) and on
+              kreg-raft (degree-16 overlay), 500 ms each (cut for time,
+              PERF.md §4): the four lanes side by side, every row and lane
+              digest JAX's vmapped row (golden/tick_lanes_s0.json), one
+              ring-push launch a pushing tick for all four lanes; the
+              grouped kernel against its plain version on each config's
+              lane-stacked group ([D, 4, N, ...]), with its device time.
 
 25. cli-trace-round — the slice at full width: cli.main in this process
               with the headline's flags (PBFT, n = 100,000, stat,
@@ -297,6 +310,8 @@ SERVE_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "serve_s0.js
 OBSIM_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "obsim_query_s0.json"
 CHAOS_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "chaos_fleet_s0.json"
 SHARD_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "shard_s0.json"
+TICK_LANES_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "tick_lanes_s0.json"
+TICK_LANES = (("config3_paxos", "paxos"), ("kreg_raft", "raft"))  # golden entry, model
 SHARD_RUNS = ("config2", "headline_200")  # shard-nccl's golden entries, in run order
 MESH_SWEEP_GOLDEN = HERE / "blockchain_simulator_tpu_torch" / "golden" / "mesh_sweep_s0.json"
 MESH_SWEEP_A_MS = 500  # mesh-sweep (a): config 2's window cut for the world-size-1 check
@@ -606,11 +621,12 @@ def phase_tick(dev, card: str, golden: pathlib.Path, what: str, entry_name="n100
     return launches, pushes, wall
 
 
-def _tick_group(model, cfg, dev, seed=0):
+def _tick_group(model, cfg, dev, seed=0, lanes=None):
     """``(name, (ring, lo, contrib, op))`` for every push of one tick whose
     gates all fire (``model.push_members``: models/raft.py or
-    models/paxos.py), at the config's shapes; rings and contributions hold
-    values >= 0, as on the main path."""
+    models/paxos.py), at the config's shapes (with ``lanes``, the lane
+    axis's: rings ``[D, lanes, ...]``); rings and contributions hold values
+    >= 0, as on the main path."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -618,6 +634,8 @@ def _tick_group(model, cfg, dev, seed=0):
     out = []
     for name, op, b, lo in model.push_members(cfg):
         shape = getattr(bufs, name).shape
+        if lanes is not None:
+            shape = shape[:1] + (lanes,) + shape[1:]
         ring = torch.randint(0, 1 << 20, shape, generator=gen, device=dev, dtype=torch.int32)
         contrib = torch.randint(0, 1 << 20, (b, *shape[1:]), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -1707,15 +1725,16 @@ def phase_kernel_topo(dev, card: str):
     """The grouped kernel at the sparse-topology paths' new member shapes
     against its plain version, bit for bit, eager and under a CUDA-graph
     replay: PBFT's four pushes at n = 1,000,000 (the kreg-1m rung: rings
-    [8, 10^6, 8], L = N·W = 8,000,000) and Raft kregular's group at
-    n = 10,000, degree 16 (``vreq`` [D, N, K]).  Device time per call
+    [8, 10^6, 8], L = N·W = 8,000,000), Raft kregular's group at
+    n = 10,000, degree 16 (``vreq`` [D, N, K]), committee-100k's group with
+    its 200 committees as lanes ([D, 200, 500, 8]), and kreg-paxos's
+    group.  Device time per call
     (graph replay; the 1M group's ~1 GB of rings and contributions exceed
     the L2, so they come from HBM) against the bound, the plain version and
     one library call per push."""
     import torch
 
     from blockchain_simulator_tpu_torch.models import paxos, pbft, raft
-    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
     from blockchain_simulator_tpu_torch.topo import committee
     from blockchain_simulator_tpu_torch.utils.config import SimConfig
 
@@ -1725,57 +1744,75 @@ def phase_kernel_topo(dev, card: str):
     kraft, kpaxos = SimConfig(**kreg["raft"]["config"]), SimConfig(**kreg["paxos"]["config"])
     inner = committee.inner_cfg(SimConfig(**json.loads(COMMITTEE_GOLDEN.read_text())
                                           ["entries"]["committee100k"]["config"]))
-    for name, model, cfg, reps in (("pbft_1m_group", pbft, kreg1m, 10),
-                                   ("raft_kreg_group", raft, kraft, 50),
-                                   ("committee_inner_group", pbft, inner, 200),
-                                   ("paxos_kreg_group", paxos, kpaxos, 50)):
-        named = _tick_group(model, cfg, dev)
-        items = [it for _, it in named]
-        d = items[0][0].shape[0]
-        for tick in (0, 7, d - 1, cfg.ticks - 1):
-            max_err = max(max_err, _check_group_run(rk, name, items, tick, dev))
-        t = torch.tensor(cfg.ticks - 1, dtype=torch.int32, device=dev)
-        eager = [(r.clone(), off, c, op) for r, off, c, op in items]
-        rk.fused_push_group(eager, t)
-        replayed = [(r.clone(), off, c, op) for r, off, c, op in items]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            rk.fused_push_group(replayed, t)
-        graph.replay()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a[0], b[0]) for a, b in zip(eager, replayed)):
-            raise AssertionError(f"{name}: graph replay != eager launch")
-        del eager, replayed, graph
-        lib = [_library(op) for *_, op in items]
-        idx = [torch.remainder(cfg.ticks - 1 + off + torch.arange(c.shape[0], device=dev), d)
-               for _, off, c, _ in items]
-        for k, (r, off, c, op) in enumerate(items):
-            if not torch.equal(lib[k](r.clone(), idx[k], c), rk.push_plain(r.clone(), t, off, c, op)):
-                raise AssertionError(f"{name}: library call disagrees with the plain version "
-                                     f"({named[k][0]})")
-
-        def library():
-            for k, (r, _, c, _) in enumerate(items):
-                lib[k](r, idx[k], c)
-
-        fns = {"group": lambda i: rk.fused_push_group(items, t),
-               "library": lambda i: library(),
-               "plain": lambda i: rk.push_group_plain(items, t)}
-        ms = {k: _time_device_ms(f, reps) for k, f in fns.items()}
-        bound = sum(_bound_ms(c.shape[0], c[0].numel()) for _, _, c, _ in items)
-        shapes = {nm: (it[2].shape[0], it[2][0].numel()) for nm, it in named}
-        out[name] = dict(ms=ms["group"], plain_ms=ms["plain"], library_ms=ms["library"],
-                         bound_ms=bound, bound_by="bytes", members={k: list(v) for k, v in
-                                                                    shapes.items()})
-        print(f"kernel ring_push {name} on {card}: {len(items)} pushes (B, L) {shapes}: "
-              f"bit-equal to the plain version at t in (0, 7, {d - 1}, {cfg.ticks - 1}), graph "
-              f"replay == eager; device time per call (graph replay) {ms['group'] * 1e3:.3f} us "
-              f"against a {bound * 1e3:.3f} us bound ({100 * bound / ms['group']:.1f}% of it), "
-              f"{len(items)} library calls {ms['library'] * 1e3:.3f} us, plain "
-              f"{ms['plain'] * 1e3:.3f} us", flush=True)
-        del items, named
+    n_committees = SimConfig(**json.loads(COMMITTEE_GOLDEN.read_text())["entries"]
+                             ["committee100k"]["config"]).committees
+    for name, model, cfg, reps, lanes in (("pbft_1m_group", pbft, kreg1m, 10, None),
+                                          ("raft_kreg_group", raft, kraft, 50, None),
+                                          ("committee_lane_group", pbft, inner, 50,
+                                           n_committees),
+                                          ("paxos_kreg_group", paxos, kpaxos, 50, None)):
+        out[name], err = _time_group(name, model, cfg, dev, card, reps, lanes)
+        max_err = max(max_err, err)
         torch.cuda.empty_cache()
     return out, max_err
+
+
+def _time_group(name, model, cfg, dev, card: str, reps: int, lanes=None):
+    """One tick's group at the config's shapes (``lanes``: lane-stacked)
+    against its plain version, bit for bit, eager at ticks that wrap and
+    under a CUDA-graph replay; device time per call (graph replay) against
+    the bound, the plain version and one library call a push.  Returns
+    ``(row, max_abs_err)``."""
+    import torch
+
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+
+    max_err = 0
+    named = _tick_group(model, cfg, dev, lanes=lanes)
+    items = [it for _, it in named]
+    d = items[0][0].shape[0]
+    for tick in (0, 7, d - 1, cfg.ticks - 1):
+        max_err = max(max_err, _check_group_run(rk, name, items, tick, dev))
+    t = torch.tensor(cfg.ticks - 1, dtype=torch.int32, device=dev)
+    eager = [(r.clone(), off, c, op) for r, off, c, op in items]
+    rk.fused_push_group(eager, t)
+    replayed = [(r.clone(), off, c, op) for r, off, c, op in items]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rk.fused_push_group(replayed, t)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a[0], b[0]) for a, b in zip(eager, replayed)):
+        raise AssertionError(f"{name}: graph replay != eager launch")
+    del eager, replayed, graph
+    lib = [_library(op) for *_, op in items]
+    idx = [torch.remainder(cfg.ticks - 1 + off + torch.arange(c.shape[0], device=dev), d)
+           for _, off, c, _ in items]
+    for k, (r, off, c, op) in enumerate(items):
+        if not torch.equal(lib[k](r.clone(), idx[k], c), rk.push_plain(r.clone(), t, off, c, op)):
+            raise AssertionError(f"{name}: library call disagrees with the plain version "
+                                 f"({named[k][0]})")
+
+    def library():
+        for k, (r, _, c, _) in enumerate(items):
+            lib[k](r, idx[k], c)
+
+    fns = {"group": lambda i: rk.fused_push_group(items, t),
+           "library": lambda i: library(),
+           "plain": lambda i: rk.push_group_plain(items, t)}
+    ms = {k: _time_device_ms(f, reps) for k, f in fns.items()}
+    bound = sum(_bound_ms(c.shape[0], c[0].numel()) for _, _, c, _ in items)
+    shapes = {nm: (it[2].shape[0], it[2][0].numel()) for nm, it in named}
+    row = dict(ms=ms["group"], plain_ms=ms["plain"], library_ms=ms["library"],
+               bound_ms=bound, bound_by="bytes", members={k: list(v) for k, v in
+                                                          shapes.items()})
+    print(f"kernel ring_push {name} on {card}: {len(items)} pushes (B, L) {shapes}: "
+          f"bit-equal to the plain version at t in (0, 7, {d - 1}, {cfg.ticks - 1}), graph "
+          f"replay == eager; device time per call (graph replay) {ms['group'] * 1e3:.3f} us "
+          f"against a {bound * 1e3:.3f} us bound ({100 * bound / ms['group']:.1f}% of it), "
+          f"{len(items)} library calls {ms['library'] * 1e3:.3f} us, plain "
+          f"{ms['plain'] * 1e3:.3f} us", flush=True)
+    return row, max_err
 
 
 def _golden_run(entry, dev, what: str, model=None):
@@ -1867,11 +1904,11 @@ def phase_kreg_1m(dev, card: str):
 
 def phase_committee_100k(dev, card: str):
     """The artifact's committee row, PBFT at n = 100,000 in 200 committees
-    of 500, uncut, through ``runner.final_state``: the committees run in
-    turn on the inner tick engine; metrics (200 of 200 decided,
-    ``outer_commit_ms`` 116.0, every inner milestone) and every stacked
-    state digest equal the JAX golden; one ring-push launch of four pushes
-    an inner tick."""
+    of 500, uncut, through ``runner.final_state``: the committees step side
+    by side as 200 lanes of the inner tick engine; metrics (200 of 200
+    decided, ``outer_commit_ms`` 116.0, every inner milestone) and every
+    stacked state digest equal the JAX golden; one ring-push launch of four
+    pushes a tick for all committees."""
     import torch
 
     entry = json.loads(COMMITTEE_GOLDEN.read_text())["entries"]["committee100k"]
@@ -1883,10 +1920,10 @@ def phase_committee_100k(dev, card: str):
     if (metrics["committees_decided"], metrics["outer_commit_ms"]) != (c, 116.0):
         raise AssertionError(f"committee-100k: {metrics['committees_decided']} of {c} "
                              f"decided, outer commit {metrics['outer_commit_ms']} ms")
-    if (launches, pushes) != (inner_ticks, 4 * inner_ticks):
+    if (launches, pushes) != (cfg.ticks, 4 * cfg.ticks):
         raise AssertionError(f"committee-100k: ring_push made {launches} launches and "
-                             f"{pushes} pushes, want one launch of four pushes an inner tick "
-                             f"({inner_ticks})")
+                             f"{pushes} pushes, want one launch of four pushes a tick for "
+                             f"all {c} committees ({cfg.ticks})")
     miles = metrics["inner_milestones_ms"]
     print(f"committee-100k: pbft n={cfg.n} in {c} committees of {cfg.n // c}, "
           f"{cfg.delivery}/{cfg.eff_stat_sampler} sim_ms={cfg.sim_ms}: decided "
@@ -1894,7 +1931,8 @@ def phase_committee_100k(dev, card: str):
           f"(quorum {metrics['outer_quorum']}, round {metrics['outer_round_ms']} ms), inner "
           f"milestones {min(miles)}..{max(miles)} ms", flush=True)
     print(f"committee-100k on {card}: wall {wall:.3f} s, {wall / c:.4f} s a committee, "
-          f"{inner_ticks / wall:.1f} inner ticks/s; peak allocated {peak / 2**20:.1f} MiB; "
+          f"{cfg.ticks / wall:.1f} ticks/s of {c} lanes ({inner_ticks / wall:.1f} committee "
+          f"ticks/s); peak allocated {peak / 2**20:.1f} MiB; "
           f"ring_push launches {launches} and pushes {pushes}; metrics, the {c} inner "
           f"milestones and all stacked state digests equal the JAX golden", flush=True)
     return dict(wall_s=wall, committees=c, s_per_committee=wall / c,
@@ -1972,6 +2010,69 @@ def phase_kreg_equal(dev, card: str):
 # --------------------------------------------------------------------------- #
 # traces, run manifests and the command line                                  #
 # --------------------------------------------------------------------------- #
+
+
+def phase_tick_lanes(dev, card: str):
+    """A 4-lane fault sweep (f x seeds) on config 3's Paxos and on kreg-raft
+    at n = 10,000, auto samplers ("rbg"), through ``run_byzantine_sweep``:
+    the lanes side by side (one ``dyn_batched_fn`` batch), every row and
+    lane digest JAX's vmapped row, one ring-push launch a pushing tick for
+    all lanes (counted around the model's ``ring_push_group``, the
+    counters set to 0 just before the sweep and read just after); then the
+    grouped kernel against its plain version on the config's lane-stacked
+    group, with its device time."""
+    import importlib
+
+    import torch
+
+    from blockchain_simulator_tpu_torch.parallel import sweep
+    from blockchain_simulator_tpu_torch.ops import ring_kernel as rk
+    from blockchain_simulator_tpu_torch.utils.config import SimConfig
+
+    doc = json.loads(TICK_LANES_GOLDEN.read_text())["entries"]["chip"]
+    out, groups, max_err = {}, {}, 0
+    for name, proto in TICK_LANES:
+        entry = doc[name]
+        model = importlib.import_module(f"blockchain_simulator_tpu_torch.models.{proto}")
+        cfg = SimConfig(**entry["config"])
+        f_values, seeds = entry["f_values"], entry["seeds"]
+        lanes = len(f_values) * len(seeds)
+        if sweep.vmapped_rule(cfg) != "first-lane" or not sweep.lane_axis(cfg):
+            raise AssertionError(f"tick-lanes {name}: not a lane batch on Philox draws")
+        with _Recorded() as rec, _GroupCalls(model) as calls:
+            torch.cuda.synchronize()
+            rk.launches = rk.pushes = 0
+            t0 = time.perf_counter()
+            rows = sweep.run_byzantine_sweep(cfg, f_values=f_values, seeds=seeds, forge=False,
+                                             device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, pushes = rk.launches, rk.pushes
+        metrics = [{k: v for k, v in r.items() if k not in ("f", "seed")} for r in rows]
+        _check_sweep({"rows": entry["metrics"], "lane_sha256": entry["sha256"]}, metrics,
+                     rec.digests, f"tick-lanes {name}")
+        if launches == 0 or (launches, pushes) != (calls.ticks, calls.members) \
+                or calls.ticks > cfg.ticks:
+            raise AssertionError(f"tick-lanes {name}: ring_push made {launches} launches and "
+                                 f"{pushes} pushes; the ticks that push were {calls.ticks} "
+                                 f"with {calls.members} members (one launch each, all lanes)")
+        groups[name], err = _time_group(f"tick_lanes_{name}_group", model, cfg, dev, card,
+                                        50, lanes)
+        max_err = max(max_err, err)
+        print(f"tick-lanes {name}: {proto} n={cfg.n} {cfg.topology} degree {cfg.degree} "
+              f"sim_ms={cfg.sim_ms} edge sampler {cfg.eff_edge_sampler}, "
+              f"run_byzantine_sweep f={f_values} x seeds={seeds} forge off: {lanes} lanes",
+              flush=True)
+        print(f"tick-lanes {name} on {card}: wall {wall:.3f} s for one batch of {lanes} "
+              f"lanes x {cfg.ticks} ticks ({cfg.ticks / wall:.1f} ticks/s of {lanes} lanes), "
+              f"ring_push launches {launches} and pushes {pushes} ({launches / cfg.ticks:.3f} "
+              f"launches a tick), rows + every lane's state digests equal JAX's vmapped rows",
+              flush=True)
+        out[name] = dict(wall_s=wall, lanes=lanes, ticks=cfg.ticks,
+                         ticks_per_s=cfg.ticks / wall, launches=launches, pushes=pushes,
+                         launches_per_tick=launches / cfg.ticks)
+        torch.cuda.empty_cache()
+    return out, groups, max_err
 
 
 def _series_summary(series: dict) -> dict:
@@ -2224,14 +2325,13 @@ def phase_trace_mixed(dev, card: str):
 def phase_trace_committee(dev, card: str):
     """PBFT n = 5,000 in 10 committees of 500, 150 ms, stat, "normal" (the
     committee row's knobs) through ``run_traced``: stacked ``[10, 150]``
-    series equal the JAX golden; one ring-push launch of four pushes an
-    inner tick."""
+    series equal the JAX golden; one ring-push launch of four pushes a tick
+    for all committees (the committees are lanes)."""
 
     def check(cfg, metrics, series, launches, pushes):
-        inner = cfg.committees * cfg.ticks
-        if (launches, pushes) != (inner, 4 * inner):
+        if (launches, pushes) != (cfg.ticks, 4 * cfg.ticks):
             raise AssertionError(f"trace-committee: ring_push made {launches} launches and "
-                                 f"{pushes} pushes, want {inner} and {4 * inner}")
+                                 f"{pushes} pushes, want {cfg.ticks} and {4 * cfg.ticks}")
 
     return _traced_phase("trace_committee", dev, card, check)
 
@@ -3367,9 +3467,12 @@ def main() -> int:
             committee = phase_committee_100k(dev, card)
             kreg_rp = phase_kreg_raft_paxos(dev, card)
             kreg_equal = phase_kreg_equal(dev, card)
+            t_lanes = time.perf_counter()
+            tick_lanes, lane_groups, lanes_err = phase_tick_lanes(dev, card)
+            print(f"tick-lanes phase: {time.perf_counter() - t_lanes:.3f} s", flush=True)
             print(f"sparse-topology phases (topo-kernel, kreg-1m, committee-100k, "
-                  f"kreg-raft-paxos, kreg-equal): {time.perf_counter() - t_topo:.3f} s",
-                  flush=True)
+                  f"kreg-raft-paxos, kreg-equal, tick-lanes): "
+                  f"{time.perf_counter() - t_topo:.3f} s", flush=True)
             mesh_sweep = phase_mesh_sweep(card, mesh_child)
         finally:
             stop_shard_nccl(mesh_child)
@@ -3421,7 +3524,7 @@ def main() -> int:
         "pushes": pushes,
         "launches_tick_stat": stat_launches,  # the tick-stat path's run
         "pushes_tick_stat": stat_pushes,
-        "max_abs_err": max(max_err, raft_err, paxos_err, mixed_err, topo_err),
+        "max_abs_err": max(max_err, raft_err, paxos_err, mixed_err, topo_err, lanes_err),
         "ms": group["ms"],
         "plain_ms": group["plain_ms"],
         "bound_ms": group["bound_ms"],
@@ -3449,11 +3552,17 @@ def main() -> int:
         "raft_kreg_group": dict(topo_groups["raft_kreg_group"],
                                 launches=kreg_rp["raft"]["launches"],
                                 pushes=kreg_rp["raft"]["pushes"]),
-        # committee-100k's inner group: PBFT's four pushes at n = 500, W = 8,
-        # launched once an inner tick of every committee
-        "committee_inner_group": dict(topo_groups["committee_inner_group"],
-                                      launches=committee["launches"],
-                                      pushes=committee["pushes"]),
+        # committee-100k's group: PBFT's four pushes at n = 500, W = 8, with
+        # the 200 committees as lanes, rings [D, 200, 500, 8]: one launch a
+        # tick for all committees
+        "committee_lane_group": dict(topo_groups["committee_lane_group"],
+                                     launches=committee["launches"],
+                                     pushes=committee["pushes"]),
+        # tick-lanes: four lanes of config 3's Paxos and of kreg-raft, rings
+        # [D, 4, N, ...]
+        **{f"tick_lanes_{k}_group": dict(v, launches=tick_lanes[k]["launches"],
+                                         pushes=tick_lanes[k]["pushes"])
+           for k, v in lane_groups.items()},
         # Paxos over a degree-16 overlay at n = 10^4: its own six-member group
         "paxos_kreg_group": dict(topo_groups["paxos_kreg_group"],
                                  launches=kreg_rp["paxos"]["launches"],
@@ -3470,6 +3579,8 @@ def main() -> int:
                              "kreg_1m": kreg_1m["launches"],
                              "committee_100k": committee["launches"],
                              **{f"kreg_{k}": v["launches"] for k, v in kreg_rp.items()},
+                             **{f"tick_lanes_{k}": v["launches"]
+                                for k, v in tick_lanes.items()},
                              **{f"kreg_equal_{k}": v["launches"]
                                 for k, v in kreg_equal.items()},
                              "cli_trace_tick": traced["cli_trace_tick"]["launches"],
@@ -3491,6 +3602,7 @@ def main() -> int:
                            "kreg_1m": kreg_1m["pushes"],
                            "committee_100k": committee["pushes"],
                            **{f"kreg_{k}": v["pushes"] for k, v in kreg_rp.items()},
+                           **{f"tick_lanes_{k}": v["pushes"] for k, v in tick_lanes.items()},
                            **{f"kreg_equal_{k}": v["pushes"] for k, v in kreg_equal.items()},
                            "cli_trace_tick": traced["cli_trace_tick"]["pushes"],
                            "trace_hb": traced["trace_hb"]["pushes"],
@@ -3514,6 +3626,7 @@ def main() -> int:
                                 "drop_sweep": drop, "checkpoint": ckpt,
                                 "kreg_1m": kreg_1m, "committee_100k": committee,
                                 "kreg_raft_paxos": kreg_rp, "kreg_equal": kreg_equal,
+                                "tick_lanes": tick_lanes,
                                 **traced, **served, **durable, "fleet": fleet_paths,
                                 "shard_nccl": sharded, "mesh_sweep": mesh_sweep}}),
           flush=True)

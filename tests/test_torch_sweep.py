@@ -10,7 +10,7 @@ port's from its own ``dyn_batched_fn``.  The cases:
 - the round path over lanes of different seeds on both stat samplers (under
   ``"normal"`` a vmapped row is not its solo run: the first-lane rule, which
   the case also shows);
-- the forge sweep on the PBFT tick engine (exact draws: lanes in turn);
+- the forge sweep on the PBFT tick engine (its lanes side by side);
 - a Raft crash sweep on the heartbeat path whose lanes mix a taken and a
   refused handoff (``"normal"`` draws), and Raft sweeps on the tick engine
   (edge threefry and rbg, stat normal);
@@ -18,9 +18,10 @@ port's from its own ``dyn_batched_fn``.  The cases:
 - ``run_multi_seed`` (solo semantics) on the ``"normal"`` round path;
 - the mixed sim's static fallback in ``run_fault_sweep``.
 
-Beside them: the fault masks and canonical configs against JAX's, the
-refusals (the mixed sim, a ``"normal"`` PBFT tick batch, the arms later
-slices bring), a one-lane batch against ``final_state``, and JAX's finals
+Beside them: the fault masks and canonical configs against JAX's, a
+``"normal"`` PBFT tick batch against JAX's rows, the refusals (the mixed
+sim, the arms later slices bring), a one-lane batch against
+``final_state``, and JAX's finals
 carried across with ``convert``.  The JAX side of each sweep is computed once
 a process (the ``runs`` fixture), and no case reads another's.
 
@@ -98,7 +99,7 @@ SWEEPS = {
                      dict(f_values=[0, 10, 21], seeds=(0, 1), forge=False)),
     "round_exact": (dict(ROUND, stat_sampler="exact"), "byz",
                     dict(f_values=[0, 10, 21], seeds=(0, 1), forge=False)),
-    # the forging attack on the PBFT tick engine (exact draws: lanes in turn)
+    # the forging attack on the PBFT tick engine (its lanes side by side)
     "forge_tick": (dict(protocol="pbft", n=8, sim_ms=400), "byz",
                    dict(f_values=[0, 1, 2], seeds=(1,), forge=True)),
     # 9 of 16 crashed elect no leader: those lanes' handoffs are refused
@@ -396,14 +397,17 @@ def test_make_dyn_sim_fn_refuses_mixed():
 
 
 def test_normal_tick_batch_raises():
-    """A vmapped batch of the PBFT tick engine on ``"normal"`` draws needs a
-    lane axis the port's tick engine lacks: refused, naming the slice; one
-    lane, or exact draws, run."""
-    _, tcfg = _cfgs(protocol="pbft", n=16, sim_ms=120, delivery="stat",
-                    stat_sampler="normal", schedule="tick")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsweep.run_byzantine_sweep(tcfg, f_values=[0, 1], seeds=(0,), forge=False,
-                                   device="cpu")
+    """A vmapped batch of the PBFT tick engine on ``"normal"`` draws, once
+    refused, runs its lanes side by side on the tick engine's lane axis:
+    its rows and every lane's final-state fields are JAX's vmapped rows,
+    and one lane runs as well."""
+    jcfg, tcfg = _cfgs(protocol="pbft", n=16, sim_ms=120, delivery="stat",
+                       stat_sampler="normal", schedule="tick")
+    args = dict(f_values=[0, 1], seeds=(0,), forge=False)
+    with _Recorded() as rec:
+        trows = _sweep(tsweep, tcfg, "byz", args, device="cpu")
+    assert trows == _sweep(jsweep, jcfg, "byz", args)
+    assert rec.digests == _jax_lane_digests(jcfg, "byz", args)
     assert len(tsweep.run_byzantine_sweep(tcfg, f_values=[1], seeds=(0,), forge=False,
                                           device="cpu")) == 1
 

@@ -465,8 +465,9 @@ def test_raft_kregular_edge_ring_is_n_by_k():
     assert tuple(tb.vreq.shape) == jb.vreq.shape == (tcfg.ring_depth, 12, 5)
     stat = tcfg.with_(delivery="stat")
     assert tuple(traft.init(stat, device="cpu")[1].vreq.shape) == (tcfg.ring_depth, 12)
-    with pytest.raises(NotImplementedError):  # no shard axis over the overlay
-        traft.init(tcfg, np.stack([threefry.key(0), threefry.key(1)]), device="cpu")
+    # lane keys [2, 2] stack two lanes over the overlay: the ring [D, 2, N, K]
+    _, lanes = traft.init(tcfg, np.stack([threefry.key(0), threefry.key(1)]), device="cpu")
+    assert tuple(lanes.vreq.shape) == (tcfg.ring_depth, 2, 12, 5)
 
 
 @pytest.mark.parametrize("protocol", ["pbft", "raft", "paxos"])
@@ -541,7 +542,7 @@ def test_kregular_checkpoint_crosses_packages(tmp_path):
 
 def test_kregular_sweep_equals_jax():
     """A fault sweep over a kregular config: one structure group, its lanes
-    in turn, rows equal to JAX's."""
+    side by side, rows equal to JAX's."""
     jcfg, tcfg = _cfgs(**dict(KREG, protocol="pbft", n=12, sim_ms=250, degree=8))
     levels = [dict(n_byzantine=0), dict(n_byzantine=2), dict(n_crashed=3)]
     want = jsweep.run_fault_sweep(jcfg, [jconfig.FaultConfig(**f) for f in levels], (0, 1))
